@@ -1,0 +1,120 @@
+"""Build TransformerParams on a device from a .lmrs file, or from the JAX
+package's parameters.
+
+Quantized tensors go to the device as the file stores them (packed Q4
+bytes + f32 scales); the adjacent-pair file bytes are repacked into the
+runtime group-half layout ON THE DEVICE with torch ops (a host repack of a
+9B model's ~4.9 GB is slow).  The [q; k; v] and [gate; up] row
+concatenations are built from per-tensor device copies.
+"""
+
+from __future__ import annotations
+
+import warnings
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from lmrs_tpu_torch.config import (ModelConfig, ModelType, QuantType,
+                                   resolve_device, unsupported)
+from lmrs_tpu_torch.io.lmrs import LmrsFile
+from lmrs_tpu_torch.models.transformer import LayerWeights, TransformerParams
+from lmrs_tpu_torch.ops.rope import rope_tables
+from lmrs_tpu_torch.quant import QTensor, q4_file_to_runtime
+
+
+def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A private device copy of a host array (memmap views are read-only,
+    so the host tensor is never handed out)."""
+    arr = np.ascontiguousarray(arr)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # non-writable memmap
+        t = torch.from_numpy(arr)
+    return t.to(device, copy=True)
+
+
+def _check_q4(cfg: ModelConfig) -> None:
+    if cfg.quant != QuantType.Q4_0:
+        raise unsupported(f"{cfg.quant.name} weights",
+                          "A7 Q8_0 and float weights")
+
+
+def params_from_lmrs(f: LmrsFile, device=None) -> TransformerParams:
+    """From a parsed .lmrs file's zero-copy tensor views, onto `device`
+    (default cuda; raises without a GPU)."""
+    device = resolve_device(device)
+    cfg = f.cfg
+    _check_q4(cfg)
+    t = f.tensors
+    gs = cfg.group_size
+
+    def q4(names, l=None):
+        keys = [n if l is None else f"{n}@{l}" for n in names]
+        q = torch.cat([_to_device(t[k][0], device) for k in keys])
+        s = torch.cat([_to_device(t[k][1], device) for k in keys])
+        return QTensor(q4_file_to_runtime(q, gs).contiguous(), s, cfg.quant,
+                       gs, q.shape[0], q.shape[1] * 2)
+
+    def norm(name, l=None):
+        key = name if l is None else f"{name}@{l}"
+        return _to_device(t[key][0], device)
+
+    gemma = cfg.model_type == ModelType.GEMMA
+    layers = [LayerWeights(
+        att_norm=norm("att_norm", l),
+        wqkv=q4(("wq", "wk", "wv"), l),
+        wo=q4(("wo",), l),
+        post_att_norm=norm("post_att_norm", l),
+        pre_ffn_norm=norm("pre_ffn_norm", l) if gemma else None,
+        w13=q4(("w1", "w3"), l),
+        w2=q4(("w2",), l),
+        post_ffn_norm=norm("post_ffn_norm", l) if gemma else None,
+    ) for l in range(cfg.n_layers)]
+    cos, sin = rope_tables(cfg)
+    return TransformerParams(
+        embed=q4(("embed",)), layers=layers, final_norm=norm("final_norm"),
+        lm_head=q4(("lm_head",)) if cfg.model_type == ModelType.PHI else None,
+        rope_cos=_to_device(cos, device), rope_sin=_to_device(sin, device))
+
+
+def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
+                    device=None) -> TransformerParams:
+    """From the JAX package's row-major stacked parameters
+    (`lmrs_tpu.io.params.params_from_lmrs(f, stack_layers=True,
+    fuse_qkv=True)`) flattened to numpy: "embed.q", "embed.s",
+    "layers.wqkv.q" (L, O, K/2) runtime-layout bytes, "layers.wqkv.s"
+    (L, O, G), "layers.att_norm" (L, D), ..., "final_norm", "lm_head.q",
+    "rope_cos", "rope_sin".  Its Q4 bytes are already in the runtime
+    layout, so they are copied as they are.  K-major tiles are refused."""
+    device = resolve_device(device)
+    _check_q4(cfg)
+    gs = cfg.group_size
+    if arrays["embed.q"].ndim != 2 or arrays["layers.wqkv.q"].ndim != 3:
+        raise unsupported("K-major weight tiles",
+                          "A18 K-major parameter input")
+
+    def qt(prefix, l=None):
+        q, s = arrays[f"{prefix}.q"], arrays[f"{prefix}.s"]
+        if l is not None:
+            q, s = q[l], s[l]
+        return QTensor(_to_device(q, device), _to_device(s, device),
+                       cfg.quant, gs, q.shape[0], q.shape[1] * 2)
+
+    def norm(name, l):
+        key = f"layers.{name}"
+        return _to_device(arrays[key][l], device) if key in arrays else None
+
+    layers: List[LayerWeights] = [LayerWeights(
+        att_norm=norm("att_norm", l), wqkv=qt("layers.wqkv", l),
+        wo=qt("layers.wo", l), post_att_norm=norm("post_att_norm", l),
+        pre_ffn_norm=norm("pre_ffn_norm", l), w13=qt("layers.w13", l),
+        w2=qt("layers.w2", l), post_ffn_norm=norm("post_ffn_norm", l),
+    ) for l in range(cfg.n_layers)]
+    lm_head: Optional[QTensor] = (qt("lm_head") if "lm_head.q" in arrays
+                                  else None)
+    return TransformerParams(
+        embed=qt("embed"), layers=layers,
+        final_norm=_to_device(arrays["final_norm"], device), lm_head=lm_head,
+        rope_cos=_to_device(arrays["rope_cos"], device),
+        rope_sin=_to_device(arrays["rope_sin"], device))

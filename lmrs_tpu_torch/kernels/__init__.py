@@ -1,0 +1,26 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their wrappers.
+
+Each wrapper launches its kernel for CUDA tensors, or raises; for CPU
+tensors it runs the kernel's plain PyTorch version, which sits in the same
+module.  Each wrapper counts its kernel launches in `<wrapper>.launches`.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm
+from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv
+
+WRAPPERS = {"q4_gemv": q4_gemv, "q4_gemm": q4_gemm,
+            "flash_attention": flash_attention}
+
+
+def reset_launches() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

@@ -1,0 +1,19 @@
+"""Activation functions of the FFNs."""
+
+from __future__ import annotations
+
+import torch
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU, used by Llama/Phi FFNs."""
+    x32 = x.float()
+    return (x32 * (1.0 / (1.0 + torch.exp(-x32)))).to(x.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """tanh-approximated GELU, used by Gemma FFNs."""
+    x32 = x.float()
+    c = 0.7978845608028654  # sqrt(2/pi)
+    inner = c * (x32 + 0.044715 * x32 * x32 * x32)
+    return (x32 * 0.5 * (1.0 + torch.tanh(inner))).to(x.dtype)

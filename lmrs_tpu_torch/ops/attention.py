@@ -1,0 +1,73 @@
+"""GQA attention over a KV-cache prefix — the plain version of the flash
+attention kernel (`lmrs_tpu_torch.kernels.flash_attention`).
+
+One batched product over all heads against the cache rows, with the causal
+structure and Gemma's sliding window expressed as masks, and lm.rs's exact
+-2.3819763e38 window constant.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_WINDOW_NEG = -2.3819763e38
+_MASK_NEG = torch.finfo(torch.float32).min
+
+
+def attention(
+    q: torch.Tensor,         # (T, H, head_dim) float32, RoPE already applied
+    k_cache: torch.Tensor,   # (S, KH, head_dim) rotated keys
+    v_cache: torch.Tensor,   # (S, KH, head_dim)
+    pos: int,                # absolute position of query token 0
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    precision: str = "highest",
+) -> torch.Tensor:
+    """Causal grouped-query attention; returns (T, H, head_dim) float32.
+
+    Queries at positions pos..pos+T-1 attend to cache rows t <= their
+    position; Gemma's sliding window adds _WINDOW_NEG where q_pos - t >
+    window.
+
+    precision="highest": float32 operands.  precision="fast": q, K, V and
+    the softmax weights are rounded to bf16 before each product, and the
+    products accumulate in float32 — the serving numerics, which the kernel
+    computes.  Both run as float32 matmuls, so TF32 must be off on the card
+    (it is, by PyTorch's default; `lmrs_tpu_torch.kernels.cuda.
+    plain_numerics` pins it).
+    """
+    t_q, n_heads, head_dim = q.shape
+    s_len, n_kv, _ = k_cache.shape
+    kv_group = n_heads // n_kv
+    if precision == "fast":
+        rnd = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    else:
+        rnd = lambda a: a.float()  # noqa: E731
+
+    qg = rnd(q).reshape(t_q, n_kv, kv_group, head_dim)
+    k_in = rnd(k_cache)
+    v_in = rnd(v_cache)
+
+    scores = torch.einsum("tkgd,skd->tkgs", qg, k_in) * scale    # (T,KH,G,S)
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+
+    dev = q.device
+    t_idx = torch.arange(s_len, device=dev)[None, :]              # (1, S)
+    q_pos = pos + torch.arange(t_q, device=dev)[:, None]          # (T, 1)
+    if window is not None:
+        win = torch.where(q_pos - t_idx <= window, 0.0, _WINDOW_NEG)
+        scores = scores + win[:, None, None, :]
+    causal = t_idx <= q_pos
+    scores = torch.where(causal[:, None, None, :], scores, _MASK_NEG)
+
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    att = e / e.sum(dim=-1, keepdim=True)
+
+    out = torch.einsum("tkgs,skd->tkgd", rnd(att), v_in)
+    return out.reshape(t_q, n_heads, head_dim).float()
