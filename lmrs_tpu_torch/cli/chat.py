@@ -8,15 +8,19 @@ Usage:
         [--tokenizer tokenizer.bin] [--temperature 0.7] [--top-p 0.9]
         [--seed N] [--max-new-tokens N] [--show-metrics] [--device cpu]
 
-Runs on the GPU unless --device names another device.  The flags of the
-JAX package's CLI that this package does not cover yet (--spec-k, --image,
---cache-dtype other than bfloat16, --tp, --cp) are accepted and raise.
+Runs on the GPU unless --device names another device.  --show-metrics
+prints, after each reply, its speed and the CUDA kernel launches since
+the program started (0 on the CPU, where the plain versions run).  The flags
+of the JAX package's CLI that this package does not cover yet (--spec-k,
+--image, --cache-dtype other than bfloat16, --tp, --cp) are accepted and
+raise.
 """
 
 from __future__ import annotations
 
 import argparse
 import datetime
+import json
 import os
 import sys
 import time
@@ -83,6 +87,7 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import params_from_lmrs
+    from lmrs_tpu_torch.kernels import launches
     from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
     from lmrs_tpu_torch.tokenizer import (EXTRA_STOP_TOKENS, StreamDecoder,
                                           Tokenizer)
@@ -142,6 +147,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"Speed: {n_tokens / dt:.2f} tok/s  (decode "
                   f"{m.tokens_per_second:.2f} tok/s, TTFT "
                   f"{1e3 * (m.ttft_seconds or 0.0):.1f} ms, {device})")
+            print(f"Kernel launches since start: {json.dumps(launches())}")
 
 
 if __name__ == "__main__":

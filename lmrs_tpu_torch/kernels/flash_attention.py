@@ -39,6 +39,24 @@ def flash_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                      window=window, precision="fast")
 
 
+def flash_attention_tol(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, layer: int, pos: int,
+                        **kw) -> torch.Tensor:
+    """Per-element bound on |kernel - plain version|, (T, H, hd) f32.
+
+    The kernel rounds each unnormalized softmax weight exp(s - m) to bf16,
+    the plain version each normalized weight: each side's weight is within
+    2^-8 of the exact one, so the two outputs differ by at most
+    2^-7 * sum_j w_j |v_j|, which is the plain version run on |v|.  The
+    added 2^-9 of that sum covers the float32 differences, worst case at
+    hd 256 and 4,097 keys: scores summed in another order (3e-4) and the
+    p.V sums in another order (5e-4 for both sides).  The bound follows
+    the softmax weights, so it shrinks where a wrong key set would show.
+    """
+    a = flash_attention_plain(q, k_cache, v_cache.abs(), layer, pos, **kw)
+    return (2.0 ** -7 + 2.0 ** -9) * a
+
+
 def _entry():
     fn = cuda.library("flash_attention").lmrs_flash_attention
     if fn.argtypes is None:

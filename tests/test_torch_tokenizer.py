@@ -82,6 +82,9 @@ def test_chat_cli_answers_on_cpu(tmp_path):
         env=env, cwd=str(tmp_path))
     assert out.returncode == 0, out.stderr
     assert "Assistant:" in out.stdout and "Speed:" in out.stdout
+    # the plain versions ran: no CUDA kernel was launched
+    assert ('Kernel launches since start: {"q4_gemv": 0, "q4_gemm": 0, '
+            '"flash_attention": 0}') in out.stdout
     assert "jax" not in out.stderr.lower()
     bad = subprocess.run(
         [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
