@@ -7,13 +7,15 @@ Usage:
     python -m lmrs_tpu_torch.cli.chat --model model.lmrs
         [--tokenizer tokenizer.bin] [--temperature 0.7] [--top-p 0.9]
         [--seed N] [--max-new-tokens N] [--show-metrics] [--device cpu]
+        [--cache-dtype bfloat16|int8]
 
 Runs on the GPU unless --device names another device.  --show-metrics
 prints, after each reply, its speed and the CUDA kernel launches since
-the program started (0 on the CPU, where the plain versions run).  The flags
-of the JAX package's CLI that this package does not cover yet (--spec-k,
---image, --cache-dtype other than bfloat16, --tp, --cp) are accepted and
-raise.
+the program started (0 on the CPU, where the plain versions run).  Q8_0
+layer weights decode with int8 activations (W8A8) unless the environment
+sets LMRS_W8A8=0, the JAX package's own switch.  The flags of the JAX
+package's CLI that this package does not cover yet (--spec-k, --image,
+--cache-dtype float32 or int4, --tp, --cp) are accepted and raise.
 """
 
 from __future__ import annotations
@@ -73,9 +75,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         raise unsupported("--spec-k", "A9 speculative decoding")
     if args.image:
         raise unsupported("--image", "A13 multimodal")
-    if args.cache_dtype != "bfloat16":
+    if args.cache_dtype not in ("bfloat16", "int8"):
         raise unsupported(f"--cache-dtype {args.cache_dtype}",
-                          "A8 int8/int4 KV cache")
+                          "A8 int4 and f32 KV caches")
     if args.tp > 1 or args.cp > 1:
         raise unsupported("--tp / --cp", "A15 torch.distributed tp/cp")
     device = resolve_device(args.device)
@@ -102,7 +104,11 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"Using {cfg.quant.name} quantization.")
     print(f"Loading weights onto {device}...")
     params = params_from_lmrs(f, device=device)
-    engine = Engine(cfg, params, device=device)
+    import torch
+
+    engine = Engine(cfg, params, device=device,
+                    cache_dtype=getattr(torch, args.cache_dtype),
+                    w8a8=os.environ.get("LMRS_W8A8", "1") == "1")
     print("Done.\n")
     gen = GenerationConfig(temperature=args.temperature, top_p=args.top_p,
                            seed=args.seed, max_new_tokens=args.max_new_tokens)

@@ -1,6 +1,10 @@
-// Kernel C — flash attention over one layer of the bf16 KV cache
-// (t_q <= 256 query tokens: decode steps and prefill chunks).
+// Kernels C and G — flash attention over one layer of the KV cache (t_q <=
+// 256 query tokens: decode steps and prefill chunks).  C reads a bf16 cache,
+// G an int8 cache with one f32 scale per (kv head, row); they are the two
+// instantiations of one kernel template and share everything but the tile
+// load and two multiplies.
 //
+// Kernel C.
 // Computes ops.attention.attention(q, k[l, :n], v[l, :n], pos,
 // precision="fast"): q rounded to bf16, K/V bf16, f32 scores * scale,
 // tanh(s / cap) * cap, Gemma's sliding window (q_pos - t > window masked),
@@ -31,9 +35,24 @@
 // to cancel it).  K/V rows outside [window start, last live] are
 // zero-filled in shared memory, so stale cache rows never reach p.V.
 //
-// Later: at T = 1 there are only KH blocks (8 for Gemma-2-9B) on 132 SMs;
-// a split along the sequence (flash-decoding) with a merge pass fills the
-// card.
+// Kernel G.  The cache holds int8 rows (S, KH*hd) and f32 scales (KH, S),
+// one per (kv head, row): k = k_int * ks, v = v_int * vs.  Replaces
+// _flash_kernel with quantized=True (_head_block_update): the key scale
+// multiplies the score column, s = ((bf16(q) . k_int) * scale) * ks[j], and
+// the value scale folds into the softmax weight before its bf16 rounding,
+// o += bf16(p * vs[j]) . v_int, while the running sum takes p itself.  An
+// int8 value is exact in bf16, so the tile is converted on its way into
+// shared memory and both products run on the same WMMA path as C: no float
+// K/V tile is ever written to device memory.  The scales are laid out with
+// the sequence last, so a block, which owns one kv head, reads a contiguous
+// run of them per tile.  Scales of rows outside [window start, last live]
+// are never read (a stale scale may hold anything): they are set to 0 in
+// shared memory beside the zero-filled rows.  Bound: bytes at decode, half
+// of C's (1 byte per cached value plus 4/hd of scale).
+//
+// Later: at T = 1 there are only KH blocks (8 for Gemma-2-9B and
+// Llama-3.2-3B) on 132 SMs; a split along the sequence (flash-decoding)
+// with a merge pass fills the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,7 +70,7 @@ constexpr int kWarps = 4;       // each warp owns 16 query rows
 constexpr int LDP = BKV + 8;    // bf16 stride of the p tile
 constexpr int LDS = BKV + 4;    // f32 stride of the score tile
 
-template <int HD>
+template <int HD, bool I8>
 struct Smem {
   static constexpr int LDH = HD + 8;   // bf16 stride of the q/k/v tiles
   static constexpr int LDO = HD + 4;   // f32 stride of the output tile
@@ -63,16 +82,41 @@ struct Smem {
   static constexpr size_t o_off = p_off + sizeof(__nv_bfloat16) * BQ * LDP;
   static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
   static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t bytes = l_off + sizeof(float) * BQ;
+  static constexpr size_t ks_off = l_off + sizeof(float) * BQ;   // I8 only
+  static constexpr size_t vs_off = ks_off + sizeof(float) * BKV;  // I8 only
+  static constexpr size_t bytes = I8 ? vs_off + sizeof(float) * BKV : ks_off;
 };
 
-template <int HD>
+// 16 int8 values -> 16 bf16 values (exact) at dst, 32-byte aligned
+__device__ __forceinline__ void store16_i8_as_bf16(__nv_bfloat16* dst,
+                                                   uint4 v) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  __align__(16) __nv_bfloat162 out[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const int b0 = (int)(int8_t)(words[w] & 0xFFu);
+    const int b1 = (int)(int8_t)((words[w] >> 8) & 0xFFu);
+    const int b2 = (int)(int8_t)((words[w] >> 16) & 0xFFu);
+    const int b3 = (int)(int8_t)(words[w] >> 24);
+    out[2 * w] = __floats2bfloat162_rn((float)b0, (float)b1);
+    out[2 * w + 1] = __floats2bfloat162_rn((float)b2, (float)b3);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = *reinterpret_cast<const uint4*>(&out[0]);
+  d[1] = *reinterpret_cast<const uint4*>(&out[4]);
+}
+
+// kc, vc: one layer of the cache, (S, row_stride) bf16 (C) or int8 (G);
+// kscale, vscale: the layer's (KH, S) f32 scales (G), unused for C.
+template <int HD, bool I8>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-             const __nv_bfloat16* __restrict__ vc, float* __restrict__ out,
+flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
+             const void* __restrict__ vc_raw,
+             const float* __restrict__ kscale,
+             const float* __restrict__ vscale, float* __restrict__ out,
              int T, int H, int KH, int S, int row_stride, int pos,
              float scale, float softcap, int window) {
-  using L = Smem<HD>;
+  using L = Smem<HD, I8>;
   constexpr int LDH = L::LDH, LDO = L::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
@@ -83,6 +127,8 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
   float* os = reinterpret_cast<float*>(smem + L::o_off);
   float* ms = reinterpret_cast<float*>(smem + L::m_off);
   float* ls = reinterpret_cast<float*>(smem + L::l_off);
+  float* ksc = reinterpret_cast<float*>(smem + L::ks_off);   // I8 only
+  float* vsc = reinterpret_cast<float*>(smem + L::vs_off);   // I8 only
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -129,22 +175,21 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
 
   for (int kv0 = (kv_lo / BKV) * BKV; kv0 <= kv_hi; kv0 += BKV) {
     __syncthreads();   // previous tile's readers are done with ks/vs
-    // K/V tile: kLoadsPerThread 16-byte chunks of each per thread, issued
-    // kBatch at a time into registers before any is stored, so that many
-    // loads are in flight at once (one block per SM has little else to
-    // hide memory latency with)
-    constexpr int kChunks = BKV * (HD / 8);
-    constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
-    constexpr int kBatch = kLoadsPerThread < 8 ? kLoadsPerThread : 8;
-    static_assert(kChunks % (kWarps * 32) == 0 && kLoadsPerThread % kBatch == 0,
-                  "tile chunks must split evenly over the threads");
+    if constexpr (I8) {
+      // int8 K/V tile: HD / 32 16-byte chunks (16 values) of each per
+      // thread, all issued before any is converted and stored; the tile's
+      // scales go to shared memory beside it
+      const int8_t* kc = static_cast<const int8_t*>(kc_raw);
+      const int8_t* vc = static_cast<const int8_t*>(vc_raw);
+      constexpr int kChunks = BKV * (HD / 16);
+      constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
+      static_assert(kChunks % (kWarps * 32) == 0,
+                    "tile chunks must split evenly over the threads");
+      uint4 kr[kLoadsPerThread], vr[kLoadsPerThread];
 #pragma unroll
-    for (int b0 = 0; b0 < kLoadsPerThread; b0 += kBatch) {
-      uint4 kr[kBatch], vr[kBatch];
-#pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = tid + (b0 + b) * kWarps * 32;
-        const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
+      for (int b = 0; b < kLoadsPerThread; ++b) {
+        const int i = tid + b * kWarps * 32;
+        const int r = i / (HD / 16), d = (i % (HD / 16)) * 16;
         const int row = kv0 + r;
         kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);
         if (row >= kv_lo && row <= kv_hi) {
@@ -153,12 +198,54 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
           vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
         }
       }
+      if (tid < BKV) {
+        const int row = kv0 + tid;
+        const bool in = row >= kv_lo && row <= kv_hi;
+        ksc[tid] = in ? __ldg(kscale + (size_t)kh * S + row) : 0.f;
+        vsc[tid] = in ? __ldg(vscale + (size_t)kh * S + row) : 0.f;
+      }
 #pragma unroll
-      for (int b = 0; b < kBatch; ++b) {
-        const int i = tid + (b0 + b) * kWarps * 32;
-        const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
-        *reinterpret_cast<uint4*>(ks + r * LDH + d) = kr[b];
-        *reinterpret_cast<uint4*>(vs + r * LDH + d) = vr[b];
+      for (int b = 0; b < kLoadsPerThread; ++b) {
+        const int i = tid + b * kWarps * 32;
+        const int r = i / (HD / 16), d = (i % (HD / 16)) * 16;
+        store16_i8_as_bf16(ks + r * LDH + d, kr[b]);
+        store16_i8_as_bf16(vs + r * LDH + d, vr[b]);
+      }
+    } else {
+      const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(kc_raw);
+      const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(vc_raw);
+      // K/V tile: kLoadsPerThread 16-byte chunks of each per thread, issued
+      // kBatch at a time into registers before any is stored, so that many
+      // loads are in flight at once (one block per SM has little else to
+      // hide memory latency with)
+      constexpr int kChunks = BKV * (HD / 8);
+      constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
+      constexpr int kBatch = kLoadsPerThread < 8 ? kLoadsPerThread : 8;
+      static_assert(kChunks % (kWarps * 32) == 0 &&
+                        kLoadsPerThread % kBatch == 0,
+                    "tile chunks must split evenly over the threads");
+#pragma unroll
+      for (int b0 = 0; b0 < kLoadsPerThread; b0 += kBatch) {
+        uint4 kr[kBatch], vr[kBatch];
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int i = tid + (b0 + b) * kWarps * 32;
+          const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
+          const int row = kv0 + r;
+          kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);
+          if (row >= kv_lo && row <= kv_hi) {
+            const size_t off = (size_t)row * row_stride + (size_t)kh * HD + d;
+            kr[b] = __ldg(reinterpret_cast<const uint4*>(kc + off));
+            vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kBatch; ++b) {
+          const int i = tid + (b0 + b) * kWarps * 32;
+          const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
+          *reinterpret_cast<uint4*>(ks + r * LDH + d) = kr[b];
+          *reinterpret_cast<uint4*>(vs + r * LDH + d) = vr[b];
+        }
       }
     }
     __syncthreads();
@@ -194,6 +281,7 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
       for (int c = 0; c < BKV / 2; ++c) {
         const int key = kv0 + my_col0 + c;
         float sv = srow[c] * scale;
+        if constexpr (I8) sv *= ksc[my_col0 + c];
         if (softcap > 0.f) sv = tanhf(sv / softcap) * softcap;
         const bool live = row_ok && key <= q_pos && key >= kv_lo &&
                           (window < 0 || q_pos - key <= window);
@@ -212,7 +300,10 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
         const float sv = srow[c];
         const float p = (sv == -INFINITY) ? 0.f : expf(sv - m_new);
         sum += p;
-        prow[c] = __float2bfloat16_rn(p);
+        if constexpr (I8)   // in-range scales are finite, the others 0
+          prow[c] = __float2bfloat16_rn(p * vsc[my_col0 + c]);
+        else
+          prow[c] = __float2bfloat16_rn(p);
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       if ((lane & 1) == 0) {
@@ -258,20 +349,42 @@ flash_kernel(const float* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
   }
 }
 
-template <int HD>
-int launch(const float* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
-           float* out, int T, int H, int KH, int S, int row_stride, int pos,
-           float scale, float softcap, int window, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<HD>::bytes;
+template <int HD, bool I8>
+int launch(const float* q, const void* k, const void* v, const float* ks,
+           const float* vs, float* out, int T, int H, int KH, int S,
+           int row_stride, int pos, float scale, float softcap, int window,
+           cudaStream_t stream) {
+  constexpr size_t bytes = Smem<HD, I8>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KH;
   const dim3 grid((G * T + BQ - 1) / BQ, KH);
-  flash_kernel<HD><<<grid, kWarps * 32, bytes, stream>>>(
-      q, k, v, out, T, H, KH, S, row_stride, pos, scale, softcap, window);
+  flash_kernel<HD, I8><<<grid, kWarps * 32, bytes, stream>>>(
+      q, k, v, ks, vs, out, T, H, KH, S, row_stride, pos, scale, softcap,
+      window);
   return (int)cudaGetLastError();
+}
+
+template <bool I8>
+int dispatch(const float* q, const void* k, const void* v, const float* ks,
+             const float* vs, float* out, int T, int H, int KH, int hd, int S,
+             int row_stride, int pos, float scale, float softcap, int window,
+             cudaStream_t stream) {
+  switch (hd) {
+    case 64:
+      return launch<64, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+                            pos, scale, softcap, window, stream);
+    case 128:
+      return launch<128, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+                             pos, scale, softcap, window, stream);
+    case 256:
+      return launch<256, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+                             pos, scale, softcap, window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -286,19 +399,19 @@ extern "C" int lmrs_flash_attention(const float* q, const void* k,
                                     int KH, int hd, int S, int row_stride,
                                     int pos, float scale, float softcap,
                                     int window, cudaStream_t stream) {
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  switch (hd) {
-    case 64:
-      return launch<64>(q, kb, vb, out, T, H, KH, S, row_stride, pos, scale,
-                        softcap, window, stream);
-    case 128:
-      return launch<128>(q, kb, vb, out, T, H, KH, S, row_stride, pos, scale,
-                         softcap, window, stream);
-    case 256:
-      return launch<256>(q, kb, vb, out, T, H, KH, S, row_stride, pos, scale,
-                         softcap, window, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
+                         row_stride, pos, scale, softcap, window, stream);
+}
+
+// Kernel G: as above with k, v pointing at one layer of an int8 cache,
+// (S, row_stride) bytes, and ks, vs at the layer's (KH, S) f32 scales.
+extern "C" int lmrs_flash_attention_i8(const float* q, const void* k,
+                                       const void* v, const float* ks,
+                                       const float* vs, float* out, int T,
+                                       int H, int KH, int hd, int S,
+                                       int row_stride, int pos, float scale,
+                                       float softcap, int window,
+                                       cudaStream_t stream) {
+  return dispatch<true>(q, k, v, ks, vs, out, T, H, KH, hd, S, row_stride,
+                        pos, scale, softcap, window, stream);
 }

@@ -1,11 +1,12 @@
 """Build TransformerParams on a device from a .lmrs file, or from the JAX
 package's parameters.
 
-Quantized tensors go to the device as the file stores them (packed Q4
-bytes + f32 scales); the adjacent-pair file bytes are repacked into the
-runtime group-half layout ON THE DEVICE with torch ops (a host repack of a
-9B model's ~4.9 GB is slow).  The [q; k; v] and [gate; up] row
-concatenations are built from per-tensor device copies.
+Quantized tensors go to the device as the file stores them (int8 Q8 values
+or packed Q4 bytes, + f32 scales).  Q8_0 bytes stay as they are; Q4_0's
+adjacent-pair file bytes are repacked into the runtime group-half layout ON
+THE DEVICE with torch ops (a host repack of a 9B model's ~4.9 GB is slow).
+The [q; k; v] and [gate; up] row concatenations are built once at load from
+per-tensor device copies, contiguous, as the kernels need them.
 """
 
 from __future__ import annotations
@@ -34,27 +35,24 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device, copy=True)
 
 
-def _check_q4(cfg: ModelConfig) -> None:
-    if cfg.quant != QuantType.Q4_0:
-        raise unsupported(f"{cfg.quant.name} weights",
-                          "A7 Q8_0 and float weights")
-
-
 def params_from_lmrs(f: LmrsFile, device=None) -> TransformerParams:
     """From a parsed .lmrs file's zero-copy tensor views, onto `device`
     (default cuda; raises without a GPU)."""
     device = resolve_device(device)
     cfg = f.cfg
-    _check_q4(cfg)
     t = f.tensors
     gs = cfg.group_size
 
-    def q4(names, l=None):
+    def qt(names, l=None):
         keys = [n if l is None else f"{n}@{l}" for n in names]
         q = torch.cat([_to_device(t[k][0], device) for k in keys])
+        if cfg.quant == QuantType.NONE:
+            return QTensor(q, None, cfg.quant, gs, q.shape[0], q.shape[1])
         s = torch.cat([_to_device(t[k][1], device) for k in keys])
-        return QTensor(q4_file_to_runtime(q, gs).contiguous(), s, cfg.quant,
-                       gs, q.shape[0], q.shape[1] * 2)
+        if cfg.quant == QuantType.Q4_0:
+            return QTensor(q4_file_to_runtime(q, gs).contiguous(), s,
+                           cfg.quant, gs, q.shape[0], q.shape[1] * 2)
+        return QTensor(q, s, cfg.quant, gs, q.shape[0], q.shape[1])
 
     def norm(name, l=None):
         key = name if l is None else f"{name}@{l}"
@@ -63,18 +61,18 @@ def params_from_lmrs(f: LmrsFile, device=None) -> TransformerParams:
     gemma = cfg.model_type == ModelType.GEMMA
     layers = [LayerWeights(
         att_norm=norm("att_norm", l),
-        wqkv=q4(("wq", "wk", "wv"), l),
-        wo=q4(("wo",), l),
+        wqkv=qt(("wq", "wk", "wv"), l),
+        wo=qt(("wo",), l),
         post_att_norm=norm("post_att_norm", l),
         pre_ffn_norm=norm("pre_ffn_norm", l) if gemma else None,
-        w13=q4(("w1", "w3"), l),
-        w2=q4(("w2",), l),
+        w13=qt(("w1", "w3"), l),
+        w2=qt(("w2",), l),
         post_ffn_norm=norm("post_ffn_norm", l) if gemma else None,
     ) for l in range(cfg.n_layers)]
     cos, sin = rope_tables(cfg)
     return TransformerParams(
-        embed=q4(("embed",)), layers=layers, final_norm=norm("final_norm"),
-        lm_head=q4(("lm_head",)) if cfg.model_type == ModelType.PHI else None,
+        embed=qt(("embed",)), layers=layers, final_norm=norm("final_norm"),
+        lm_head=qt(("lm_head",)) if cfg.model_type == ModelType.PHI else None,
         rope_cos=_to_device(cos, device), rope_sin=_to_device(sin, device))
 
 
@@ -83,23 +81,25 @@ def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
     """From the JAX package's row-major stacked parameters
     (`lmrs_tpu.io.params.params_from_lmrs(f, stack_layers=True,
     fuse_qkv=True)`) flattened to numpy: "embed.q", "embed.s",
-    "layers.wqkv.q" (L, O, K/2) runtime-layout bytes, "layers.wqkv.s"
-    (L, O, G), "layers.att_norm" (L, D), ..., "final_norm", "lm_head.q",
-    "rope_cos", "rope_sin".  Its Q4 bytes are already in the runtime
-    layout, so they are copied as they are.  K-major tiles are refused."""
+    "layers.wqkv.q" (L, O, K/2) runtime-layout Q4 bytes or (L, O, K) int8
+    Q8 values, "layers.wqkv.s" (L, O, G), "layers.att_norm" (L, D), ...,
+    "final_norm", "lm_head.q", "rope_cos", "rope_sin".  Its Q4 bytes are
+    already in the runtime layout, so they are copied as they are.  Float
+    (NONE) weights have no ".s".  K-major tiles are refused."""
     device = resolve_device(device)
-    _check_q4(cfg)
     gs = cfg.group_size
     if arrays["embed.q"].ndim != 2 or arrays["layers.wqkv.q"].ndim != 3:
         raise unsupported("K-major weight tiles",
                           "A18 K-major parameter input")
+    per_byte = 2 if cfg.quant == QuantType.Q4_0 else 1
 
     def qt(prefix, l=None):
-        q, s = arrays[f"{prefix}.q"], arrays[f"{prefix}.s"]
+        q, s = arrays[f"{prefix}.q"], arrays.get(f"{prefix}.s")
         if l is not None:
-            q, s = q[l], s[l]
-        return QTensor(_to_device(q, device), _to_device(s, device),
-                       cfg.quant, gs, q.shape[0], q.shape[1] * 2)
+            q, s = q[l], None if s is None else s[l]
+        return QTensor(_to_device(q, device),
+                       None if s is None else _to_device(s, device),
+                       cfg.quant, gs, q.shape[0], q.shape[1] * per_byte)
 
     def norm(name, l):
         key = f"layers.{name}"

@@ -23,7 +23,8 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
-SOURCES = ("q4_gemv", "q4_gemm", "flash_attention")
+SOURCES = ("q4_gemv", "q4_gemm", "flash_attention", "q8_gemv_i8", "q8_gemv",
+           "q8_gemm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -57,6 +57,35 @@ def flash_attention_tol(q: torch.Tensor, k_cache: torch.Tensor,
     return (2.0 ** -7 + 2.0 ** -9) * a
 
 
+def check_geometry(name: str, q: torch.Tensor, k_cache: torch.Tensor,
+                   v_cache: torch.Tensor, layer: int, pos: int, n_kv: int,
+                   dtype: torch.dtype) -> None:
+    """Raise unless q (T, H, hd) and the (L, S, KH*hd) caches of `dtype`
+    are what the flash kernels take (shared by the bf16 and int8
+    wrappers)."""
+    t_q, n_heads, hd = q.shape
+    n_layers, s_len, row = k_cache.shape
+    if not 1 <= t_q <= MAX_T:
+        raise ValueError(f"{name} takes 1..{MAX_T} queries, got {t_q}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name} is built for head dims {HEAD_DIMS}, "
+                         f"got {hd}")
+    if n_heads % n_kv or row != n_kv * hd:
+        raise ValueError(f"{n_heads} heads, {n_kv} kv heads, cache rows of "
+                         f"{row} do not fit head_dim {hd}")
+    if not 0 <= layer < n_layers or pos < 0 or pos + t_q > s_len:
+        raise ValueError(f"layer {layer}, rows [{pos}, {pos + t_q}) outside "
+                         f"the cache ({n_layers}, {s_len})")
+    if k_cache.dtype != dtype or v_cache.shape != k_cache.shape \
+            or v_cache.dtype != dtype:
+        raise TypeError(f"{name} reads a {dtype} cache, got {k_cache.dtype} "
+                        f"and {v_cache.dtype}")
+    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
+        raise ValueError(f"{name} needs contiguous caches")
+    if k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16:
+        raise ValueError(f"{name} needs 16-byte aligned caches")
+
+
 def _entry():
     fn = cuda.library("flash_attention").lmrs_flash_attention
     if fn.argtypes is None:
@@ -76,30 +105,13 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
         return flash_attention_plain(q, k_cache, v_cache, layer, pos,
                                      n_kv=n_kv, scale=scale, softcap=softcap,
                                      window=window)
+    check_geometry("flash_attention", q, k_cache, v_cache, layer, pos, n_kv,
+                   torch.bfloat16)
     t_q, n_heads, hd = q.shape
-    n_layers, s_len, row = k_cache.shape
-    if not 1 <= t_q <= MAX_T:
-        raise ValueError(f"flash_attention takes 1..{MAX_T} queries, "
-                         f"got {t_q}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention is built for head dims "
-                         f"{HEAD_DIMS}, got {hd}")
-    if n_heads % n_kv or row != n_kv * hd:
-        raise ValueError(f"{n_heads} heads, {n_kv} kv heads, cache rows of "
-                         f"{row} do not fit head_dim {hd}")
-    if not 0 <= layer < n_layers or pos < 0 or pos + t_q > s_len:
-        raise ValueError(f"layer {layer}, rows [{pos}, {pos + t_q}) outside "
-                         f"the cache ({n_layers}, {s_len})")
-    if k_cache.dtype != torch.bfloat16 or v_cache.shape != k_cache.shape \
-            or v_cache.dtype != torch.bfloat16:
-        raise TypeError("flash_attention reads a bf16 cache (int8/int4 "
-                        "caches: ROADMAP.md A8)")
-    if not (k_cache.is_contiguous() and v_cache.is_contiguous()):
-        raise ValueError("flash_attention needs contiguous caches")
+    _, s_len, row = k_cache.shape
     qf = q.float().contiguous()
-    if qf.data_ptr() % 16 or k_cache.data_ptr() % 16 \
-            or v_cache.data_ptr() % 16:
-        raise ValueError("flash_attention needs 16-byte aligned q and caches")
+    if qf.data_ptr() % 16:
+        raise ValueError("flash_attention needs a 16-byte aligned q")
     out = torch.empty_like(qf)
     err = _entry()(qf.data_ptr(), k_cache[layer].data_ptr(),
                    v_cache[layer].data_ptr(), out.data_ptr(), t_q, n_heads,

@@ -1,9 +1,10 @@
 """Decoder-only transformer forward pass (Gemma-2 / Llama-3.2 / Phi-3.5).
 
 One function serves decode steps (T = 1) and prefill chunks (T rows).  The
-layers run in a Python loop over per-layer weights; every quantized matmul
-goes through `ops.matmul.qmatmul` (kernels A and B) and every attention
-through kernel C, which reads the KV cache in place.
+layers run in a Python loop over per-layer weights; every matmul goes
+through `ops.matmul.qmatmul` (kernels A and B for Q4_0 weights, D, E and F
+for Q8_0) and every attention through kernel C (bf16 KV cache) or G (int8
+KV cache), which read the cache in place.
 
 Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
@@ -21,11 +22,12 @@ import torch
 
 from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType, unsupported
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
 from lmrs_tpu_torch.ops.activations import gelu_tanh, silu
 from lmrs_tpu_torch.ops.matmul import qmatmul
 from lmrs_tpu_torch.ops.norms import rmsnorm
 from lmrs_tpu_torch.ops.rope import apply_rope
-from lmrs_tpu_torch.quant import QTensor, unpack_q4
+from lmrs_tpu_torch.quant import QTensor, quantize_kv_rows, unpack_q4
 
 
 @dataclasses.dataclass
@@ -56,22 +58,34 @@ class TransformerParams:
 
 @dataclasses.dataclass
 class KVCache:
-    """bf16 K and V caches, (L, S, KH * cache_head_dim): the (KH, hd) axes
-    merged, so a sequence row of one layer is one contiguous stripe.  The
-    forward pass writes rows in place."""
+    """K and V caches, (L, S, KH * cache_head_dim) bf16 or int8: the
+    (KH, hd) axes merged, so a sequence row of one layer is one contiguous
+    stripe.  An int8 cache stores symmetric per-(token, head) quantized
+    rows with f32 scales (L, KH, S), sequence last, so that a kernel block,
+    which owns one kv head, reads a contiguous run of scales; a bf16 cache
+    has no scales.  The forward pass writes rows in place."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 def init_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16,
                   seq_len: Optional[int] = None) -> KVCache:
-    if dtype != torch.bfloat16:
-        raise unsupported(f"a {dtype} KV cache", "A8 int8/int4 KV cache")
-    shape = (cfg.n_layers, seq_len or cfg.seq_len,
-             cfg.n_kv_heads * cfg.cache_head_dim)
-    return KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                   v=torch.zeros(shape, dtype=dtype, device=device))
+    if dtype not in (torch.bfloat16, torch.int8):
+        raise unsupported(f"a {dtype} KV cache", "A8 int4 and f32 KV caches")
+    s_len = seq_len or cfg.seq_len
+    shape = (cfg.n_layers, s_len, cfg.n_kv_heads * cfg.cache_head_dim)
+    cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device))
+    if dtype == torch.int8:
+        sshape = (cfg.n_layers, cfg.n_kv_heads, s_len)
+        cache.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                    device=device)
+        cache.v_scale = torch.zeros(sshape, dtype=torch.float32,
+                                    device=device)
+    return cache
 
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig,
@@ -80,13 +94,15 @@ def embed_tokens(params: TransformerParams, cfg: ModelConfig,
     The table stays quantized on the device.  Gemma scales embeddings by
     sqrt(dim)."""
     emb = params.embed
-    if emb.qtype != QuantType.Q4_0:
-        raise unsupported(f"{emb.qtype.name} weights", "A7 Q8_0 and float "
-                          "weights")
-    vals = unpack_q4(emb.q[tokens], emb.group_size).float()
-    gs = emb.group_size
-    g = vals.reshape(*vals.shape[:-1], vals.shape[-1] // gs, gs)
-    x = (g * emb.s[tokens][..., None]).reshape(*tokens.shape, cfg.dim)
+    if emb.qtype == QuantType.NONE:
+        x = emb.q[tokens].float()
+    else:
+        rows = emb.q[tokens]
+        vals = (unpack_q4(rows, emb.group_size) if emb.qtype == QuantType.Q4_0
+                else rows).float()
+        gs = emb.group_size
+        g = vals.reshape(*vals.shape[:-1], vals.shape[-1] // gs, gs)
+        x = (g * emb.s[tokens][..., None]).reshape(*tokens.shape, cfg.dim)
     if cfg.embed_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.dim)
     return x
@@ -94,14 +110,15 @@ def embed_tokens(params: TransformerParams, cfg: ModelConfig,
 
 def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
            cache: KVCache, layer: int, cos: torch.Tensor, sin: torch.Tensor,
-           pos: int) -> torch.Tensor:
+           pos: int, w8a8: bool) -> torch.Tensor:
     """One decoder layer over T tokens at positions pos..pos+T-1; writes
-    the layer's K/V rows into the cache."""
+    the layer's K/V rows (and, for an int8 cache, their scales) into the
+    cache."""
     t_q = x.shape[0]
     gemma = cfg.model_type == ModelType.GEMMA
 
     xb = rmsnorm(x, lw.att_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
-    qkv = qmatmul(xb, lw.wqkv)
+    qkv = qmatmul(xb, lw.wqkv, w8a8=w8a8)
     a, kv = cfg.att_dim, cfg.kv_dim
     q = qkv[:, :a].reshape(t_q, cfg.n_heads, cfg.head_dim)
     k = qkv[:, a:a + kv].reshape(t_q, cfg.n_kv_heads, cfg.head_dim)
@@ -117,15 +134,24 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
         q, k, v = pad(q), pad(k), pad(v)
 
     # the cache stores rotated keys
-    cache.k[layer, pos:pos + t_q] = k.reshape(t_q, -1).to(cache.k.dtype)
-    cache.v[layer, pos:pos + t_q] = v.reshape(t_q, -1).to(cache.v.dtype)
-    att = flash_attention(q, cache.k, cache.v, layer, pos,
-                          n_kv=cfg.n_kv_heads, scale=cfg.attn_scale,
-                          softcap=cfg.attn_logit_softcap,
-                          window=cfg.sliding_window)
+    attn_kw = dict(n_kv=cfg.n_kv_heads, scale=cfg.attn_scale,
+                   softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
+    if cache.k.dtype == torch.int8:
+        # K and V quantize in one pass: rows (2, T, KH*hd), scales (2, T, KH)
+        rows, scales = quantize_kv_rows(torch.stack([k, v]))
+        cache.k[layer, pos:pos + t_q] = rows[0]
+        cache.v[layer, pos:pos + t_q] = rows[1]
+        cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
+        cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
+        att = flash_attention_i8(q, cache.k, cache.v, cache.k_scale,
+                                 cache.v_scale, layer, pos, **attn_kw)
+    else:
+        cache.k[layer, pos:pos + t_q] = k.reshape(t_q, -1).to(cache.k.dtype)
+        cache.v[layer, pos:pos + t_q] = v.reshape(t_q, -1).to(cache.v.dtype)
+        att = flash_attention(q, cache.k, cache.v, layer, pos, **attn_kw)
     if hd_pad:
         att = att[..., :cfg.head_dim]
-    o = qmatmul(att.reshape(t_q, cfg.att_dim), lw.wo)
+    o = qmatmul(att.reshape(t_q, cfg.att_dim), lw.wo, w8a8=w8a8)
 
     if gemma:
         # post-attention norm before the residual add, then pre-FFN norm
@@ -135,20 +161,23 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
         x = x + o
         xb2 = rmsnorm(x, lw.post_att_norm, cfg.rms_norm_eps, False)
 
-    gu = qmatmul(xb2, lw.w13)
+    gu = qmatmul(xb2, lw.w13, w8a8=w8a8)
     gate, up = gu[:, :cfg.hidden_dim], gu[:, cfg.hidden_dim:]
-    ff = qmatmul((gelu_tanh(gate) if gemma else silu(gate)) * up, lw.w2)
+    ff = qmatmul((gelu_tanh(gate) if gemma else silu(gate)) * up, lw.w2,
+                 w8a8=w8a8)
     if gemma:
         return x + rmsnorm(ff, lw.post_ffn_norm, cfg.rms_norm_eps, True)
     return x + ff
 
 
 def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
-            x: torch.Tensor, pos: int,
-            logit_idx: Optional[int] = None) -> Optional[torch.Tensor]:
+            x: torch.Tensor, pos: int, logit_idx: Optional[int] = None,
+            w8a8: bool = True) -> Optional[torch.Tensor]:
     """Run all layers over x (T, D) float32 at positions pos..pos+T-1,
     writing their K/V rows into `cache` in place.  Returns the (V,) float32
-    logits of row `logit_idx`, or None."""
+    logits of row `logit_idx`, or None.  `w8a8` picks the numerics of Q8_0
+    layer weights at T <= 8 (`ops.matmul.qmatmul`); the classifier never
+    quantizes its activations."""
     if x.ndim != 2:
         raise unsupported("a batched forward", "A11 batched serving")
     t_q = x.shape[0]
@@ -158,14 +187,14 @@ def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
     cos = params.rope_cos[pos:pos + t_q]
     sin = params.rope_sin[pos:pos + t_q]
     for layer, lw in enumerate(params.layers):
-        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos)
+        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos, w8a8)
     if logit_idx is None:
         return None
 
     xl = rmsnorm(x[logit_idx:logit_idx + 1], params.final_norm,
                  cfg.rms_norm_eps, cfg.norm_unit_offset)
     cls = params.embed if cfg.tied_lm_head else params.lm_head
-    logits = qmatmul(xl, cls)[0]
+    logits = qmatmul(xl, cls, classifier=True)[0]
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         if cfg.parity_gemma_softcap_bug:

@@ -26,6 +26,8 @@ def attention(
     softcap: Optional[float] = None,
     window: Optional[int] = None,
     precision: str = "highest",
+    k_scale: Optional[torch.Tensor] = None,   # (KH, S) f32: int8 caches
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Causal grouped-query attention; returns (T, H, head_dim) float32.
 
@@ -39,6 +41,13 @@ def attention(
     computes.  Both run as float32 matmuls, so TF32 must be off on the card
     (it is, by PyTorch's default; `lmrs_tpu_torch.kernels.cuda.
     plain_numerics` pins it).
+
+    With k_scale / v_scale the caches hold the int8 values of a quantized
+    KV cache (k = k_int * k_scale per (kv head, row)), and the scales are
+    folded in as the int8 kernel folds them: the key scale multiplies the
+    score column after `scale`, the value scale multiplies the softmax
+    weight before its rounding, and the products run on the integer values
+    (exact in bf16).  No dequantized K or V is formed.
     """
     t_q, n_heads, head_dim = q.shape
     s_len, n_kv, _ = k_cache.shape
@@ -53,6 +62,8 @@ def attention(
     v_in = rnd(v_cache)
 
     scores = torch.einsum("tkgd,skd->tkgs", qg, k_in) * scale    # (T,KH,G,S)
+    if k_scale is not None:
+        scores = scores * k_scale[None, :, None, :]
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
 
@@ -69,5 +80,7 @@ def attention(
     e = torch.exp(scores - m)
     att = e / e.sum(dim=-1, keepdim=True)
 
+    if v_scale is not None:
+        att = att * v_scale[None, :, None, :]
     out = torch.einsum("tkgs,skd->tkgd", rnd(att), v_in)
     return out.reshape(t_q, n_heads, head_dim).float()

@@ -1,42 +1,68 @@
-"""Quantized matmul y = x . W^T, dispatched by the number of rows T.
+"""Quantized matmul y = x . W^T, dispatched by the weight type and the
+number of rows T.
 
-    T <= 8        -> kernel A, q4_gemv (f32 activations)
-    9 <= T <= 512 -> kernel B, q4_gemm (bf16 activations, bf16 dequantized
-                     weights in shared memory)
-    T > 512       -> dequantize to bf16 in device memory, then one f32
-                     product of the bf16 operands (no quantized kernel:
-                     the weights amortize over the rows; the JAX package
-                     leaves this case to XLA in the same way)
+    Q4_0  T <= 8        -> kernel A, q4_gemv (f32 activations)
+          9 <= T <= 512 -> kernel B, q4_gemm (bf16 activations, bf16
+                           dequantized weights in shared memory)
+    Q8_0  T <= 8        -> kernel D, q8_gemv_i8 (W8A8: activations quantized
+                           to int8 per group, integer dots) for layer
+                           weights while `w8a8` is on; kernel E, q8_gemv
+                           (W8A16, f32 activations) for the classifier
+                           always and for layer weights when `w8a8` is off
+          9 <= T <= 512 -> kernel F, q8_gemm (as B)
+    both  T > 512       -> dequantize to bf16 in device memory, then one f32
+                           product of the bf16 operands (no quantized
+                           kernel: the weights amortize over the rows; the
+                           JAX package leaves this case to XLA in the same
+                           way)
+    NONE  any T         -> one f32 product (the JAX package computes it
+                           outside any kernel too)
 
-Only Q4_0 weights run here; Q8_0 and float weights come with ROADMAP.md A7.
+The classifier (the tied embedding, or Phi's lm_head) takes E whatever
+`w8a8` says because the JAX fast path sends its unstacked weights through
+the W8A16 x-expansion kernel, and only the stacked layer weights through
+the W8A8 one: a decode step mixes the two numerics.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lmrs_tpu_torch.config import QuantType, unsupported
+from lmrs_tpu_torch.config import QuantType
 from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.kernels.q4_gemm import MAX_T as GEMM_MAX_T
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm
 from lmrs_tpu_torch.kernels.q4_gemv import MAX_T as GEMV_MAX_T
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv
+from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm
+from lmrs_tpu_torch.kernels.q8_gemv import q8_gemv
+from lmrs_tpu_torch.kernels.q8_gemv_i8 import q8_gemv_i8
 from lmrs_tpu_torch.quant import QTensor, dequantize
 
 
-def qmatmul(x: torch.Tensor, w: QTensor) -> torch.Tensor:
-    """y = x @ W^T for a Q4_0 weight of logical shape (out, in); x float
-    (..., in) -> float32 (..., out)."""
-    if w.qtype != QuantType.Q4_0:
-        raise unsupported(f"{w.qtype.name} weights", "A7 Q8_0 and float "
-                          "weights")
+def qmatmul(x: torch.Tensor, w: QTensor, *, w8a8: bool = True,
+            classifier: bool = False) -> torch.Tensor:
+    """y = x @ W^T for a weight of logical shape (out, in); x float
+    (..., in) -> float32 (..., out).  `w8a8` picks the Q8_0 numerics at
+    T <= 8 (see the module note); `classifier` marks the logits matmul."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     t = x2.shape[0]
-    if t <= GEMV_MAX_T:
-        y = q4_gemv(x2.float().contiguous(), w.q, w.s, w.group_size)
+    if w.qtype == QuantType.NONE:
+        if x2.is_cuda:
+            cuda.plain_numerics()
+        y = x2.float() @ w.q.float().t()
+    elif t <= GEMV_MAX_T:
+        xf = x2.float().contiguous()
+        if w.qtype == QuantType.Q4_0:
+            y = q4_gemv(xf, w.q, w.s, w.group_size)
+        elif w8a8 and not classifier:
+            y = q8_gemv_i8(xf, w.q, w.s, w.group_size)
+        else:
+            y = q8_gemv(xf, w.q, w.s, w.group_size)
     elif t <= GEMM_MAX_T:
-        y = q4_gemm(x2, w.q, w.s, w.group_size)
+        gemm = q4_gemm if w.qtype == QuantType.Q4_0 else q8_gemm
+        y = gemm(x2, w.q, w.s, w.group_size)
     else:
         if x2.is_cuda:
             cuda.plain_numerics()

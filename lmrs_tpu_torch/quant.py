@@ -8,7 +8,8 @@ nibble), XOR 0x80.  The kernels in `lmrs_tpu_torch.kernels` read exactly
 these bytes.
 
 Activation quantizers round half AWAY from zero (Rust's `f32::round`);
-`torch.round` rounds half to even, so it is not used for them.
+`torch.round` rounds half to even, so it is not used for them.  The KV-cache
+quantizer (`quantize_kv_rows`) does round half to even.
 """
 
 from __future__ import annotations
@@ -44,6 +45,13 @@ class QTensor:
 # Rounding helpers
 # ---------------------------------------------------------------------------
 
+def _c127(like: torch.Tensor) -> torch.Tensor:
+    """127.0 as a tensor: on a CUDA device PyTorch divides a tensor by a
+    Python scalar by multiplying with its reciprocal, which is not the IEEE
+    quotient the CPU (and the reference) computes; tensor / tensor is."""
+    return torch.full_like(like, 127.0)
+
+
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
     """Round half away from zero (Rust f32::round), unlike torch.round."""
     return torch.trunc(x + torch.where(x >= 0, 0.5, -0.5))
@@ -61,7 +69,7 @@ def quantize_q8_act(x: torch.Tensor, group_size: int):
     n = x.shape[-1]
     g = x.float().reshape(*x.shape[:-1], n // group_size, group_size)
     wmax = g.abs().amax(dim=-1)
-    scale = wmax / 127.0
+    scale = wmax / _c127(wmax)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = _round_half_away(g / safe[..., None])
     q = torch.where(scale[..., None] == 0, torch.zeros_like(q), q)
@@ -82,6 +90,18 @@ def quantize_q4_act(x: torch.Tensor, group_size: int):
     qu = _round_half_away(g / safe[..., None] + 8.0).clamp(0.0, 15.0)
     qu = torch.where(scale[..., None] == 0, torch.zeros_like(qu), qu)
     return (qu - 8.0).to(torch.int8).reshape(x.shape), scale
+
+
+def quantize_kv_rows(x: torch.Tensor):
+    """int8 KV-cache rows: (..., KH, hd) float -> ((..., KH * hd) int8 rows,
+    (..., KH) f32 scales).  Symmetric absmax/127 per (token, head);
+    all-zero rows get scale 0.  Unlike the activation quantizers this one
+    multiplies by 127/absmax and rounds half to EVEN (`torch.round`)."""
+    amax = x.abs().amax(dim=-1)
+    c127 = _c127(amax)
+    inv = torch.where(amax > 0, c127 / amax, torch.zeros_like(amax))
+    q = torch.round(x * inv[..., None]).to(torch.int8)
+    return q.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]), amax / c127
 
 
 # ---------------------------------------------------------------------------

@@ -57,11 +57,14 @@ class StepMetrics:
 
 class Engine:
     """Single-stream inference over one model instance.  The KV cache lives
-    in the engine; `pos` only grows within a conversation."""
+    in the engine (`cache_dtype` torch.bfloat16 or torch.int8); `pos` only
+    grows within a conversation.  `w8a8` picks the numerics of Q8_0 layer
+    weights at T <= 8: int8 activations and integer dots (the default, as
+    the JAX package's LMRS_W8A8=1), or f32 activations."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams,
                  device=None, cache_dtype=torch.bfloat16,
-                 prefill_chunk: int = 256):
+                 prefill_chunk: int = 256, w8a8: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -71,6 +74,7 @@ class Engine:
         # a chunk longer than the context would slice past the rope tables
         self.prefill_chunk = min(prefill_chunk, cfg.seq_len)
         self.cache = init_kv_cache(cfg, self.device, cache_dtype)
+        self.w8a8 = w8a8
         self.pos = 0
         self.metrics = StepMetrics()
 
@@ -106,7 +110,7 @@ class Engine:
                 logits = forward(self.params, self.cfg, self.cache, x,
                                  self.pos,
                                  chunk.shape[0] - 1 if last and want_logits
-                                 else None)
+                                 else None, w8a8=self.w8a8)
                 self.pos += chunk.shape[0]
         self._sync()
         self.metrics.prefill_tokens += n
@@ -122,7 +126,7 @@ class Engine:
         with torch.no_grad():
             x = embed_tokens(self.params, self.cfg, token)
             logits = forward(self.params, self.cfg, self.cache, x, self.pos,
-                             0)
+                             0, w8a8=self.w8a8)
         self.pos += 1
         return logits
 

@@ -2,9 +2,13 @@
 """Where a decode token's time goes in lmrs_tpu_torch, on the card.
 
     python3 scripts/torch_decode_profile.py [--steps 16] [--pos 1024]
+        [--model gemma2-9b|llama3.2-3b|...] [--quant Q4_0|Q8_0]
+        [--cache-dtype bfloat16|int8]
+    LMRS_W8A8=0 python3 scripts/torch_decode_profile.py ...  # Q8_0 layers W8A16
 
-Writes a synthetic Gemma-2-9B Q4_0 .lmrs (seed 0) under build/, loads it
-onto the GPU, prefills `--pos` tokens, then runs `--steps` decode steps
+Writes a synthetic .lmrs of the chosen preset (default Gemma-2-9B Q4_0,
+seed 0) under build/, loads it onto the GPU with the chosen KV cache type,
+prefills `--pos` tokens, then runs `--steps` decode steps
 twice: once timed with the host clock after torch.cuda.synchronize(), once
 under torch.profiler.  Prints the card's name and power limit, device time
 per token by kernel (from the profiled steps), the device's busy share of
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -29,7 +34,11 @@ ROOT = Path(__file__).resolve().parents[1]
 
 
 def _kernel_group(name: str) -> str:
-    for key in ("q4_gemv", "q4_gemm", "flash_kernel"):
+    if "flash_kernel" in name:      # flash_kernel<HD, I8>: C or G
+        i8 = "true" in name or "(bool)1" in name
+        return "flash_kernel (int8 cache)" if i8 else "flash_kernel"
+    for key in ("q4_gemv", "q4_gemm", "q8_act_quant", "q8_gemv_i8",
+                "q8_gemv", "q8_gemm"):
         if key in name:
             return key
     return "other (PyTorch ops)"
@@ -39,6 +48,10 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=16)
     ap.add_argument("--pos", type=int, default=1024)
+    ap.add_argument("--model", default="gemma2-9b")
+    ap.add_argument("--quant", default="Q4_0", choices=["Q4_0", "Q8_0"])
+    ap.add_argument("--cache-dtype", dest="cache_dtype", default="bfloat16",
+                    choices=["bfloat16", "int8"])
     args = ap.parse_args()
 
     import torch
@@ -47,7 +60,7 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from lmrs_tpu_torch.config import QuantType, gemma2_9b
+    from lmrs_tpu_torch.config import PRESETS, QuantType
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import params_from_lmrs
     from lmrs_tpu_torch.io.synthetic import write_synthetic_lmrs
@@ -60,10 +73,14 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="profile_", dir=str(ROOT / "build")))
     try:
-        path = work / "gemma2-9b-q4.lmrs"
-        write_synthetic_lmrs(str(path), gemma2_9b(quant=QuantType.Q4_0))
+        path = work / "model.lmrs"
+        write_synthetic_lmrs(str(path), PRESETS[args.model](
+            quant=QuantType[args.quant]))
         f = read_lmrs(str(path))
-        engine = Engine(f.cfg, params_from_lmrs(f, device="cuda"))
+        w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"   # as the chat CLI
+        engine = Engine(f.cfg, params_from_lmrs(f, device="cuda"),
+                        cache_dtype=getattr(torch, args.cache_dtype),
+                        w8a8=w8a8)
         prompt = torch.randint(0, f.cfg.vocab_size, (args.pos,),
                                generator=torch.Generator().manual_seed(0))
         engine.prefill(prompt.tolist())
@@ -91,10 +108,13 @@ def main() -> int:
         for e in prof.events():
             if e.device_type == torch.autograd.DeviceType.CUDA:
                 by_group[_kernel_group(e.name)] += e.time_range.elapsed_us()
-        result = dict(card=card, pos=args.pos, steps=args.steps,
-                      wall_ms_per_token=wall_ms)
+        result = dict(card=card, model=args.model, quant=args.quant,
+                      cache_dtype=args.cache_dtype, w8a8=w8a8, pos=args.pos,
+                      steps=args.steps, wall_ms_per_token=wall_ms,
+                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
         print(card)
-        print(f"decode at pos {args.pos}: {wall_ms:.3f} ms per token on the "
+        print(f"{args.model} {args.quant}, {args.cache_dtype} cache, decode "
+              f"at pos {args.pos}: {wall_ms:.3f} ms per token on the "
               f"host clock ({1e3 / wall_ms:.2f} tok/s)")
         if by_group:
             per_token = {k: v / 1e3 / args.steps for k, v in by_group.items()}

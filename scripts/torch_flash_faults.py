@@ -2,23 +2,31 @@
 """Does the flash attention check reject a wrong kernel?  Planted faults,
 on the card.
 
-    python3 scripts/torch_flash_faults.py        # one CUDA device, nvcc
+    python3 scripts/torch_flash_faults.py [--int8]   # one CUDA device, nvcc
 
 Copies `lmrs_tpu_torch/csrc/flash_attention.cu` into a temporary
-directory, plants one tile-walk fault in each copy (one K/V tile skipped,
-the window start one tile late, the causal diagonal dropped), builds every
-copy with the package's nvcc flags, and runs the kernel check of
-`chip_smoke.py` (Gemma-2-9B attention: hd 256, 8 KV heads, 2 query heads
-each, window 4096, softcap 50; T 1 and 256 at pos 1,100 and 6,000) plus a
-short-context case (T 3 at pos 63) against the plain version with the
-per-element bound `flash_attention_tol`.  Prints the card's name and power
-limit, the worst error / bound of every (kernel, case) and one JSON line.
-Exits non-zero if the unchanged kernel fails a case or a faulty one passes
-every case.  The repository's sources are never modified.
+directory, plants one fault in each copy, builds every copy with the
+package's nvcc flags, and runs the kernel check of `chip_smoke.py` (T 1
+and 256 at pos 1,100 and 6,000) plus a short-context case (T 3 at pos 63)
+against the plain version with the per-element bound.  Without `--int8`:
+kernel C on a bf16 cache at Gemma-2-9B's attention (hd 256, 8 KV heads, 2
+query heads each, window 4096, softcap 50), `flash_attention_tol`, the
+three tile-walk faults (one K/V tile skipped, the window start one tile
+late, the causal diagonal dropped).  With `--int8`: kernel G on an int8
+cache at Llama-3.2-3B's attention (hd 128, 8 KV heads, 3 query heads each,
+no window: the window fault does not apply), `flash_attention_i8_tol`, the
+skipped tile and the dropped diagonal, and two faults of its own (the
+value scale left out of the softmax weight; scales read for rows past the
+last live one, which hold NaN here as a reused cache may).  Prints the
+card's name and power limit, the worst error / bound of every (kernel,
+case) and one JSON line.  Exits non-zero if the unchanged kernel fails a
+case or a faulty one passes every case.  The repository's sources are
+never modified.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import subprocess
@@ -38,14 +46,25 @@ FAULTS = {
                      "window >= 0 ? max(pos + t_lo - window + BKV, 0)"),
     "causal": ("key <= q_pos &&", "key < q_pos &&"),
 }
-H, KH, HD, WINDOW, SOFTCAP, S = 16, 8, 256, 4096, 50.0, 8192
+FAULTS_I8 = {
+    "skip_tile": FAULTS["skip_tile"],
+    "causal": FAULTS["causal"],
+    "value_scale": ("__float2bfloat16_rn(p * vsc[my_col0 + c])",
+                    "__float2bfloat16_rn(p)"),
+    "stale_scale": ("const bool in = row >= kv_lo && row <= kv_hi;",
+                    "const bool in = true;"),
+}
+S = 8192
+# heads, kv heads, head_dim, window, softcap
+GEMMA = (16, 8, 256, 4096, 50.0)
+LLAMA = (24, 8, 128, None, None)
 CASES = [(1, 1100), (1, 6000), (256, 1100), (256, 6000), (3, 63)]
 
 
-def build_faulty(cuda, work: Path) -> dict:
+def build_faulty(cuda, work: Path, faults: dict) -> dict:
     src = (cuda.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, (old, new) in FAULTS.items():
+    for name, (old, new) in faults.items():
         if src.count(old) != 1:
             raise RuntimeError(f"fault {name}: its target text is not in "
                                f"flash_attention.cu exactly once")
@@ -65,6 +84,11 @@ def build_faulty(cuda, work: Path) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--int8", action="store_true",
+                    help="kernel G on an int8 cache instead of kernel C")
+    args = ap.parse_args()
+
     import torch
 
     if not torch.cuda.is_available():
@@ -75,34 +99,51 @@ def main() -> int:
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
                                                         flash_attention_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_i8 import (
+        flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
+    from lmrs_tpu_torch.quant import quantize_kv_rows
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     cuda.plain_numerics()
+    faults = FAULTS_I8 if args.int8 else FAULTS
+    H, KH, HD, window, softcap = LLAMA if args.int8 else GEMMA
+    kernel, plain, tol_fn = ((flash_attention_i8, flash_attention_i8_plain,
+                              flash_attention_i8_tol) if args.int8 else
+                             (flash_attention, flash_attention_plain,
+                              flash_attention_tol))
     gen = torch.Generator(device="cuda").manual_seed(1)
-    k = torch.randn(1, S, KH * HD, device="cuda", generator=gen).to(
-        torch.bfloat16)
-    v = torch.randn(1, S, KH * HD, device="cuda", generator=gen).to(
-        torch.bfloat16)
-    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=SOFTCAP, window=WINDOW)
+    kf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    vf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
     inputs = []
     for t_q, pos in CASES:
         q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
-        inputs.append((t_q, pos, q, flash_attention_plain(q, k, v, 0, pos,
-                                                          **kw),
-                       flash_attention_tol(q, k, v, 0, pos, **kw)))
+        if args.int8:
+            rows, scales = quantize_kv_rows(torch.stack([kf, vf]))
+            ks, vs = (scales[i].t().contiguous()[None] for i in (0, 1))
+            for a in (ks, vs):      # stale scales past the last live row
+                a[:, :, pos + t_q:] = float("nan")
+            cache = (rows[0][None].contiguous(), rows[1][None].contiguous(),
+                     ks, vs)
+        else:
+            cache = (kf.reshape(1, S, KH * HD).to(torch.bfloat16),
+                     vf.reshape(1, S, KH * HD).to(torch.bfloat16))
+        inputs.append((t_q, pos, q, cache, plain(q, *cache, 0, pos, **kw),
+                       tol_fn(q, *cache, 0, pos, **kw)))
 
     libs = {"none": cuda.build_all() / "libflash_attention.so"}
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
-        libs.update(build_faulty(cuda, Path(tmp)))
+        libs.update(build_faulty(cuda, Path(tmp), faults))
         results = {}
         for name, lib in libs.items():
             cuda._libs["flash_attention"] = ctypes.CDLL(str(lib))
             row = {}
-            for t_q, pos, q, want, tol in inputs:
-                got = flash_attention(q, k, v, 0, pos, **kw)
+            for t_q, pos, q, cache, want, tol in inputs:
+                got = kernel(q, *cache, 0, pos, **kw)
+                # a NaN output compares as not <= 1: rejected
                 row[f"T{t_q}_pos{pos}"] = ((got - want).abs() / tol).max(
                 ).item()
             results[name] = row
@@ -114,8 +155,9 @@ def main() -> int:
         print(f"{name:14s}" + "".join(f"{r:14.3f}" for r in row.values()))
     print("(worst |kernel - plain| / bound per case; above 1.000 = rejected)")
     ok = all(r <= 1.0 for r in results["none"].values())
-    missed = [n for n in FAULTS if all(r <= 1.0 for r in results[n].values())]
-    print(json.dumps(dict(card=card, err_over_tol=results,
+    missed = [n for n in faults if all(r <= 1.0 for r in results[n].values())]
+    print(json.dumps(dict(card=card, kernel=kernel.__name__,
+                          err_over_tol=results,
                           unchanged_kernel_passes=ok, faults_missed=missed)))
     return 0 if ok and not missed else 1
 

@@ -121,7 +121,7 @@ def test_engine_needs_a_device_or_a_gpu(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="A9"):
         eng.generate(PROMPT, GenerationConfig(speculative_k=3))
     with pytest.raises(NotImplementedError, match="A8"):
-        Engine(tcfg, tp, device="cpu", cache_dtype=torch.int8)
+        Engine(tcfg, tp, device="cpu", cache_dtype=torch.float32)
 
 
 def test_decode_step_matches_forward(tmp_path):

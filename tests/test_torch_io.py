@@ -42,7 +42,8 @@ def jax_param_arrays(params):
             return
         if isinstance(v, JQTensor):
             out[key + ".q"] = np.array(v.q)
-            out[key + ".s"] = np.array(v.s)
+            if v.s is not None:                 # float weights: no scales
+                out[key + ".s"] = np.array(v.s)
         else:
             out[key] = np.array(v)
 
@@ -127,11 +128,8 @@ def _assert_params_equal(a, b):
             eq(getattr(la, f.name), getattr(lb, f.name))
 
 
-@pytest.mark.parametrize("family", FAMILIES)
-def test_params_match_jax_byte_for_byte(tmp_path, family):
-    """The port's on-device repack gives the JAX loader's runtime bytes,
-    and params_from_jax equals params_from_lmrs."""
-    cfg = tiny_config(family, QuantType.Q4_0)
+def _check_params_match_jax(tmp_path, family, quant):
+    cfg = tiny_config(family, quant)
     path = str(tmp_path / "m.lmrs")
     tl.write_lmrs(path, cfg, random_weights(cfg, 2))
     jp = jax_params_from_lmrs(jl.read_lmrs(path), stack_layers=True,
@@ -140,23 +138,44 @@ def test_params_match_jax_byte_for_byte(tmp_path, family):
     tp = params_from_lmrs(tl.read_lmrs(path), device="cpu")
     for l, lw in enumerate(tp.layers):
         for name in ("wqkv", "wo", "w13", "w2"):
-            np.testing.assert_array_equal(getattr(lw, name).q.numpy(),
+            w = getattr(lw, name)
+            assert w.q.is_contiguous()
+            np.testing.assert_array_equal(w.q.numpy(),
                                           arrays[f"layers.{name}.q"][l])
-            np.testing.assert_array_equal(getattr(lw, name).s.numpy(),
-                                          arrays[f"layers.{name}.s"][l])
+            if quant == QuantType.NONE:
+                assert w.s is None and f"layers.{name}.s" not in arrays
+            else:
+                np.testing.assert_array_equal(w.s.numpy(),
+                                              arrays[f"layers.{name}.s"][l])
     np.testing.assert_array_equal(tp.embed.q.numpy(), arrays["embed.q"])
+    assert tp.embed.q.dtype == {QuantType.Q4_0: torch.uint8,
+                                QuantType.Q8_0: torch.int8,
+                                QuantType.NONE: torch.float32}[quant]
     _assert_params_equal(params_from_jax(tl.read_lmrs(path).cfg, arrays,
                                          device="cpu"), tp)
 
 
+@pytest.mark.parametrize("family", FAMILIES)
+def test_params_match_jax_byte_for_byte(tmp_path, family):
+    """The port's on-device repack gives the JAX loader's runtime bytes,
+    and params_from_jax equals params_from_lmrs."""
+    _check_params_match_jax(tmp_path, family, QuantType.Q4_0)
+
+
+@pytest.mark.parametrize("quant", [QuantType.Q8_0, QuantType.NONE])
+@pytest.mark.parametrize("family", FAMILIES)
+def test_q8_and_float_params_match_jax_byte_for_byte(tmp_path, family,
+                                                     quant):
+    """Q8_0 and float weights reach the device as the file stores them:
+    the JAX loader's bytes, contiguous after the row concatenations."""
+    _check_params_match_jax(tmp_path, family, quant)
+
+
 def test_params_refuse_what_the_slice_does_not_cover(tmp_path):
-    cfg = tiny_config(ModelType.LLAMA, QuantType.Q8_0)
-    path = str(tmp_path / "q8.lmrs")
-    tl.write_lmrs(path, cfg, random_weights(cfg, 2))
-    with pytest.raises(NotImplementedError, match="A7"):
-        params_from_lmrs(tl.read_lmrs(path), device="cpu")
-    cfg4 = tiny_config(ModelType.LLAMA, QuantType.Q4_0)
-    arrays = {"embed.q": np.zeros((1, 2, 16, 128), np.uint8),
-              "layers.wqkv.q": np.zeros((1, 1, 2, 16, 128), np.uint8)}
-    with pytest.raises(NotImplementedError, match="K-major"):
-        params_from_jax(cfg4, arrays, device="cpu")
+    for quant, dtype in ((QuantType.Q4_0, np.uint8), (QuantType.Q8_0,
+                                                     np.int8)):
+        cfg = tiny_config(ModelType.LLAMA, quant)
+        arrays = {"embed.q": np.zeros((1, 2, 16, 128), dtype),
+                  "layers.wqkv.q": np.zeros((1, 1, 2, 16, 128), dtype)}
+        with pytest.raises(NotImplementedError, match="K-major"):
+            params_from_jax(cfg, arrays, device="cpu")

@@ -4,6 +4,7 @@ tests/test_tokenizer.py, and the port's chat CLI on the CPU.
 Tolerance: exact (token ids, strings and bytes).
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -83,8 +84,13 @@ def test_chat_cli_answers_on_cpu(tmp_path):
     assert out.returncode == 0, out.stderr
     assert "Assistant:" in out.stdout and "Speed:" in out.stdout
     # the plain versions ran: no CUDA kernel was launched
-    assert ('Kernel launches since start: {"q4_gemv": 0, "q4_gemm": 0, '
-            '"flash_attention": 0}') in out.stdout
+    counted = [ln for ln in out.stdout.splitlines()
+               if ln.startswith("Kernel launches since start: ")]
+    counts = json.loads(counted[-1].split(": ", 1)[1])
+    assert set(counts) == {"q4_gemv", "q4_gemm", "flash_attention",
+                           "q8_gemv_i8", "q8_gemv", "q8_gemm",
+                           "flash_attention_i8"}
+    assert not any(counts.values())
     assert "jax" not in out.stderr.lower()
     bad = subprocess.run(
         [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
@@ -92,3 +98,37 @@ def test_chat_cli_answers_on_cpu(tmp_path):
          "--device", "cpu", "--spec-k", "3"],
         input="", capture_output=True, text=True, timeout=120, env=env)
     assert bad.returncode != 0 and "A9" in bad.stderr
+
+
+def test_chat_cli_q8_int8_cache_on_cpu(tmp_path):
+    """The Q8_0 path with `--cache-dtype int8` through the CLI on the CPU;
+    `--cache-dtype int4` and `float32` still raise, naming ROADMAP A8."""
+    # Gemma: its chat template ids fit a 4096-entry vocabulary
+    cfg = tiny_config(ModelType.GEMMA, QuantType.Q8_0, vocab_size=4096)
+    write_lmrs(str(tmp_path / "m.lmrs"), cfg, random_weights(cfg, 0))
+    j, _ = _pair()
+    fill = cfg.vocab_size - len(j.vocab)
+    Tokenizer(j.vocab + [f"<unused{i}>" for i in range(fill)],
+              j.scores + [0.0] * fill, j.bos, j.eos).save(
+                  str(tmp_path / "tok.bin"))
+    env = dict(os.environ, PYTHONPATH=REPO)
+    base = [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
+            str(tmp_path / "m.lmrs"), "--tokenizer",
+            str(tmp_path / "tok.bin"), "--device", "cpu"]
+    for w8a8 in ("1", "0"):
+        out = subprocess.run(
+            base + ["--temperature", "0", "--max-new-tokens", "8",
+                    "--cache-dtype", "int8"],
+            input="hello world\n", capture_output=True, text=True,
+            timeout=120, env=dict(env, LMRS_W8A8=w8a8), cwd=str(tmp_path))
+        assert out.returncode == 0, out.stderr
+        assert "Using Q8_0 quantization." in out.stdout
+        lines = out.stdout.splitlines()
+        at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
+        assert lines[at[0] + 1].strip()
+    for dtype in ("int4", "float32"):
+        bad = subprocess.run(base + ["--cache-dtype", dtype], input="",
+                             capture_output=True, text=True, timeout=120,
+                             env=env)
+        assert bad.returncode != 0 and "A8" in bad.stderr
+

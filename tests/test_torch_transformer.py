@@ -36,20 +36,21 @@ from test_torch_io import jax_param_arrays
 PHI_HD = 48
 
 
-def jax_config(name):
+def jax_config(name, quant=JQuantType.Q4_0):
     if name == "tiny-phi":
         return jax_tiny_config(
-            JModelType.PHI, JQuantType.Q4_0, head_dim=PHI_HD, seq_len=256,
+            JModelType.PHI, quant, head_dim=PHI_HD, seq_len=256,
             rope_short_factor=tuple(1.0 + 0.05 * i
                                     for i in range(PHI_HD // 2)))
-    return JAX_PRESETS[name](quant=JQuantType.Q4_0)
+    return JAX_PRESETS[name](quant=quant)
 
 
-def build_pair(tmp_path, name, seed=1, scale=0.02, **cfg_kw):
+def build_pair(tmp_path, name, seed=1, scale=0.02, quant=JQuantType.Q4_0,
+               **cfg_kw):
     """(JAX cfg, JAX params, port cfg, port params) of one random .lmrs
     file (weights of std `scale`); the port's params are carried across
     from the JAX ones."""
-    jcfg = jax_config(name)
+    jcfg = jax_config(name, quant)
     path = str(tmp_path / f"{name}.lmrs")
     jl.write_lmrs(path, jcfg, jax_random_weights(jcfg, seed, scale))
     jf = jl.read_lmrs(path)
@@ -112,3 +113,8 @@ def test_forward_refuses_a_batch(tmp_path):
                 torch.zeros(2, 3, tcfg.dim), 0, 0)
     with pytest.raises(NotImplementedError, match="A8"):
         init_kv_cache(tcfg, "cpu", dtype=torch.float32)
+    i8 = init_kv_cache(tcfg, "cpu", dtype=torch.int8, seq_len=64)
+    assert i8.k.dtype == torch.int8 and i8.k.shape == (
+        tcfg.n_layers, 64, tcfg.n_kv_heads * tcfg.cache_head_dim)
+    assert i8.v_scale.shape == (tcfg.n_layers, tcfg.n_kv_heads, 64)
+    assert init_kv_cache(tcfg, "cpu").k_scale is None
