@@ -13,22 +13,37 @@ Phases (any failure ends the run with a non-zero exit):
    weights): kernel, plain version, one PyTorch library call computing the
    same function (timed only, never used by the port), and the bound (the
    larger of bytes / memory rate and operations / peak rate).  A (q4_gemv),
-   B (q4_gemm) and C (flash_attention) at the Gemma-2-9B shapes; D
-   (q8_gemv_i8, its quantizer pre-pass bit for bit first), E (q8_gemv), F
-   (q8_gemm), C and G (flash_attention_i8) at the Llama-3.2-3B shapes.
+   B (q4_gemm), C (flash_attention, bf16 cache) and H (flash_attention_i4,
+   half packing) at the Gemma-2-9B shapes; D (q8_gemv_i8, its quantizer
+   pre-pass bit for bit first), E (q8_gemv), F (q8_gemm), C on a bf16 and
+   on an f32 cache, G (flash_attention_i8) and H (pair packing) at the
+   Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 and
+   the flash kernels at T 1, 5 and 256: T = 5 is a speculative verify
+   window of k = 4.  Then, per kernel, whether a row of a T = 5 call
+   equals the same row computed alone (what makes speculative greedy
+   decoding exact).
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
    prompt (256-token chunks) for 64 new tokens twice across reset()
    (identical tokens), then one top-p generation; A, B and C, and no other
-   kernel, must have launched.  Then the chat CLI in a subprocess on the
-   same file with a synthetic tokenizer; the launch counts it prints
+   kernel, must have launched.  The same with the int4 KV cache (A, B and
+   H), then speculative greedy decoding (k = 4) on that engine against its
+   plain greedy tokens.  Then the chat CLI in a subprocess on the same
+   file with a synthetic tokenizer; the launch counts it prints
    (--show-metrics) must show the same kernels.
 4. The Q8_0 main path at full width and depth: a synthetic Llama-3.2-3B
    Q8_0 .lmrs (seed 0), the same three generations with the bf16 KV cache
-   (D, E, F and C must have launched) and again with the int8 KV cache (D,
-   E, F and G), the launch counts set to 0 just before each and read just
-   after.  Then the chat CLI with --cache-dtype int8: D, E, F and G.
+   (D, E, F and C must have launched), with the int8 KV cache (D, E, F and
+   G) and with the int4 KV cache (D, E, F and H), the launch counts set to
+   0 just before each and read just after.  On the int4 engine then:
+   speculative greedy (k = 4, equal to the plain greedy tokens up to a
+   near-tie, drafts both accepted and rejected), speculative top-p, and a
+   session saved after the prompt and 16 tokens, loaded into a fresh
+   Engine and continued for 16 tokens as the uninterrupted engine
+   continues.  One greedy run on an f32 cache, whose tokens are the bf16
+   path's.  Then the chat CLI with --cache-dtype int8, and with
+   --cache-dtype int4 --spec-k 4.
 5. One JSON line of per-kernel results, the card's name and power limit,
    and the last line {"ok": true, "device": {...}}.
 """
@@ -93,12 +108,26 @@ REPLACES = {
     "flash_attention_i8": "lmrs_tpu/kernels/flash_attention.py:140 "
                           "_flash_kernel (int8 cache, quantized=True; "
                           "_head_block_update :76)",
+    "flash_attention_i4": "lmrs_tpu/kernels/flash_attention.py:140 "
+                          "_flash_kernel (int4 cache, packed4=True, half "
+                          "and pair; _head_block_update :76)",
+    "flash_attention_f32": "lmrs_tpu/kernels/flash_attention.py:140 "
+                           "_flash_kernel (f32 cache, rounded to bf16 on "
+                           "load; _head_block_update :110)",
 }
 SOURCES = {name: f"lmrs_tpu_torch/csrc/{name}.cu" for name in REPLACES}
-SOURCES["flash_attention_i8"] = SOURCES["flash_attention"]   # one template
+for _name in ("flash_attention_i8", "flash_attention_i4",
+              "flash_attention_f32"):
+    SOURCES[_name] = SOURCES["flash_attention"]             # one template
+# kernel C's f32 instantiation shares C's wrapper and launch count: its
+# launches are those of the path that runs an f32 cache
+COUNTER = {"flash_attention_f32": "flash_attention"}
 Q4_PATH = {"q4_gemv", "q4_gemm", "flash_attention"}
+Q4_I4_PATH = {"q4_gemv", "q4_gemm", "flash_attention_i4"}
 Q8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention"}
 Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8"}
+Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4"}
+GEMV_T = (1, 4, 5)      # 5: a speculative verify window of k = 4
 
 
 def log(msg: str) -> None:
@@ -197,9 +226,9 @@ def check_act_quant(torch, gen):
 def check_matmul_kernels(torch, timer, peak, model, quant):
     """The matmul kernels of one weight type against their plain versions
     at every shape of `model`'s main path; returns per-case results.
-    "q4": A (all five shapes, T 1 and 4) and B (layer shapes, T 9 and 256).
-    "q8": D (layer shapes, T 1 and 4), E (all five, T 1 and 4) and F (layer
-    shapes, T 9 and 256)."""
+    "q4": A (all five shapes, T 1, 4 and 5) and B (layer shapes, T 9 and
+    256).  "q8": D (layer shapes, T 1, 4 and 5), E (all five, the same T)
+    and F (layer shapes, T 9 and 256)."""
     from lmrs_tpu_torch.kernels import q4_gemm, q4_gemv, q8_gemm, q8_gemv
     from lmrs_tpu_torch.kernels import q8_gemv_i8
     from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as dequant_q4
@@ -230,13 +259,13 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
         if quant == "q4":
             q, s = random_q4(torch, gen, o, k)
             w_lib = dequant_q4(q, s, GS)        # library yardstick only
-            plan = [("q4_gemv", t) for t in (1, 4)]
+            plan = [("q4_gemv", t) for t in GEMV_T]
             plan += [("q4_gemm", t) for t in (9, 256)] if layer else []
         else:
             q, s = random_q8(torch, gen, o, k)
             w_lib = dequant_q8(q, s, GS)
-            plan = [("q8_gemv_i8", t) for t in (1, 4)] if layer else []
-            plan += [("q8_gemv", t) for t in (1, 4)]
+            plan = [("q8_gemv_i8", t) for t in GEMV_T] if layer else []
+            plan += [("q8_gemv", t) for t in GEMV_T]
             plan += [("q8_gemm", t) for t in (9, 256)] if layer else []
         for kern, t in plan:
             fn, plain_fn, tol_rel, xbytes, rate = kernels[kern]
@@ -300,63 +329,85 @@ def attention_work(t_q, pos, window):
     return rows, pairs
 
 
-def check_flash_kernel(torch, timer, peak, model, int8):
-    """Kernel C (bf16 cache) or G (int8 cache) at `model`'s attention
-    geometry, S = 8,192, T 1 and 256 at pos 1,100 and 6,000, against its
-    plain version with the per-element bound of flash_attention_tol /
-    flash_attention_i8_tol."""
-    import torch.nn.functional as F
-
+def flash_cache(torch, model, cache, S=8192):
+    """Random K/V rows of `model`'s attention geometry as one layer of a
+    `cache`-type KV cache ("bf16", "f32", "int8" or "int4"; seed 1).
+    Returns (kernel name, (wrapper, plain version, bound function), cache
+    tensors as the wrapper takes them, bf16 (S, KH, HD) K and V for the
+    library yardstick, bytes per cached row of K and V together)."""
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
                                                         flash_attention_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_i4 import (
+        flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
     from lmrs_tpu_torch.kernels.flash_attention_i8 import (
         flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
-    from lmrs_tpu_torch.quant import quantize_kv_rows
+    from lmrs_tpu_torch.quant import (quantize_kv_rows, quantize_kv_rows_q4,
+                                      unpack_kv_q4)
+
+    KH, HD = model["KH"], model["HD"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    vf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    if cache in ("int8", "int4"):
+        quantize = quantize_kv_rows if cache == "int8" else quantize_kv_rows_q4
+        rows, scales = quantize(torch.stack([kf, vf]))
+        k, v = rows[0][None].contiguous(), rows[1][None].contiguous()
+        ks, vs = (scales[i].t().contiguous()[None] for i in (0, 1))
+        tensors = (k, v, ks, vs)
+        # library yardstick reads the dequantized rows as bf16
+        ints = ((k[0].reshape(S, KH, HD), v[0].reshape(S, KH, HD))
+                if cache == "int8" else
+                (unpack_kv_q4(k[0], KH, HD), unpack_kv_q4(v[0], KH, HD)))
+        k_lib = (ints[0] * ks[0].t()[..., None]).to(torch.bfloat16)
+        v_lib = (ints[1] * vs[0].t()[..., None]).to(torch.bfloat16)
+        # K and V values (one or half a byte each) + scales
+        row_bytes = 2 * (KH * HD // (1 if cache == "int8" else 2) + 4 * KH)
+        if cache == "int8":
+            return ("flash_attention_i8",
+                    (flash_attention_i8, flash_attention_i8_plain,
+                     flash_attention_i8_tol), tensors, k_lib, v_lib,
+                    row_bytes)
+        return ("flash_attention_i4",
+                (flash_attention_i4, flash_attention_i4_plain,
+                 flash_attention_i4_tol), tensors, k_lib, v_lib, row_bytes)
+    dtype = torch.bfloat16 if cache == "bf16" else torch.float32
+    k = kf.reshape(1, S, KH * HD).to(dtype)
+    v = vf.reshape(1, S, KH * HD).to(dtype)
+    return ("flash_attention" if cache == "bf16" else "flash_attention_f32",
+            (flash_attention, flash_attention_plain, flash_attention_tol),
+            (k, v), k[0].reshape(S, KH, HD).to(torch.bfloat16),
+            v[0].reshape(S, KH, HD).to(torch.bfloat16),
+            2 * KH * HD * (2 if cache == "bf16" else 4))
+
+
+def check_flash_kernel(torch, timer, peak, model, cache):
+    """Kernel C (bf16 or f32 cache), G (int8 cache) or H (int4 cache) at
+    `model`'s attention geometry, S = 8,192, T 1, 5 and 256 at pos 1,100
+    and 6,000, against its plain version with the per-element bound of its
+    bound function (flash_attention_tol and its int8 / int4 forms)."""
+    import torch.nn.functional as F
 
     H, KH, HD = model["H"], model["KH"], model["HD"]
     window, softcap = model["WINDOW"], model["SOFTCAP"]
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    S = 8192
-    kf = torch.randn(S, KH, HD, device="cuda", generator=gen)
-    vf = torch.randn(S, KH, HD, device="cuda", generator=gen)
-    if int8:
-        name = "flash_attention_i8"
-        rows, scales = quantize_kv_rows(torch.stack([kf, vf]))
-        k, v = rows[0][None].contiguous(), rows[1][None].contiguous()
-        ks, vs = (scales[i].t().contiguous()[None] for i in (0, 1))
-        cache = (k, v, ks, vs)
-        fns = (flash_attention_i8, flash_attention_i8_plain,
-               flash_attention_i8_tol)
-        # library yardstick reads the dequantized rows as bf16
-        k_lib = (k[0].reshape(S, KH, HD) * ks[0].t()[..., None]).to(
-            torch.bfloat16)
-        v_lib = (v[0].reshape(S, KH, HD) * vs[0].t()[..., None]).to(
-            torch.bfloat16)
-        row_bytes = 2 * (KH * HD + 4 * KH)      # K and V values + scales
-    else:
-        name = "flash_attention"
-        k = kf.reshape(1, S, KH * HD).to(torch.bfloat16)
-        v = vf.reshape(1, S, KH * HD).to(torch.bfloat16)
-        cache = (k, v)
-        fns = (flash_attention, flash_attention_plain, flash_attention_tol)
-        k_lib, v_lib = k[0].reshape(S, KH, HD), v[0].reshape(S, KH, HD)
-        row_bytes = 2 * KH * HD * 2
+    name, fns, tensors, k_lib, v_lib, row_bytes = flash_cache(torch, model,
+                                                              cache)
     kernel_fn, plain_fn, tol_fn = fns
+    gen = torch.Generator(device="cuda").manual_seed(2)
     kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
     cases = []
-    for t_q in (1, 256):
+    for t_q in (1, 5, 256):
         for pos in (1100, 6000):
             q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
-            run = lambda: kernel_fn(q, *cache, 0, pos, **kw)    # noqa: E731
-            plain = lambda: plain_fn(q, *cache, 0, pos, **kw)   # noqa: E731
+            run = lambda: kernel_fn(q, *tensors, 0, pos, **kw)    # noqa: E731
+            plain = lambda: plain_fn(q, *tensors, 0, pos, **kw)   # noqa: E731
             got, want = run(), plain()
             torch.cuda.synchronize()
             if not torch.isfinite(got).all():
                 raise RuntimeError(f"{name} T={t_q} pos={pos}: non-finite")
             # per-element bound that follows the softmax weights (2^-7 +
             # 2^-9 of the plain version on |v|; see flash_attention_tol)
-            tol = tol_fn(q, *cache, 0, pos, **kw)
+            tol = tol_fn(q, *tensors, 0, pos, **kw)
             diff = (got - want).abs()
             err, ratio = diff.max().item(), (diff / tol).max().item()
             # library yardstick: SDPA over the same live rows, no softcap
@@ -382,7 +433,7 @@ def check_flash_kernel(torch, timer, peak, model, int8):
                         plain_ms=timer(plain), library_ms=timer(lib),
                         bound_ms=b_ms, bound_by=b_by,
                         blocks=((H // KH * t_q + 63) // 64) * KH)
-            log(f"  {name:18s} pos={pos:5d} T={t_q:3d}: max_abs_err "
+            log(f"  {name:19s} pos={pos:5d} T={t_q:3d}: max_abs_err "
                 f"{err:.3e} (worst err/tol {ratio:.3f}, tol >= "
                 f"{case['tol_min']:.3e})  kernel {case['ms']:.4f} ms  "
                 f"plain {case['plain_ms']:.4f}  library "
@@ -393,6 +444,47 @@ def check_flash_kernel(torch, timer, peak, model, int8):
                                    f"of the tolerance")
             cases.append(case)
     return cases
+
+
+def check_row_independence(torch):
+    """Does a row of a T = 5 call equal, bit for bit, the same row computed
+    alone (T = 1)?  Speculative greedy decoding is exact where every
+    kernel of the verify forward says yes.  The T <= 8 matmul kernels on
+    Llama-3.2-3B's wqkv shape (A on Gemma-2-9B's), the flash kernels at
+    their models' geometry, pos 1,100.  Returns kernel -> bool; a "no" is
+    a finding to record, not a failure."""
+    from lmrs_tpu_torch.kernels import q4_gemv, q8_gemv, q8_gemv_i8
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    same = {}
+    for name, fn, make, model in (("q4_gemv", q4_gemv, random_q4, GEMMA),
+                                  ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA),
+                                  ("q8_gemv", q8_gemv, random_q8, LLAMA)):
+        o, k = matmul_shapes(model)["wqkv"]
+        q, s = make(torch, gen, o, k)
+        x = torch.randn(5, k, device="cuda", generator=gen)
+        whole = fn(x, q, s, GS)
+        rows = torch.cat([fn(x[i:i + 1].contiguous(), q, s, GS)
+                          for i in range(5)])
+        same[name] = torch.equal(whole, rows)
+    pos = 1100
+    for model, cache in ((GEMMA, "bf16"), (LLAMA, "f32"), (LLAMA, "int8"),
+                         (GEMMA, "int4"), (LLAMA, "int4")):
+        name, (fn, _, _), tensors, _, _, _ = flash_cache(torch, model, cache,
+                                                         S=2048)
+        kw = dict(n_kv=model["KH"], scale=model["HD"] ** -0.5,
+                  softcap=model["SOFTCAP"], window=model["WINDOW"])
+        q = torch.randn(5, model["H"], model["HD"], device="cuda",
+                        generator=gen)
+        whole = fn(q, *tensors, 0, pos, **kw)
+        rows = torch.cat([fn(q[i:i + 1].contiguous(), *tensors, 0, pos + i,
+                             **kw) for i in range(5)])
+        same[f"{name} ({model['name']})"] = torch.equal(whole, rows)
+    torch.cuda.synchronize()
+    for name, ok in same.items():
+        log(f"  {name}: row of T=5 {'equals' if ok else 'DIFFERS from'} "
+            f"the row alone")
+    return same
 
 
 def synthetic_tokenizer(path: Path, vocab_size: int):
@@ -413,7 +505,8 @@ def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
     new tokens twice across reset() (identical tokens), then one top-p
     generation, with the launch counts set to 0 just before and read just
     after.  Exactly the kernels of `expect` must have launched.  Returns
-    the launch counts and the runs' metrics."""
+    (the launch counts and the runs' metrics, the engine, the prompt, the
+    greedy tokens)."""
     from lmrs_tpu_torch.kernels import launches, reset_launches
     from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
 
@@ -453,11 +546,151 @@ def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
     if launched != expect:
         raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
                            f"expected {sorted(expect)}")
-    return dict(peak_memory_gb=peak_gb, launches=counts,
-                runs={name: dict(ttft_ms=1e3 * m.ttft_seconds,
-                                 prefill_tok_s=m.prefill_tokens_per_second,
-                                 decode_tok_s=m.tokens_per_second)
-                      for name, m in runs})
+    result = dict(peak_memory_gb=peak_gb, launches=counts,
+                  runs={name: dict(ttft_ms=1e3 * m.ttft_seconds,
+                                   prefill_tok_s=m.prefill_tokens_per_second,
+                                   decode_tok_s=m.tokens_per_second)
+                        for name, m in runs})
+    return result, engine, prompt, toks_a
+
+
+def greedy_margins(torch, engine, prompt, n):
+    """Plain greedy decoding step by step: (tokens, top-2 logit margin of
+    every step over the largest |logit| of that step)."""
+    engine.reset()
+    logits = engine.prefill(prompt)
+    toks, margins = [], []
+    for _ in range(n):
+        top = torch.topk(logits, 2)
+        toks.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1])
+                       / float(logits.abs().max()))
+        logits = engine.decode_step(toks[-1])
+    return toks, margins
+
+
+NEAR_TIE = 1e-3     # of the logit scale
+
+
+def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
+    """Speculative decoding on `engine` (its own path: the launch counts
+    are set to 0 just before and read just after).  Greedy, k drafts per
+    verify step, as many tokens as `plain`, the engine's plain greedy
+    tokens: equal, or equal up to the first step whose top-2 margin in a
+    plain run is below NEAR_TIE of the logit scale (a verify window runs
+    the kernels at T = k+1, which may sum in another order than T = 1).
+    Drafts must have been both accepted and rejected.  Then two sampled
+    runs through the rejection sampler.  Top-p (temperature 0.7, top-p
+    0.9, seed 0): random weights give it a nearly flat distribution, so
+    its drafts are rejected (at least one must be) and every token is a
+    resample.  A nucleus of one token (temperature 1.5, top-p 1e-6), whose
+    distribution is one-hot on the argmax: the sampler then accepts what
+    greedy verification accepts, resamples the argmax where it rejects,
+    and must emit the speculative greedy tokens, with drafts both accepted
+    and rejected.  Returns launch counts and metrics."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.runtime.engine import GenerationConfig
+
+    n = len(plain)
+    reset_launches()
+    engine.reset()
+    toks = engine.generate(prompt, GenerationConfig(
+        temperature=0.0, max_new_tokens=n, speculative_k=k))
+    mg = engine.metrics
+    engine.reset()
+    toks_p = engine.generate(prompt, GenerationConfig(
+        temperature=0.7, top_p=0.9, seed=0, max_new_tokens=n,
+        speculative_k=k))
+    mp = engine.metrics
+    engine.reset()
+    toks_1 = engine.generate(prompt, GenerationConfig(
+        temperature=1.5, top_p=1e-6, seed=0, max_new_tokens=n,
+        speculative_k=k))
+    m1 = engine.metrics
+    torch.cuda.synchronize()
+    counts = launches()
+    n_eq = n
+    if toks != plain:
+        _, margins = greedy_margins(torch, engine, prompt, n)
+        close = [i for i, m in enumerate(margins) if m < NEAR_TIE]
+        n_eq = close[0] if close else n
+        log(f"  {label}: speculative greedy leaves plain greedy at step "
+            f"{[a == b for a, b in zip(toks, plain)].index(False)}; first "
+            f"near-tie of the plain run at step {n_eq}")
+    if len(toks) != n or toks[:n_eq] != plain[:n_eq]:
+        raise RuntimeError(f"{label}: speculative greedy tokens {toks} "
+                           f"differ from plain greedy tokens {plain} before "
+                           f"a near-tie (step {n_eq})")
+    vocab = engine.cfg.vocab_size
+    if len(toks_p) != n or not all(0 <= t < vocab for t in toks_p):
+        raise RuntimeError(f"{label}: invalid speculative top-p tokens")
+    out = {}
+    if toks_1[:n_eq] != toks[:n_eq]:
+        raise RuntimeError(f"{label}: the one-token nucleus emits {toks_1}, "
+                           f"speculative greedy {toks}")
+    for name, m in (("speculative greedy", mg), ("speculative top-p", mp),
+                    ("speculative one-token nucleus", m1)):
+        steps = m.spec_proposed // k
+        out[name] = dict(
+            decode_tok_s=m.tokens_per_second, verify_steps=steps,
+            tokens_per_step=m.decode_tokens / steps,
+            proposed=m.spec_proposed, accepted=m.spec_accepted,
+            acceptance=m.spec_accepted / m.spec_proposed)
+        log(f"    {label}, {name} k={k}: decode {m.tokens_per_second:.2f} "
+            f"tok/s, {m.decode_tokens} tokens in {steps} verify steps "
+            f"({m.decode_tokens / steps:.2f} per step), "
+            f"{m.spec_accepted}/{m.spec_proposed} drafts accepted "
+            f"({100 * m.spec_accepted / m.spec_proposed:.1f}%)")
+    log(f"    launches {counts}; top-p tokens {toks_p[:12]}...")
+    for name, m in (("greedy", mg), ("one-token nucleus", m1)):
+        if not 0 < m.spec_accepted < m.spec_proposed:
+            raise RuntimeError(f"{label}: speculative {name} accepted "
+                               f"{m.spec_accepted} of {m.spec_proposed} "
+                               f"drafts: both branches must run")
+    # a rejected draft sends the top-p run through the resample from the
+    # zeroed row; the random prompt's first drafts are rejected for sure
+    if not (mp.spec_proposed > 0 and mp.spec_accepted < mp.spec_proposed):
+        raise RuntimeError(f"{label}: speculative top-p accepted "
+                           f"{mp.spec_accepted} of {mp.spec_proposed} "
+                           f"drafts: the rejection branch must run")
+    launched = {name for name, c in counts.items() if c > 0}
+    if launched != expect:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(expect)}")
+    return dict(launches=counts, runs=out)
+
+
+def drive_session(torch, label, work, cfg, params, cache_dtype, prompt):
+    """save_session after the prompt and 16 greedy tokens, load_session
+    into a fresh Engine, a second turn of 16 tokens: equal to the second
+    turn of the engine that was never interrupted."""
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    gen = GenerationConfig(temperature=0.0, max_new_tokens=16)
+    first = Engine(cfg, params, cache_dtype=cache_dtype)
+    first.generate(prompt, gen)
+    saved_pos = first.pos
+    path = work / "session.npz"
+    t0 = time.perf_counter()
+    first.save_session(str(path))
+    save_s = time.perf_counter() - t0
+    second = Engine(cfg, params, cache_dtype=cache_dtype)
+    t0 = time.perf_counter()
+    second.load_session(str(path))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    size_mb = path.stat().st_size / 1e6
+    path.unlink()
+    turn = prompt[:8]
+    want = first.generate(turn, gen)
+    got = second.generate(turn, gen)
+    log(f"  {label}: session of {size_mb:.0f} MB saved in {save_s:.2f} s, "
+        f"loaded in {load_s:.2f} s at pos {saved_pos}; "
+        f"second turn {got[:8]}...")
+    if got != want or second.pos != first.pos:
+        raise RuntimeError(f"{label}: the resumed session continues "
+                           f"{got}, the uninterrupted engine {want}")
+    return dict(session_mb=size_mb, save_s=save_s, load_s=load_s)
 
 
 def drive_cli(label, model, tok_path, expect, extra_args=()):
@@ -560,13 +793,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     log("phase 2: kernels vs plain versions at Gemma-2-9B shapes (A, B, C)")
     cases = check_matmul_kernels(torch, timer, peak, GEMMA, "q4")
-    cases += check_flash_kernel(torch, timer, peak, GEMMA, int8=False)
+    cases += check_flash_kernel(torch, timer, peak, GEMMA, "bf16")
+    cases += check_flash_kernel(torch, timer, peak, GEMMA, "int4")
     log("phase 2: kernels vs plain versions at Llama-3.2-3B shapes "
-        "(D, E, F, C, G)")
+        "(D, E, F, C, C on f32, G, H)")
     check_act_quant(torch, torch.Generator(device="cuda").manual_seed(2))
     cases += check_matmul_kernels(torch, timer, peak, LLAMA, "q8")
-    cases += check_flash_kernel(torch, timer, peak, LLAMA, int8=False)
-    cases += check_flash_kernel(torch, timer, peak, LLAMA, int8=True)
+    for cache in ("bf16", "f32", "int8", "int4"):
+        cases += check_flash_kernel(torch, timer, peak, LLAMA, cache)
+    log("phase 2: is a row of a T=5 call the row computed alone?")
+    row_independent = check_row_independence(torch)
     del timer
     torch.cuda.empty_cache()
 
@@ -576,15 +812,25 @@ def main() -> int:
     try:
         from lmrs_tpu_torch.config import QuantType, gemma2_9b, llama32_3b
 
-        # ---- 3. the Q4_0 main path at full width and depth, and its CLI
+        # ---- 3. the Q4_0 main path at full width and depth, bf16 then
+        # int4 KV cache (plain, then speculative), and its CLI
         log("phase 3: Gemma-2-9B Q4_0 main path")
         model, cfg, params, load_s = load_model(
             torch, work, gemma2_9b(quant=QuantType.Q4_0))
-        paths = {"gemma2-9b Q4_0 bf16 cache": dict(
-            load_s=load_s, **drive_main_path(
-                torch, "gemma2-9b Q4_0, bf16 cache", cfg, params,
-                torch.bfloat16, Q4_PATH))}
-        del params
+        paths = {}
+        label = "gemma2-9b Q4_0 bf16 cache"
+        res, engine, prompt, plain = drive_main_path(
+            torch, label, cfg, params, torch.bfloat16, Q4_PATH)
+        paths[label] = dict(load_s=load_s, **res)
+        del engine
+        torch.cuda.empty_cache()
+        label = "gemma2-9b Q4_0 int4 cache"
+        res, engine, prompt, plain = drive_main_path(
+            torch, label, cfg, params, "int4", Q4_I4_PATH)
+        paths[label] = dict(load_s=load_s, **res)
+        paths[label + ", speculative"] = drive_speculative(
+            torch, label, engine, prompt, plain, Q4_I4_PATH)
+        del params, engine
         torch.cuda.empty_cache()
         tok_path = work / "tokenizer.bin"
         synthetic_tokenizer(tok_path, GEMMA["V"])
@@ -592,24 +838,65 @@ def main() -> int:
             "gemma2-9b Q4_0", model, tok_path, Q4_PATH)}
         model.unlink()
 
-        # ---- 4. the Q8_0 main path, bf16 then int8 KV cache, and its CLI
+        # ---- 4. the Q8_0 main path, bf16, int8 and int4 KV cache; on the
+        # int4 engine speculation and a session; an f32 cache; its CLI
         log("phase 4: Llama-3.2-3B Q8_0 main path")
         model, cfg, params, load_s = load_model(
             torch, work, llama32_3b(quant=QuantType.Q8_0))
-        for cache_dtype, expect in ((torch.bfloat16, Q8_PATH),
-                                    (torch.int8, Q8_I8_PATH)):
-            what = "int8" if cache_dtype == torch.int8 else "bf16"
-            paths[f"llama3.2-3b Q8_0 {what} cache"] = dict(
-                load_s=load_s, **drive_main_path(
-                    torch, f"llama3.2-3b Q8_0, {what} cache", cfg, params,
-                    cache_dtype, expect))
+        greedy = {}
+        for what, cache_dtype, expect in (
+                ("bf16", torch.bfloat16, Q8_PATH),
+                ("int8", torch.int8, Q8_I8_PATH),
+                ("int4", "int4", Q8_I4_PATH)):
+            label = f"llama3.2-3b Q8_0 {what} cache"
+            res, engine, prompt, greedy[what] = drive_main_path(
+                torch, label, cfg, params, cache_dtype, expect)
+            paths[label] = dict(load_s=load_s, **res)
+            if what == "int4":
+                paths[label + ", speculative"] = drive_speculative(
+                    torch, label, engine, prompt, greedy[what], expect)
+            del engine
             torch.cuda.empty_cache()
-        del params
+        paths["llama3.2-3b Q8_0 int4 cache"].update(drive_session(
+            torch, "llama3.2-3b Q8_0 int4 cache", work, cfg, params, "int4",
+            prompt))
+        torch.cuda.empty_cache()
+        # an f32 cache is rounded to bf16 as it is read: the bf16 path's
+        # tokens, through kernel C's f32 instantiation
+        from lmrs_tpu_torch.kernels import launches, reset_launches
+        from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+        label = "llama3.2-3b Q8_0 f32 cache"
+        torch.cuda.reset_peak_memory_stats()
+        engine = Engine(cfg, params, cache_dtype=torch.float32)
+        reset_launches()
+        toks = engine.generate(prompt, GenerationConfig(
+            temperature=0.0, max_new_tokens=64))
+        torch.cuda.synchronize()
+        counts, m = launches(), engine.metrics
+        log(f"  {label}: peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, TTFT "
+            f"{1e3 * m.ttft_seconds:.1f} ms, decode "
+            f"{m.tokens_per_second:.2f} tok/s, launches {counts}")
+        if toks != greedy["bf16"]:
+            raise RuntimeError(f"{label}: greedy tokens {toks} differ from "
+                               f"the bf16 cache's {greedy['bf16']}")
+        if {n for n, c in counts.items() if c > 0} != Q8_PATH:
+            raise RuntimeError(f"{label}: kernels launched {counts}")
+        paths[label] = dict(
+            launches=counts, f32_cache=True,
+            peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+            runs={"greedy": dict(ttft_ms=1e3 * m.ttft_seconds,
+                                 decode_tok_s=m.tokens_per_second)})
+        del params, engine
         torch.cuda.empty_cache()
         synthetic_tokenizer(tok_path, LLAMA["V"])
         cli_counts["llama3.2-3b Q8_0 int8 cache"] = drive_cli(
             "llama3.2-3b Q8_0 --cache-dtype int8", model, tok_path,
             Q8_I8_PATH, ("--cache-dtype", "int8"))
+        cli_counts["llama3.2-3b Q8_0 int4 cache, speculative"] = drive_cli(
+            "llama3.2-3b Q8_0 --cache-dtype int4 --spec-k 4", model,
+            tok_path, Q8_I4_PATH, ("--cache-dtype", "int4", "--spec-k", "4"))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -633,7 +920,20 @@ def main() -> int:
                     "T=256", [(ll, s, 256, LLAMA["L"]) for s in LAYER_SHAPES]),
         "flash_attention_i8": ("llama3.2-3b decode token at pos 6000: 28 x "
                                "T=1", [(ll, "pos6000", 1, LLAMA["L"])]),
+        "flash_attention_i4": ("llama3.2-3b decode token at pos 6000: 28 x "
+                               "T=1", [(ll, "pos6000", 1, LLAMA["L"])]),
+        "flash_attention_f32": ("llama3.2-3b decode token at pos 6000: 28 x "
+                                "T=1", [(ll, "pos6000", 1, LLAMA["L"])]),
     }
+
+    def path_launches(name):
+        """Launches of `name` over the main paths; C's two instantiations
+        share a count, told apart by the path's cache type."""
+        counter = COUNTER.get(name, name)
+        return sum(p["launches"][counter] for p in paths.values()
+                   if counter != "flash_attention"
+                   or bool(p.get("f32_cache")) == (name in COUNTER))
+
     per_kernel = []
     for name in REPLACES:
         mine = [c for c in cases if c["kernel"] == name]
@@ -644,14 +944,16 @@ def main() -> int:
         per_kernel.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
-            launches=sum(p["launches"][name] for p in paths.values()),
-            cli_launches=sum(c[name] for c in cli_counts.values()),
+            launches=path_launches(name),
+            cli_launches=sum(c.get(name, 0) for c in cli_counts.values()),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             err_over_tol=max(c["err_over_tol"] for c in mine),
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
             bound_by=pick[plan[0][:3]]["bound_by"],
             library_ms=tot["library_ms"], unit=what, cases=mine))
+    log("rows of a T=5 call equal the rows alone: "
+        + json.dumps(row_independent))
     log("main paths: " + json.dumps(paths))
     log(f"chip_smoke ran {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": per_kernel}), flush=True)

@@ -7,15 +7,17 @@ Usage:
     python -m lmrs_tpu_torch.cli.chat --model model.lmrs
         [--tokenizer tokenizer.bin] [--temperature 0.7] [--top-p 0.9]
         [--seed N] [--max-new-tokens N] [--show-metrics] [--device cpu]
-        [--cache-dtype bfloat16|int8]
+        [--cache-dtype bfloat16|float32|int8|int4] [--spec-k K]
 
 Runs on the GPU unless --device names another device.  --show-metrics
 prints, after each reply, its speed and the CUDA kernel launches since
-the program started (0 on the CPU, where the plain versions run).  Q8_0
+the program started (0 on the CPU, where the plain versions run), and with
+--spec-k the share of drafted tokens that were accepted.  --spec-k K turns
+on prompt-lookup speculative decoding with K drafted tokens per step.  Q8_0
 layer weights decode with int8 activations (W8A8) unless the environment
 sets LMRS_W8A8=0, the JAX package's own switch.  The flags of the JAX
-package's CLI that this package does not cover yet (--spec-k, --image,
---cache-dtype float32 or int4, --tp, --cp) are accepted and raise.
+package's CLI that this package does not cover yet (--image, --tp, --cp)
+are accepted and raise.
 """
 
 from __future__ import annotations
@@ -57,11 +59,13 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; 'cpu' runs the plain "
                         "PyTorch versions of the kernels)")
-    # accepted for the JAX CLI's surface; not ported yet
-    p.add_argument("--spec-k", dest="spec_k", type=int, default=0)
-    p.add_argument("--image", default=None)
+    p.add_argument("--spec-k", dest="spec_k", type=int, default=0,
+                   help="prompt-lookup speculative decoding: drafted tokens "
+                        "per verify step (0 = off)")
     p.add_argument("--cache-dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8", "int4"])
+    # accepted for the JAX CLI's surface; not ported yet
+    p.add_argument("--image", default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--cp", type=int, default=1)
     return p
@@ -71,13 +75,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = build_argparser().parse_args(argv)
     from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
 
-    if args.spec_k > 0:
-        raise unsupported("--spec-k", "A9 speculative decoding")
     if args.image:
         raise unsupported("--image", "A13 multimodal")
-    if args.cache_dtype not in ("bfloat16", "int8"):
-        raise unsupported(f"--cache-dtype {args.cache_dtype}",
-                          "A8 int4 and f32 KV caches")
     if args.tp > 1 or args.cp > 1:
         raise unsupported("--tp / --cp", "A15 torch.distributed tp/cp")
     device = resolve_device(args.device)
@@ -104,14 +103,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"Using {cfg.quant.name} quantization.")
     print(f"Loading weights onto {device}...")
     params = params_from_lmrs(f, device=device)
-    import torch
-
     engine = Engine(cfg, params, device=device,
-                    cache_dtype=getattr(torch, args.cache_dtype),
+                    cache_dtype=args.cache_dtype,
                     w8a8=os.environ.get("LMRS_W8A8", "1") == "1")
     print("Done.\n")
     gen = GenerationConfig(temperature=args.temperature, top_p=args.top_p,
-                           seed=args.seed, max_new_tokens=args.max_new_tokens)
+                           seed=args.seed, max_new_tokens=args.max_new_tokens,
+                           speculative_k=args.spec_k)
 
     stop_tokens = {tokenizer.eos, *EXTRA_STOP_TOKENS.get(cfg.model_type, ())}
     while True:
@@ -153,6 +151,10 @@ def main(argv: Optional[List[str]] = None) -> None:
             print(f"Speed: {n_tokens / dt:.2f} tok/s  (decode "
                   f"{m.tokens_per_second:.2f} tok/s, TTFT "
                   f"{1e3 * (m.ttft_seconds or 0.0):.1f} ms, {device})")
+            if m.spec_proposed:
+                print(f"Speculative: {m.spec_accepted}/{m.spec_proposed} "
+                      f"drafts accepted "
+                      f"({m.spec_accepted / m.spec_proposed:.0%})")
             print(f"Kernel launches since start: {json.dumps(launches())}")
 
 

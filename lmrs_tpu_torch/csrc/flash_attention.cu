@@ -1,8 +1,9 @@
-// Kernels C and G — flash attention over one layer of the KV cache (t_q <=
-// 256 query tokens: decode steps and prefill chunks).  C reads a bf16 cache,
-// G an int8 cache with one f32 scale per (kv head, row); they are the two
-// instantiations of one kernel template and share everything but the tile
-// load and two multiplies.
+// Kernels C, G and H — flash attention over one layer of the KV cache (t_q
+// <= 256 query tokens: decode steps, speculative verify windows and prefill
+// chunks).  C reads a bf16 or an f32 cache, G an int8 cache with one f32
+// scale per (kv head, row), H an int4 cache (two values per byte, the same
+// scales); they are instantiations of one kernel template and share
+// everything but the tile load and two multiplies.
 //
 // Kernel C.
 // Computes ops.attention.attention(q, k[l, :n], v[l, :n], pos,
@@ -50,6 +51,29 @@
 // shared memory beside the zero-filled rows.  Bound: bytes at decode, half
 // of C's (1 byte per cached value plus 4/hd of scale).
 //
+// Kernel C, f32 cache.  The TPU kernel rounds an f32 K/V tile to bf16 on
+// load (_head_block_update's load(): blk.astype(bfloat16)), so an f32 cache
+// gives the bf16 cache's result bit for bit at twice the bytes.  Here too:
+// four f32 values per 16-byte load are rounded to bf16 (RNE) on their way
+// into shared memory, and everything after the tile load is C.
+//
+// Kernel H.  The cache holds nibble-packed rows (S, KH*hd/2) of int8 bytes
+// v = 16*q_hi + q_lo + 8 with q_lo, q_hi in [-8, 7], and the (KH, S) f32
+// scales of G.  Replaces _flash_kernel with packed4=True
+// (_head_block_update's load(), both packings).  A byte unpacks on its way
+// into shared memory as q_hi = v >> 4 (arithmetic shift of the signed
+// byte: the TPU kernel's floor(v / 16)) and q_lo = (v & 15) - 8, both
+// exact in bf16.  "half" packing (hd % 256 == 0, or an odd kv-head count):
+// head kh owns hd/2 bytes of a row, the low nibbles are its channels
+// [0, hd/2) and the high nibbles [hd/2, hd).  "pair" packing (every other
+// geometry): heads 2p and 2p+1 share hd bytes, head 2p in the low nibbles
+// and head 2p+1 in the high ones; a block owns one kv head, so the two
+// blocks of a pair read the same bytes (later: one block per pair).  After
+// the tile load everything is G: no float or int8 K/V tile is written to
+// device memory.  Rows outside [window start, last live] are filled with
+// the byte 8, which unpacks to (0, 0).  Bound: bytes at decode, a quarter
+// of C's (half a byte per cached value plus 4/hd of scale).
+//
 // Later: at T = 1 there are only KH blocks (8 for Gemma-2-9B and
 // Llama-3.2-3B) on 132 SMs; a split along the sequence (flash-decoding)
 // with a merge pass fills the card.
@@ -59,6 +83,8 @@
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 using namespace nvcuda;
 
@@ -70,7 +96,15 @@ constexpr int kWarps = 4;       // each warp owns 16 query rows
 constexpr int LDP = BKV + 8;    // bf16 stride of the p tile
 constexpr int LDS = BKV + 4;    // f32 stride of the score tile
 
-template <int HD, bool I8>
+// how a cache row stores one kv head's values
+enum class Cache { BF16, I8, F32, I4_HALF, I4_PAIR };
+
+// caches of integers with one f32 scale per (kv head, row)
+__host__ __device__ constexpr bool quantized(Cache c) {
+  return c == Cache::I8 || c == Cache::I4_HALF || c == Cache::I4_PAIR;
+}
+
+template <int HD, bool Q>
 struct Smem {
   static constexpr int LDH = HD + 8;   // bf16 stride of the q/k/v tiles
   static constexpr int LDO = HD + 4;   // f32 stride of the output tile
@@ -82,12 +116,34 @@ struct Smem {
   static constexpr size_t o_off = p_off + sizeof(__nv_bfloat16) * BQ * LDP;
   static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
   static constexpr size_t l_off = m_off + sizeof(float) * BQ;
-  static constexpr size_t ks_off = l_off + sizeof(float) * BQ;   // I8 only
-  static constexpr size_t vs_off = ks_off + sizeof(float) * BKV;  // I8 only
-  static constexpr size_t bytes = I8 ? vs_off + sizeof(float) * BKV : ks_off;
+  // the tile's scales: quantized caches only
+  static constexpr size_t ks_off = l_off + sizeof(float) * BQ;
+  static constexpr size_t vs_off = ks_off + sizeof(float) * BKV;
+  static constexpr size_t bytes = Q ? vs_off + sizeof(float) * BKV : ks_off;
 };
 
-// 16 int8 values -> 16 bf16 values (exact) at dst, 32-byte aligned
+// One kv head's stripe of a cache row, in bytes and 16-byte chunks.  A
+// pair-packed int4 stripe holds two heads (kh / 2 picks it), every other
+// one head.
+template <int HD, Cache C>
+struct Stripe {
+  // a value of the cache's type (a byte of an integer cache)
+  using Elem = std::conditional_t<
+      C == Cache::BF16, __nv_bfloat16,
+      std::conditional_t<C == Cache::F32, float, int8_t>>;
+  static constexpr int elem = sizeof(Elem);
+  static constexpr int bytes = C == Cache::BF16   ? HD * 2
+                               : C == Cache::F32  ? HD * 4
+                               : C == Cache::I4_HALF ? HD / 2
+                                                     : HD;   // I8, I4_PAIR
+  static constexpr int chunks = bytes / 16;
+  // the byte a row outside the live range is filled with: 8 unpacks to the
+  // nibble values (0, 0), 0 is zero in every other type
+  static constexpr unsigned fill =
+      (C == Cache::I4_HALF || C == Cache::I4_PAIR) ? 0x08080808u : 0u;
+};
+
+// 16 int8 values -> 16 bf16 values (exact) at dst, 16-byte aligned
 __device__ __forceinline__ void store16_i8_as_bf16(__nv_bfloat16* dst,
                                                    uint4 v) {
   const uint32_t words[4] = {v.x, v.y, v.z, v.w};
@@ -106,9 +162,61 @@ __device__ __forceinline__ void store16_i8_as_bf16(__nv_bfloat16* dst,
   d[1] = *reinterpret_cast<const uint4*>(&out[4]);
 }
 
-// kc, vc: one layer of the cache, (S, row_stride) bf16 (C) or int8 (G);
-// kscale, vscale: the layer's (KH, S) f32 scales (G), unused for C.
-template <int HD, bool I8>
+// the low (HIGH = false) or high nibble values of 16 biased bytes
+// v = 16*q_hi + q_lo + 8 -> 16 bf16 values (exact) at dst, 16-byte aligned
+template <bool HIGH>
+__device__ __forceinline__ void store16_nibbles_as_bf16(__nv_bfloat16* dst,
+                                                        uint4 v) {
+  const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+  __align__(16) __nv_bfloat162 out[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    float f[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      // the signed byte first: >> is arithmetic only on a signed type
+      const int b = (int)(int8_t)((words[w] >> (8 * i)) & 0xFFu);
+      f[i] = (float)(HIGH ? (b >> 4) : ((b & 15) - 8));
+    }
+    out[2 * w] = __floats2bfloat162_rn(f[0], f[1]);
+    out[2 * w + 1] = __floats2bfloat162_rn(f[2], f[3]);
+  }
+  uint4* d = reinterpret_cast<uint4*>(dst);
+  d[0] = *reinterpret_cast<const uint4*>(&out[0]);
+  d[1] = *reinterpret_cast<const uint4*>(&out[4]);
+}
+
+// 16-byte chunk c of a head's stripe -> its bf16 values in the shared
+// memory row `dst` (HD values).  `high`: the block's head is the odd one of
+// its pair (I4_PAIR only).
+template <int HD, Cache C>
+__device__ __forceinline__ void store_chunk(__nv_bfloat16* dst, int c,
+                                            uint4 v, bool high) {
+  if constexpr (C == Cache::BF16) {
+    *reinterpret_cast<uint4*>(dst + c * 8) = v;
+  } else if constexpr (C == Cache::F32) {
+    __align__(8) __nv_bfloat162 out[2] = {
+        __floats2bfloat162_rn(__uint_as_float(v.x), __uint_as_float(v.y)),
+        __floats2bfloat162_rn(__uint_as_float(v.z), __uint_as_float(v.w))};
+    *reinterpret_cast<uint2*>(dst + c * 4) =
+        *reinterpret_cast<const uint2*>(out);
+  } else if constexpr (C == Cache::I8) {
+    store16_i8_as_bf16(dst + c * 16, v);
+  } else if constexpr (C == Cache::I4_HALF) {
+    store16_nibbles_as_bf16<false>(dst + c * 16, v);
+    store16_nibbles_as_bf16<true>(dst + HD / 2 + c * 16, v);
+  } else {
+    if (high)
+      store16_nibbles_as_bf16<true>(dst + c * 16, v);
+    else
+      store16_nibbles_as_bf16<false>(dst + c * 16, v);
+  }
+}
+
+// kc, vc: one layer of the cache, (S, row_stride) values of the cache's
+// type (bf16, f32, int8, or the bytes of an int4 cache); kscale, vscale:
+// the layer's (KH, S) f32 scales of a quantized cache, else unused.
+template <int HD, Cache C>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
              const void* __restrict__ vc_raw,
@@ -116,7 +224,9 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
              const float* __restrict__ vscale, float* __restrict__ out,
              int T, int H, int KH, int S, int row_stride, int pos,
              float scale, float softcap, int window) {
-  using L = Smem<HD, I8>;
+  constexpr bool Q = quantized(C);
+  using L = Smem<HD, Q>;
+  using St = Stripe<HD, C>;
   constexpr int LDH = L::LDH, LDO = L::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
@@ -127,8 +237,8 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   float* os = reinterpret_cast<float*>(smem + L::o_off);
   float* ms = reinterpret_cast<float*>(smem + L::m_off);
   float* ls = reinterpret_cast<float*>(smem + L::l_off);
-  float* ksc = reinterpret_cast<float*>(smem + L::ks_off);   // I8 only
-  float* vsc = reinterpret_cast<float*>(smem + L::vs_off);   // I8 only
+  float* ksc = reinterpret_cast<float*>(smem + L::ks_off);   // Q only
+  float* vsc = reinterpret_cast<float*>(smem + L::vs_off);   // Q only
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -175,30 +285,40 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
 
   for (int kv0 = (kv_lo / BKV) * BKV; kv0 <= kv_hi; kv0 += BKV) {
     __syncthreads();   // previous tile's readers are done with ks/vs
-    if constexpr (I8) {
-      // int8 K/V tile: HD / 32 16-byte chunks (16 values) of each per
-      // thread, all issued before any is converted and stored; the tile's
-      // scales go to shared memory beside it
+    // K/V tile: 16-byte chunks of each per thread, loaded into registers
+    // before any is converted and stored, so that many loads are in flight
+    // at once (one block per SM has little else to hide memory latency
+    // with).  `d` counts a chunk's offset in its head's stripe in values
+    // of the cache's type (bytes for the integer caches).
+    constexpr int kPerChunk = 16 / St::elem;
+    constexpr int kChunks = BKV * St::chunks;
+    constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
+    static_assert(kChunks % (kWarps * 32) == 0,
+                  "tile chunks must split evenly over the threads");
+    const size_t head_off =
+        (size_t)(C == Cache::I4_PAIR ? kh / 2 : kh) * (St::bytes / St::elem);
+    const bool high = C == Cache::I4_PAIR && (kh & 1);
+    if constexpr (Q) {
+      // integer tile: all chunks of a thread at once (at most 8 of K and
+      // of V); the tile's scales go to shared memory beside it
       const int8_t* kc = static_cast<const int8_t*>(kc_raw);
       const int8_t* vc = static_cast<const int8_t*>(vc_raw);
-      constexpr int kChunks = BKV * (HD / 16);
-      constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
-      static_assert(kChunks % (kWarps * 32) == 0,
-                    "tile chunks must split evenly over the threads");
       uint4 kr[kLoadsPerThread], vr[kLoadsPerThread];
 #pragma unroll
       for (int b = 0; b < kLoadsPerThread; ++b) {
         const int i = tid + b * kWarps * 32;
-        const int r = i / (HD / 16), d = (i % (HD / 16)) * 16;
+        const int r = i / St::chunks, d = (i % St::chunks) * kPerChunk;
         const int row = kv0 + r;
-        kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);
+        kr[b] = vr[b] = make_uint4(St::fill, St::fill, St::fill, St::fill);
         if (row >= kv_lo && row <= kv_hi) {
-          const size_t off = (size_t)row * row_stride + (size_t)kh * HD + d;
+          const size_t off = (size_t)row * row_stride + head_off + d;
           kr[b] = __ldg(reinterpret_cast<const uint4*>(kc + off));
           vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
         }
       }
       if (tid < BKV) {
+        // scales of rows outside the live range are never read from the
+        // cache (a stale one may hold anything)
         const int row = kv0 + tid;
         const bool in = row >= kv_lo && row <= kv_hi;
         ksc[tid] = in ? __ldg(kscale + (size_t)kh * S + row) : 0.f;
@@ -207,34 +327,29 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
 #pragma unroll
       for (int b = 0; b < kLoadsPerThread; ++b) {
         const int i = tid + b * kWarps * 32;
-        const int r = i / (HD / 16), d = (i % (HD / 16)) * 16;
-        store16_i8_as_bf16(ks + r * LDH + d, kr[b]);
-        store16_i8_as_bf16(vs + r * LDH + d, vr[b]);
+        const int r = i / St::chunks, c = i % St::chunks;
+        store_chunk<HD, C>(ks + r * LDH, c, kr[b], high);
+        store_chunk<HD, C>(vs + r * LDH, c, vr[b], high);
       }
     } else {
-      const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(kc_raw);
-      const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(vc_raw);
-      // K/V tile: kLoadsPerThread 16-byte chunks of each per thread, issued
-      // kBatch at a time into registers before any is stored, so that many
-      // loads are in flight at once (one block per SM has little else to
-      // hide memory latency with)
-      constexpr int kChunks = BKV * (HD / 8);
-      constexpr int kLoadsPerThread = kChunks / (kWarps * 32);
+      // float tile: kBatch chunks at a time
+      using Elem = typename St::Elem;
+      const Elem* kc = static_cast<const Elem*>(kc_raw);
+      const Elem* vc = static_cast<const Elem*>(vc_raw);
       constexpr int kBatch = kLoadsPerThread < 8 ? kLoadsPerThread : 8;
-      static_assert(kChunks % (kWarps * 32) == 0 &&
-                        kLoadsPerThread % kBatch == 0,
-                    "tile chunks must split evenly over the threads");
+      static_assert(kLoadsPerThread % kBatch == 0,
+                    "a thread's chunks must split evenly into batches");
 #pragma unroll
       for (int b0 = 0; b0 < kLoadsPerThread; b0 += kBatch) {
         uint4 kr[kBatch], vr[kBatch];
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
           const int i = tid + (b0 + b) * kWarps * 32;
-          const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
+          const int r = i / St::chunks, d = (i % St::chunks) * kPerChunk;
           const int row = kv0 + r;
           kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);
           if (row >= kv_lo && row <= kv_hi) {
-            const size_t off = (size_t)row * row_stride + (size_t)kh * HD + d;
+            const size_t off = (size_t)row * row_stride + head_off + d;
             kr[b] = __ldg(reinterpret_cast<const uint4*>(kc + off));
             vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
           }
@@ -242,9 +357,9 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
 #pragma unroll
         for (int b = 0; b < kBatch; ++b) {
           const int i = tid + (b0 + b) * kWarps * 32;
-          const int r = i / (HD / 8), d = (i % (HD / 8)) * 8;
-          *reinterpret_cast<uint4*>(ks + r * LDH + d) = kr[b];
-          *reinterpret_cast<uint4*>(vs + r * LDH + d) = vr[b];
+          const int r = i / St::chunks, c = i % St::chunks;
+          store_chunk<HD, C>(ks + r * LDH, c, kr[b], high);
+          store_chunk<HD, C>(vs + r * LDH, c, vr[b], high);
         }
       }
     }
@@ -281,7 +396,7 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
       for (int c = 0; c < BKV / 2; ++c) {
         const int key = kv0 + my_col0 + c;
         float sv = srow[c] * scale;
-        if constexpr (I8) sv *= ksc[my_col0 + c];
+        if constexpr (Q) sv *= ksc[my_col0 + c];
         if (softcap > 0.f) sv = tanhf(sv / softcap) * softcap;
         const bool live = row_ok && key <= q_pos && key >= kv_lo &&
                           (window < 0 || q_pos - key <= window);
@@ -300,7 +415,7 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
         const float sv = srow[c];
         const float p = (sv == -INFINITY) ? 0.f : expf(sv - m_new);
         sum += p;
-        if constexpr (I8)   // in-range scales are finite, the others 0
+        if constexpr (Q)   // in-range scales are finite, the others 0
           prow[c] = __float2bfloat16_rn(p * vsc[my_col0 + c]);
         else
           prow[c] = __float2bfloat16_rn(p);
@@ -349,38 +464,38 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   }
 }
 
-template <int HD, bool I8>
+template <int HD, Cache C>
 int launch(const float* q, const void* k, const void* v, const float* ks,
            const float* vs, float* out, int T, int H, int KH, int S,
            int row_stride, int pos, float scale, float softcap, int window,
            cudaStream_t stream) {
-  constexpr size_t bytes = Smem<HD, I8>::bytes;
+  constexpr size_t bytes = Smem<HD, quantized(C)>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KH;
   const dim3 grid((G * T + BQ - 1) / BQ, KH);
-  flash_kernel<HD, I8><<<grid, kWarps * 32, bytes, stream>>>(
+  flash_kernel<HD, C><<<grid, kWarps * 32, bytes, stream>>>(
       q, k, v, ks, vs, out, T, H, KH, S, row_stride, pos, scale, softcap,
       window);
   return (int)cudaGetLastError();
 }
 
-template <bool I8>
+template <Cache C>
 int dispatch(const float* q, const void* k, const void* v, const float* ks,
              const float* vs, float* out, int T, int H, int KH, int hd, int S,
              int row_stride, int pos, float scale, float softcap, int window,
              cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<64, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+      return launch<64, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
                             pos, scale, softcap, window, stream);
     case 128:
-      return launch<128, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+      return launch<128, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
                              pos, scale, softcap, window, stream);
     case 256:
-      return launch<256, I8>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
+      return launch<256, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
                              pos, scale, softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -389,8 +504,9 @@ int dispatch(const float* q, const void* k, const void* v, const float* ks,
 
 }  // namespace
 
-// q (T, H, hd) f32; k, v point at one layer of the cache, (S, row_stride)
-// bf16 with head kh at columns [kh*hd, (kh+1)*hd) -> out (T, H, hd) f32.
+// Kernel C: q (T, H, hd) f32; k, v point at one layer of the cache, (S,
+// row_stride) bf16 with head kh at columns [kh*hd, (kh+1)*hd) -> out (T, H,
+// hd) f32.
 // softcap <= 0 means none, window < 0 means none.  Needs hd in {64, 128,
 // 256}, H % KH == 0, pos + T <= S, 16-byte aligned rows (the Python wrapper
 // checks).  Returns a cudaError_t value.
@@ -399,8 +515,22 @@ extern "C" int lmrs_flash_attention(const float* q, const void* k,
                                     int KH, int hd, int S, int row_stride,
                                     int pos, float scale, float softcap,
                                     int window, cudaStream_t stream) {
-  return dispatch<false>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
-                         row_stride, pos, scale, softcap, window, stream);
+  return dispatch<Cache::BF16>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
+                               row_stride, pos, scale, softcap, window,
+                               stream);
+}
+
+// Kernel C on an f32 cache: as above with (S, row_stride) f32 rows, each
+// value rounded to bf16 on load.
+extern "C" int lmrs_flash_attention_f32(const float* q, const void* k,
+                                        const void* v, float* out, int T,
+                                        int H, int KH, int hd, int S,
+                                        int row_stride, int pos, float scale,
+                                        float softcap, int window,
+                                        cudaStream_t stream) {
+  return dispatch<Cache::F32>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
+                              row_stride, pos, scale, softcap, window,
+                              stream);
 }
 
 // Kernel G: as above with k, v pointing at one layer of an int8 cache,
@@ -412,6 +542,25 @@ extern "C" int lmrs_flash_attention_i8(const float* q, const void* k,
                                        int row_stride, int pos, float scale,
                                        float softcap, int window,
                                        cudaStream_t stream) {
-  return dispatch<true>(q, k, v, ks, vs, out, T, H, KH, hd, S, row_stride,
-                        pos, scale, softcap, window, stream);
+  return dispatch<Cache::I8>(q, k, v, ks, vs, out, T, H, KH, hd, S,
+                             row_stride, pos, scale, softcap, window, stream);
+}
+
+// Kernel H: k, v point at one layer of an int4 cache, (S, row_stride) bytes
+// with row_stride = KH*hd/2, and ks, vs at the layer's (KH, S) f32 scales.
+// pair != 0: head-pair packing (KH even), else half packing.
+extern "C" int lmrs_flash_attention_i4(const float* q, const void* k,
+                                       const void* v, const float* ks,
+                                       const float* vs, float* out, int T,
+                                       int H, int KH, int hd, int S,
+                                       int row_stride, int pos, float scale,
+                                       float softcap, int window, int pair,
+                                       cudaStream_t stream) {
+  if (pair)
+    return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, T, H, KH, hd, S,
+                                    row_stride, pos, scale, softcap, window,
+                                    stream);
+  return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, T, H, KH, hd, S,
+                                  row_stride, pos, scale, softcap, window,
+                                  stream);
 }

@@ -20,7 +20,8 @@ import torch
 from lmrs_tpu_torch.config import (ModelConfig, ModelType, QuantType,
                                    resolve_device, unsupported)
 from lmrs_tpu_torch.io.lmrs import LmrsFile
-from lmrs_tpu_torch.models.transformer import LayerWeights, TransformerParams
+from lmrs_tpu_torch.models.transformer import (KVCache, LayerWeights,
+                                               TransformerParams)
 from lmrs_tpu_torch.ops.rope import rope_tables
 from lmrs_tpu_torch.quant import QTensor, q4_file_to_runtime
 
@@ -118,3 +119,27 @@ def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
         final_norm=_to_device(arrays["final_norm"], device), lm_head=lm_head,
         rope_cos=_to_device(arrays["rope_cos"], device),
         rope_sin=_to_device(arrays["rope_sin"], device))
+
+
+def kvcache_from_numpy(arrays: Dict[str, np.ndarray], dtype: torch.dtype,
+                       device) -> KVCache:
+    """A KVCache on `device` from the arrays of a saved session: "k", "v"
+    (L, S, row) and, for a quantized cache, "k_scale", "v_scale" (L, KH, S)
+    f32.  `dtype` is the storage type of the engine's cache.  int8 arrays
+    (an int8 or int4 cache, of this package or of the JAX one) are taken
+    as they are.  A bf16 cache arrives as 2-byte items, this package's
+    int16 bit pattern or the raw void items numpy makes of a JAX bfloat16
+    array, and is reinterpreted; any other float array is converted."""
+    def rows(a: np.ndarray) -> torch.Tensor:
+        if a.dtype.itemsize == 2 and a.dtype.kind in "iV":
+            t = _to_device(a.view(np.int16), device).view(torch.bfloat16)
+        elif a.dtype.kind in "fi":
+            t = _to_device(a, device)
+        else:
+            raise ValueError(f"session cache items of type {a.dtype} cannot "
+                             f"be read as {dtype}")
+        return t.to(dtype)
+
+    scales = {key: _to_device(arrays[key].astype(np.float32), device)
+              for key in ("k_scale", "v_scale") if key in arrays}
+    return KVCache(k=rows(arrays["k"]), v=rows(arrays["v"]), **scales)

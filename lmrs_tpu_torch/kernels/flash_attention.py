@@ -1,11 +1,14 @@
-"""Kernel C: flash attention over one layer of the bf16 KV cache (t_q <=
-256).  CUDA source: `lmrs_tpu_torch/csrc/flash_attention.cu`, whose header
-note names the TPU kernel it replaces and its design.
+"""Kernel C: flash attention over one layer of the bf16 or f32 KV cache
+(t_q <= 256).  CUDA source: `lmrs_tpu_torch/csrc/flash_attention.cu`, whose
+header note names the TPU kernel it replaces and its design.
 
 Computes `ops.attention.attention(q, k[l, :pos+T], v[l, :pos+T], pos,
-precision="fast")` with the cache in its merged (L, S, KH*hd) layout.  The
-wrapper launches the kernel for CUDA tensors (or raises) and runs the plain
-version for CPU tensors; `flash_attention.launches` counts kernel launches.
+precision="fast")` with the cache in its merged (L, S, KH*hd) layout.  An
+f32 cache's values are rounded to bf16 as they are read (the kernel's f32
+instantiation does so on the tile's way into shared memory), so it gives
+the bf16 cache's result bit for bit.  The wrapper launches the kernel for
+CUDA tensors (or raises) and runs the plain version for CPU tensors;
+`flash_attention.launches` counts kernel launches of both cache types.
 """
 
 from __future__ import annotations
@@ -59,10 +62,10 @@ def flash_attention_tol(q: torch.Tensor, k_cache: torch.Tensor,
 
 def check_geometry(name: str, q: torch.Tensor, k_cache: torch.Tensor,
                    v_cache: torch.Tensor, layer: int, pos: int, n_kv: int,
-                   dtype: torch.dtype) -> None:
-    """Raise unless q (T, H, hd) and the (L, S, KH*hd) caches of `dtype`
-    are what the flash kernels take (shared by the bf16 and int8
-    wrappers)."""
+                   dtype: torch.dtype, per_byte: int = 1) -> None:
+    """Raise unless q (T, H, hd) and the (L, S, KH*hd / per_byte) caches of
+    `dtype` are what the flash kernels take (shared by every wrapper;
+    `per_byte` is 2 for the nibble-packed int4 cache)."""
     t_q, n_heads, hd = q.shape
     n_layers, s_len, row = k_cache.shape
     if not 1 <= t_q <= MAX_T:
@@ -70,7 +73,7 @@ def check_geometry(name: str, q: torch.Tensor, k_cache: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"{name} is built for head dims {HEAD_DIMS}, "
                          f"got {hd}")
-    if n_heads % n_kv or row != n_kv * hd:
+    if n_heads % n_kv or row * per_byte != n_kv * hd:
         raise ValueError(f"{n_heads} heads, {n_kv} kv heads, cache rows of "
                          f"{row} do not fit head_dim {hd}")
     if not 0 <= layer < n_layers or pos < 0 or pos + t_q > s_len:
@@ -86,8 +89,10 @@ def check_geometry(name: str, q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"{name} needs 16-byte aligned caches")
 
 
-def _entry():
-    fn = cuda.library("flash_attention").lmrs_flash_attention
+def _entry(dtype: torch.dtype):
+    lib = cuda.library("flash_attention")
+    fn = (lib.lmrs_flash_attention_f32 if dtype == torch.float32
+          else lib.lmrs_flash_attention)
     if fn.argtypes is None:
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fn.argtypes = [p, p, p, p, i, i, i, i, i, i, i, f, f, i, p]
@@ -100,25 +105,28 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
                     n_kv: int, scale: float, softcap: Optional[float] = None,
                     window: Optional[int] = None) -> torch.Tensor:
     """q (T, H, hd) float32 with RoPE applied; k_cache/v_cache (L, S,
-    KH*hd) bf16 holding rows [0, pos + T) of `layer` -> (T, H, hd) f32."""
+    KH*hd) bf16 or f32 holding rows [0, pos + T) of `layer` -> (T, H, hd)
+    f32."""
     if not q.is_cuda:
         return flash_attention_plain(q, k_cache, v_cache, layer, pos,
                                      n_kv=n_kv, scale=scale, softcap=softcap,
                                      window=window)
+    dtype = (torch.float32 if k_cache.dtype == torch.float32
+             else torch.bfloat16)
     check_geometry("flash_attention", q, k_cache, v_cache, layer, pos, n_kv,
-                   torch.bfloat16)
+                   dtype)
     t_q, n_heads, hd = q.shape
     _, s_len, row = k_cache.shape
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention needs a 16-byte aligned q")
     out = torch.empty_like(qf)
-    err = _entry()(qf.data_ptr(), k_cache[layer].data_ptr(),
-                   v_cache[layer].data_ptr(), out.data_ptr(), t_q, n_heads,
-                   n_kv, hd, s_len, row, pos, scale,
-                   0.0 if softcap is None else float(softcap),
-                   -1 if window is None else int(window),
-                   torch.cuda.current_stream(q.device).cuda_stream)
+    err = _entry(dtype)(
+        qf.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),
+        out.data_ptr(), t_q, n_heads, n_kv, hd, s_len, row, pos, scale,
+        0.0 if softcap is None else float(softcap),
+        -1 if window is None else int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
     cuda.check(err, "flash_attention")
     flash_attention.launches += 1
     return out

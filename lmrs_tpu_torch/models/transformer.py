@@ -3,8 +3,8 @@
 One function serves decode steps (T = 1) and prefill chunks (T rows).  The
 layers run in a Python loop over per-layer weights; every matmul goes
 through `ops.matmul.qmatmul` (kernels A and B for Q4_0 weights, D, E and F
-for Q8_0) and every attention through kernel C (bf16 KV cache) or G (int8
-KV cache), which read the cache in place.
+for Q8_0) and every attention through kernel C (bf16 or f32 KV cache), G
+(int8 KV cache) or H (int4 KV cache), which read the cache in place.
 
 Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
@@ -16,18 +16,20 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType, unsupported
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
 from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
 from lmrs_tpu_torch.ops.activations import gelu_tanh, silu
 from lmrs_tpu_torch.ops.matmul import qmatmul
 from lmrs_tpu_torch.ops.norms import rmsnorm
 from lmrs_tpu_torch.ops.rope import apply_rope
-from lmrs_tpu_torch.quant import QTensor, quantize_kv_rows, unpack_q4
+from lmrs_tpu_torch.quant import (QTensor, quantize_kv_rows,
+                                  quantize_kv_rows_q4, unpack_q4)
 
 
 @dataclasses.dataclass
@@ -58,12 +60,14 @@ class TransformerParams:
 
 @dataclasses.dataclass
 class KVCache:
-    """K and V caches, (L, S, KH * cache_head_dim) bf16 or int8: the
+    """K and V caches, (L, S, KH * cache_head_dim) bf16, f32 or int8: the
     (KH, hd) axes merged, so a sequence row of one layer is one contiguous
     stripe.  An int8 cache stores symmetric per-(token, head) quantized
     rows with f32 scales (L, KH, S), sequence last, so that a kernel block,
-    which owns one kv head, reads a contiguous run of scales; a bf16 cache
-    has no scales.  The forward pass writes rows in place."""
+    which owns one kv head, reads a contiguous run of scales; a float
+    cache has no scales.  An int4 cache is an int8 tensor of half the row
+    width, two values per byte (`quant.quantize_kv_rows_q4`), with the
+    same scales.  The forward pass writes rows in place."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -71,12 +75,28 @@ class KVCache:
     v_scale: Optional[torch.Tensor] = None
 
 
-def init_kv_cache(cfg: ModelConfig, device, dtype=torch.bfloat16,
+CacheDtype = Union[torch.dtype, str]
+CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "int8": torch.int8, "int4": "int4"}
+
+
+def init_kv_cache(cfg: ModelConfig, device,
+                  dtype: CacheDtype = torch.bfloat16,
                   seq_len: Optional[int] = None) -> KVCache:
-    if dtype not in (torch.bfloat16, torch.int8):
-        raise unsupported(f"a {dtype} KV cache", "A8 int4 and f32 KV caches")
+    """Preallocate the cache.  `dtype` is torch.bfloat16, torch.float32,
+    torch.int8, or the string "int4" (torch has no such dtype: int8 storage
+    of half the row width); the names of CACHE_DTYPES are taken too."""
+    if isinstance(dtype, str):
+        dtype = CACHE_DTYPES.get(dtype, dtype)
+    if dtype not in CACHE_DTYPES.values():
+        raise ValueError(f"no KV cache of type {dtype!r}: one of "
+                         f"{sorted(CACHE_DTYPES)}")
     s_len = seq_len or cfg.seq_len
-    shape = (cfg.n_layers, s_len, cfg.n_kv_heads * cfg.cache_head_dim)
+    row = cfg.n_kv_heads * cfg.cache_head_dim
+    packed4 = dtype == "int4"
+    if packed4:
+        row, dtype = row // 2, torch.int8
+    shape = (cfg.n_layers, s_len, row)
     cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
                     v=torch.zeros(shape, dtype=dtype, device=device))
     if dtype == torch.int8:
@@ -112,8 +132,8 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
            cache: KVCache, layer: int, cos: torch.Tensor, sin: torch.Tensor,
            pos: int, w8a8: bool) -> torch.Tensor:
     """One decoder layer over T tokens at positions pos..pos+T-1; writes
-    the layer's K/V rows (and, for an int8 cache, their scales) into the
-    cache."""
+    the layer's K/V rows (and, for an int8 or int4 cache, their scales)
+    into the cache."""
     t_q = x.shape[0]
     gemma = cfg.model_type == ModelType.GEMMA
 
@@ -137,14 +157,19 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     attn_kw = dict(n_kv=cfg.n_kv_heads, scale=cfg.attn_scale,
                    softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
     if cache.k.dtype == torch.int8:
-        # K and V quantize in one pass: rows (2, T, KH*hd), scales (2, T, KH)
-        rows, scales = quantize_kv_rows(torch.stack([k, v]))
+        # an int4 cache is int8 storage of half the row width
+        packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
+        quantize, flash = ((quantize_kv_rows_q4, flash_attention_i4)
+                           if packed4 else
+                           (quantize_kv_rows, flash_attention_i8))
+        # K and V quantize in one pass: rows (2, T, row), scales (2, T, KH)
+        rows, scales = quantize(torch.stack([k, v]))
         cache.k[layer, pos:pos + t_q] = rows[0]
         cache.v[layer, pos:pos + t_q] = rows[1]
         cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
         cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
-        att = flash_attention_i8(q, cache.k, cache.v, cache.k_scale,
-                                 cache.v_scale, layer, pos, **attn_kw)
+        att = flash(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                    layer, pos, **attn_kw)
     else:
         cache.k[layer, pos:pos + t_q] = k.reshape(t_q, -1).to(cache.k.dtype)
         cache.v[layer, pos:pos + t_q] = v.reshape(t_q, -1).to(cache.v.dtype)
@@ -171,13 +196,15 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
 
 
 def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
-            x: torch.Tensor, pos: int, logit_idx: Optional[int] = None,
+            x: torch.Tensor, pos: int,
+            logit_idx: Union[int, str, None] = None,
             w8a8: bool = True) -> Optional[torch.Tensor]:
     """Run all layers over x (T, D) float32 at positions pos..pos+T-1,
     writing their K/V rows into `cache` in place.  Returns the (V,) float32
-    logits of row `logit_idx`, or None.  `w8a8` picks the numerics of Q8_0
-    layer weights at T <= 8 (`ops.matmul.qmatmul`); the classifier never
-    quantizes its activations."""
+    logits of row `logit_idx`, the (T, V) logits of every row for
+    `logit_idx="all"` (a speculative verify window), or None.  `w8a8` picks
+    the numerics of Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`);
+    the classifier never quantizes its activations."""
     if x.ndim != 2:
         raise unsupported("a batched forward", "A11 batched serving")
     t_q = x.shape[0]
@@ -191,16 +218,19 @@ def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
     if logit_idx is None:
         return None
 
-    xl = rmsnorm(x[logit_idx:logit_idx + 1], params.final_norm,
-                 cfg.rms_norm_eps, cfg.norm_unit_offset)
+    every = isinstance(logit_idx, str)
+    if every and logit_idx != "all":
+        raise ValueError(f"logit_idx is a row or 'all', got {logit_idx!r}")
+    xl = rmsnorm(x if every else x[logit_idx:logit_idx + 1],
+                 params.final_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
     cls = params.embed if cfg.tied_lm_head else params.lm_head
-    logits = qmatmul(xl, cls, classifier=True)[0]
+    logits = qmatmul(xl, cls, classifier=True)
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         if cfg.parity_gemma_softcap_bug:
             # lm.rs softcaps only logits[0:dim]
-            head = torch.tanh(logits[:cfg.dim] / cap) * cap
-            logits = torch.cat([head, logits[cfg.dim:]])
+            head = torch.tanh(logits[:, :cfg.dim] / cap) * cap
+            logits = torch.cat([head, logits[:, cfg.dim:]], dim=-1)
         else:
             logits = torch.tanh(logits / cap) * cap
-    return logits
+    return logits if every else logits[0]

@@ -9,7 +9,9 @@ these bytes.
 
 Activation quantizers round half AWAY from zero (Rust's `f32::round`);
 `torch.round` rounds half to even, so it is not used for them.  The KV-cache
-quantizer (`quantize_kv_rows`) does round half to even.
+quantizers (`quantize_kv_rows`, `quantize_kv_rows_q4`) do round half to
+even.  They live here, beside the other quantizers; the JAX package keeps
+its own in `lmrs_tpu/models/transformer.py`.
 """
 
 from __future__ import annotations
@@ -45,11 +47,11 @@ class QTensor:
 # Rounding helpers
 # ---------------------------------------------------------------------------
 
-def _c127(like: torch.Tensor) -> torch.Tensor:
-    """127.0 as a tensor: on a CUDA device PyTorch divides a tensor by a
+def _const(like: torch.Tensor, value: float) -> torch.Tensor:
+    """`value` as a tensor: on a CUDA device PyTorch divides a tensor by a
     Python scalar by multiplying with its reciprocal, which is not the IEEE
     quotient the CPU (and the reference) computes; tensor / tensor is."""
-    return torch.full_like(like, 127.0)
+    return torch.full_like(like, value)
 
 
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -69,7 +71,7 @@ def quantize_q8_act(x: torch.Tensor, group_size: int):
     n = x.shape[-1]
     g = x.float().reshape(*x.shape[:-1], n // group_size, group_size)
     wmax = g.abs().amax(dim=-1)
-    scale = wmax / _c127(wmax)
+    scale = wmax / _const(wmax, 127.0)
     safe = torch.where(scale == 0, torch.ones_like(scale), scale)
     q = _round_half_away(g / safe[..., None])
     q = torch.where(scale[..., None] == 0, torch.zeros_like(q), q)
@@ -98,10 +100,61 @@ def quantize_kv_rows(x: torch.Tensor):
     all-zero rows get scale 0.  Unlike the activation quantizers this one
     multiplies by 127/absmax and rounds half to EVEN (`torch.round`)."""
     amax = x.abs().amax(dim=-1)
-    c127 = _c127(amax)
+    c127 = _const(amax, 127.0)
     inv = torch.where(amax > 0, c127 / amax, torch.zeros_like(amax))
     q = torch.round(x * inv[..., None]).to(torch.int8)
     return q.reshape(*x.shape[:-2], x.shape[-2] * x.shape[-1]), amax / c127
+
+
+def q4_cache_pair_mode(kh: int, hd: int) -> bool:
+    """Which packing an int4 KV cache uses.  "half" (channel i shares a
+    byte with channel i + hd/2 of the same head) when hd % 256 == 0 or the
+    kv-head count is odd; "pair" (head 2p in the low nibbles, head 2p+1 in
+    the high ones, channel by channel) for every other geometry."""
+    return hd % 256 != 0 and kh % 2 == 0
+
+
+def q4_cache_supported(kh: int, hd: int) -> bool:
+    """Whether the JAX package's flash kernels serve an int4 cache of this
+    geometry (else it unpacks and takes its einsum attention).  The port's
+    kernel H takes both packings at every head dim it is built for; this
+    is kept for the tests that carry a geometry across."""
+    return hd % 256 == 0 or (hd % 128 == 0 and kh % 2 == 0)
+
+
+def quantize_kv_rows_q4(x: torch.Tensor):
+    """int4 KV-cache rows: (..., KH, hd) float -> ((..., KH * hd / 2) int8
+    biased nibble bytes, (..., KH) f32 scales).  Symmetric absmax/7 per
+    (token, head), round half to even, clipped to [-8, 7]; all-zero rows
+    get scale 0.  A byte is v = 16 * q_hi + q_lo + 8 as int8 (the whole
+    int8 range, -128 included); which two values share it is
+    `q4_cache_pair_mode`'s choice."""
+    kh, hd = x.shape[-2:]
+    amax = x.abs().amax(dim=-1)
+    c7 = _const(amax, 7.0)
+    inv = torch.where(amax > 0, c7 / amax, torch.zeros_like(amax))
+    q = torch.round(x * inv[..., None]).clamp(-8, 7).to(torch.int32)
+    if q4_cache_pair_mode(kh, hd):
+        qlo, qhi = q[..., 0::2, :], q[..., 1::2, :]          # head pairs
+    else:
+        qlo, qhi = q[..., :hd // 2], q[..., hd // 2:]
+    v = (16 * qhi + qlo + 8).to(torch.int8)
+    return v.reshape(*x.shape[:-2], kh * hd // 2), amax / c7
+
+
+def unpack_kv_q4(vals: torch.Tensor, kh: int, hd: int) -> torch.Tensor:
+    """Inverse of quantize_kv_rows_q4's packing (no scale): (..., KH*hd/2)
+    int8 biased bytes -> (..., KH, hd) f32 integer values in [-8, 7]."""
+    v = vals.to(torch.int32)
+    qhi = v >> 4                                    # arithmetic: floor(v/16)
+    qlo = (v & 15) - 8
+    lead = vals.shape[:-1]
+    if q4_cache_pair_mode(kh, hd):
+        q = torch.stack([qlo.reshape(*lead, kh // 2, hd),
+                         qhi.reshape(*lead, kh // 2, hd)], dim=-2)
+        return q.reshape(*lead, kh, hd).float()
+    return torch.cat([qlo.reshape(*lead, kh, hd // 2),
+                      qhi.reshape(*lead, kh, hd // 2)], dim=-1).float()
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,15 @@
-"""Inference engine: chunked prefill, the decode loop, sampling, metrics.
+"""Inference engine: chunked prefill, the decode loop, speculative
+decoding, sampling, sessions, metrics.
 
 PyTorch runs eagerly, so the engine has no compiled programs and no static
 shapes: a prompt prefills in chunks of at most `prefill_chunk` real rows,
 and decoding runs one `forward` per token in a Python loop.  The sampled
 token stays on the device and feeds the next step's embedding gather; the
 host reads tokens only when it must (stop tokens or a streaming callback),
-else once at the end.  TTFT and tok/s are taken after the device finished
-(`torch.cuda.synchronize()`).
+else once at the end.  With `speculative_k` > 0 a step is one lookup ->
+verify -> accept pass (`runtime.speculative.verify_step`) and the host
+reads the accepted count once per step.  TTFT and tok/s are taken after the
+device finished (`torch.cuda.synchronize()`).
 """
 
 from __future__ import annotations
@@ -15,13 +18,16 @@ import dataclasses
 import time
 from typing import Callable, Iterable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from lmrs_tpu_torch.config import ModelConfig, resolve_device, unsupported
-from lmrs_tpu_torch.models.transformer import (TransformerParams,
+from lmrs_tpu_torch.config import ModelConfig, resolve_device
+from lmrs_tpu_torch.io.params import kvcache_from_numpy
+from lmrs_tpu_torch.models.transformer import (CacheDtype, TransformerParams,
                                                embed_tokens, forward,
                                                init_kv_cache)
 from lmrs_tpu_torch.ops.sampling import sample
+from lmrs_tpu_torch.runtime.speculative import verify_step
 
 
 @dataclasses.dataclass
@@ -32,7 +38,9 @@ class GenerationConfig:
     top_p: float = 0.9
     seed: Optional[int] = None
     max_new_tokens: int = 512
-    # prompt-lookup speculative decoding: not ported yet, must stay 0
+    # prompt-lookup speculative decoding: draft length per verify step
+    # (0 = off).  A verify window of k + 1 <= 8 rows runs the T <= 8 matmul
+    # kernels a plain decode step runs.
     speculative_k: int = 0
 
 
@@ -43,6 +51,8 @@ class StepMetrics:
     decode_tokens: int = 0
     decode_seconds: float = 0.0
     ttft_seconds: Optional[float] = None
+    spec_proposed: int = 0      # draft tokens verified
+    spec_accepted: int = 0      # draft tokens accepted
 
     @property
     def tokens_per_second(self) -> float:
@@ -57,13 +67,15 @@ class StepMetrics:
 
 class Engine:
     """Single-stream inference over one model instance.  The KV cache lives
-    in the engine (`cache_dtype` torch.bfloat16 or torch.int8); `pos` only
-    grows within a conversation.  `w8a8` picks the numerics of Q8_0 layer
+    in the engine (`cache_dtype` torch.bfloat16, torch.float32, torch.int8
+    or "int4"); `pos` only grows within a conversation, and `_hist` holds
+    the conversation's tokens by position (-1 where unknown) for the
+    prompt-lookup drafts.  `w8a8` picks the numerics of Q8_0 layer
     weights at T <= 8: int8 activations and integer dots (the default, as
     the JAX package's LMRS_W8A8=1), or f32 activations."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams,
-                 device=None, cache_dtype=torch.bfloat16,
+                 device=None, cache_dtype: CacheDtype = torch.bfloat16,
                  prefill_chunk: int = 256, w8a8: bool = True):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -76,12 +88,22 @@ class Engine:
         self.cache = init_kv_cache(cfg, self.device, cache_dtype)
         self.w8a8 = w8a8
         self.pos = 0
+        self._hist = torch.full((cfg.seq_len,), -1, dtype=torch.long,
+                                device=self.device)
         self.metrics = StepMetrics()
 
     def reset(self):
-        """New conversation: zero `pos` (cache contents become dead)."""
+        """New conversation: zero `pos` (cache contents become dead) and
+        forget the token history."""
         self.pos = 0
+        self._hist.fill_(-1)
         self.metrics = StepMetrics()
+
+    def _note(self, tok: torch.Tensor):
+        """Record the token AT `pos` (known, not cached yet) in the
+        history."""
+        if self.pos < self.cfg.seq_len:
+            self._hist[self.pos:self.pos + 1] = tok
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -101,6 +123,7 @@ class Engine:
                              f" > seq_len {self.cfg.seq_len}")
         tok = torch.as_tensor(list(tokens), dtype=torch.long,
                               device=self.device)
+        self._hist[self.pos:self.pos + n] = tok
         logits = None
         with torch.no_grad():
             for off in range(0, n, self.prefill_chunk):
@@ -123,6 +146,7 @@ class Engine:
         loop); returns logits (V,)."""
         if not isinstance(token, torch.Tensor):
             token = torch.tensor([token], dtype=torch.long, device=self.device)
+        self._note(token)
         with torch.no_grad():
             x = embed_tokens(self.params, self.cfg, token)
             logits = forward(self.params, self.cfg, self.cache, x, self.pos,
@@ -137,10 +161,10 @@ class Engine:
                  on_token: Optional[Callable[[int], None]] = None
                  ) -> List[int]:
         """Prefill, then sample up to `gen.max_new_tokens` tokens; a stop
-        token ends generation and is included in the result."""
-        if gen.speculative_k > 0:
-            raise unsupported("speculative decoding", "A9 speculative "
-                              "decoding")
+        token ends generation and is included in the result.  With
+        `gen.speculative_k` > 0 the tokens after the first come from
+        verify steps, and generation ends where a verify window no longer
+        fits the context."""
         stop = set(int(t) for t in stop_tokens)
         seed = gen.seed if gen.seed is not None else time.time_ns() % (1 << 31)
         rng = torch.Generator(device=self.device)
@@ -156,22 +180,29 @@ class Engine:
         out: List[int] = []
         pending: List[torch.Tensor] = []
 
-        def emit(t: torch.Tensor) -> bool:
-            """Record one token; True when generation must stop."""
+        def emit(t) -> bool:
+            """Record one token (a device tensor, or an int the host has
+            read already); True when generation must stop.  Without
+            streaming `t` may hold several tokens."""
             if not streaming:
                 pending.append(t)
                 return False
-            v = int(t.item())
+            v = t if isinstance(t, int) else int(t.item())
             out.append(v)
             if on_token is not None:
                 on_token(v)
             return v in stop
 
         stopped = emit(tok)
+        self._note(tok)
         self._sync()
         self.metrics.ttft_seconds = time.perf_counter() - t_start
         t_decode0 = time.perf_counter()
         n_emitted = 1
+        if gen.speculative_k > 0:
+            n_emitted += self._generate_speculative(
+                gen, rng, stopped, emit, streaming)
+            stopped = True
         while (not stopped and n_emitted < gen.max_new_tokens
                and self.pos < self.cfg.seq_len):
             logits = self.decode_step(tok)
@@ -180,9 +211,115 @@ class Engine:
                              rng).reshape(1)
             stopped = emit(tok)
             n_emitted += 1
+        if gen.speculative_k <= 0:
+            self._note(tok)     # the last token is known, not cached
         if pending:
             out.extend(int(v) for v in torch.cat(pending).tolist())
         self._sync()
         self.metrics.decode_tokens += n_emitted - 1
         self.metrics.decode_seconds += time.perf_counter() - t_decode0
         return out
+
+    def _generate_speculative(self, gen: GenerationConfig,
+                              rng: torch.Generator, stopped: bool, emit,
+                              streaming: bool) -> int:
+        """The prompt-lookup speculative loop (`runtime.speculative`):
+        greedy-exact at temperature 0, rejection sampling otherwise.  The
+        first sampled token is emitted already and stands in the history
+        at index `pos`.  Each step verifies k drafts in one T = k+1
+        forward and yields 1..k+1 tokens; the host reads the accepted
+        count (with the tokens, when streaming) once per step.  Rows
+        written past the accepted prefix are garbage that the causal mask
+        hides until they are overwritten.  The loop ends while the next
+        verify window, history write included, still fits: pos + k + 2 <
+        seq_len.  A stop token inside an accepted run truncates `pos` and
+        the history at that token.  Returns the number of tokens
+        emitted."""
+        k = gen.speculative_k
+        n_new = 0
+        budget = gen.max_new_tokens - 1
+        while (not stopped and n_new < budget
+               and self.pos + k + 2 < self.cfg.seq_len):
+            with torch.no_grad():
+                n_acc_dev, emitted = verify_step(
+                    self.params, self.cfg, self.cache, self._hist, self.pos,
+                    k, gen.temperature, gen.top_p, rng, w8a8=self.w8a8)
+                # all k + 1 may be written: the history past the new `pos`
+                # is never read (the lookup masks idx < pos - 1)
+                self._hist[self.pos + 1:self.pos + k + 2] = emitted
+            if streaming:
+                n_acc, *toks = torch.cat([n_acc_dev.reshape(1),
+                                          emitted]).tolist()
+            else:
+                n_acc = int(n_acc_dev.item())
+            self.metrics.spec_proposed += k
+            self.metrics.spec_accepted += n_acc
+            used = min(n_acc + 1, budget - n_new)
+            if streaming:
+                for i in range(used):
+                    if emit(toks[i]):
+                        used, stopped = i + 1, True
+                        break
+            else:
+                emit(emitted[:used])
+            self.pos += used
+            n_new += used
+        return n_new
+
+    # ------------------------------------------------------------------
+    # Session persistence: a conversation (cache, position, history) can
+    # be written to an .npz file and resumed in another process.  The keys
+    # and the signature are the JAX package's, so an int8 or int4 session
+    # of either package loads in the other.
+    def save_session(self, path: str) -> None:
+        """Write the conversation to `path` (numpy appends .npz).  A bf16
+        cache is stored as its int16 bit pattern: numpy has no bfloat16."""
+        def host(a: torch.Tensor) -> np.ndarray:
+            if a.dtype == torch.bfloat16:
+                a = a.view(torch.int16)
+            return a.cpu().numpy()
+
+        extra = {}
+        if self.cache.k_scale is not None:
+            extra = dict(k_scale=host(self.cache.k_scale),
+                         v_scale=host(self.cache.v_scale))
+        np.savez(path, k=host(self.cache.k), v=host(self.cache.v),
+                 pos=self.pos, hist=host(self._hist).astype(np.int32),
+                 sig=np.asarray(self._session_sig(), np.int64), **extra)
+
+    def load_session(self, path: str) -> None:
+        """Resume the conversation of `path`.  Refuses a file of another
+        model config, of another cache shape, and a float cache's file on
+        a quantized engine or the reverse."""
+        with np.load(path if path.endswith(".npz") else path + ".npz") as f:
+            data = {key: f[key] for key in f.files}
+        if list(data["sig"]) != list(self._session_sig()):
+            raise ValueError("session file does not match this model config")
+        if data["k"].shape != tuple(self.cache.k.shape):
+            raise ValueError(
+                f"session cache shape {data['k'].shape} does not match this "
+                f"engine's {tuple(self.cache.k.shape)} (cache dtype "
+                f"mismatch?)")
+        quantized = self.cache.k_scale is not None
+        if "k_scale" in data and not quantized:
+            raise ValueError("session was saved from an int8 KV cache; "
+                             "this engine uses a float cache")
+        if "k_scale" not in data and quantized:
+            raise ValueError("session was saved from a float KV cache; "
+                             "this engine uses an int8 cache")
+        self.cache = kvcache_from_numpy(data, self.cache.k.dtype,
+                                        self.device)
+        self.pos = int(data["pos"])
+        # restore (or invalidate) the token history: the prompt lookup
+        # drafts from it, and another conversation's tokens below the
+        # loaded pos would make every draft a wrong one
+        self._hist.fill_(-1)
+        if "hist" in data:
+            h = torch.from_numpy(data["hist"].astype(np.int64))
+            n = min(h.shape[0], self._hist.shape[0])
+            self._hist[:n] = h[:n].to(self.device)
+
+    def _session_sig(self):
+        c = self.cfg
+        return (c.n_layers, c.seq_len, c.n_kv_heads, c.head_dim,
+                int(c.model_type), int(c.quant))

@@ -1,0 +1,130 @@
+"""Speculative decoding by prompt lookup (self-drafting).
+
+A single-stream decode step is bound by the weights it streams: a T = k+1
+forward reads the same weight bytes as a T = 1 step, so verifying k drafted
+tokens in one step multiplies the tokens per step by the acceptance rate at
+little extra cost.  Drafts come from the token history, not from a second
+model: the last bigram is matched against its latest earlier occurrence and
+the k tokens that followed it become the draft.
+
+Greedy decoding stays exact as far as a row's logits do not depend on how
+many rows ran beside it: every emitted token is an argmax of the logits a
+plain step would compute (an accepted draft is the argmax by construction;
+the first mismatch emits the argmax in its place).  Cache rows written past
+the accepted prefix hold the rejected continuation, but the causal mask
+hides every row >= pos until a later step overwrites it.
+
+Sampling (temperature > 0) speculates by rejection sampling against the
+point-mass draft (Leviathan et al. 2023): draft token d_i is accepted with
+probability p_i(d_i) under the sampler's exact distribution
+(`ops.sampling.processed_probs`); the first rejection resamples from p_i
+with d_i zeroed, and a fully accepted draft earns a bonus sample from row
+k.  Every emitted token is distributed as the plain sampler's.
+
+Counterpart of `lmrs_tpu/runtime/speculative.py`, whose verify loop is a
+scan with masked writes into fixed buffers because its shapes must be
+static.  Here a verify step is eager: draft on the device, one T = k+1
+forward, accept; the caller reads the accepted count from the device once
+per step.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from lmrs_tpu_torch.config import ModelConfig
+from lmrs_tpu_torch.models.transformer import (KVCache, TransformerParams,
+                                               embed_tokens, forward)
+from lmrs_tpu_torch.ops.sampling import processed_probs
+
+
+def lookup_draft(h: torch.Tensor, p: int, k: int, vmax: int) -> torch.Tensor:
+    """Prompt-lookup draft: the k tokens after the LATEST earlier occurrence
+    of the bigram (h[p-1], h[p]), an occurrence starting at idx < p - 1.
+
+    `h` is the (S,) integer token history, valid through index `p`; unknown
+    rows hold -1, which matches no token, and drafts sliced from -1 regions
+    are clamped to [0, vmax] before the embedding gather (the verify step
+    rejects them).  Without a match the draft starts at index 1.  Runs on
+    h's device without a host read; returns (k,) of h's dtype."""
+    s_len = h.shape[0]
+    n = max(p - 1, 0)                   # candidate starts idx in [0, p - 2]
+    if n:
+        m = (h[:n] == h[p - 1]) & (h[1:n + 1] == h[p])
+        idx = torch.arange(n, device=h.device)
+        j = torch.where(m, idx, -1).amax()
+    else:
+        j = torch.full((), -1, dtype=torch.long, device=h.device)
+    start = (j + 2).clamp(0, s_len - k)
+    return h[start + torch.arange(k, device=h.device)].clamp(0, vmax)
+
+
+def first_miss(ok: torch.Tensor) -> torch.Tensor:
+    """The number of leading True entries of `ok` (k,), a 0-d long tensor."""
+    padded = torch.cat([ok, ok.new_zeros(1)]).to(torch.int8)
+    return padded.argmin()      # the first of several minima
+
+
+def rejection_accept(probs: torch.Tensor, draft: torch.Tensor,
+                     generator: Optional[torch.Generator] = None,
+                     uniforms: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Speculative rejection sampling against a point-mass draft.
+
+    probs: (k+1, V) target distributions (row i conditions on the first i
+    draft tokens being emitted); draft: (k,) integer proposal.  Returns
+    (ok (k,) bool acceptance tests, emitted (k+1,) long): the first
+    n_acc = first_miss(ok) entries of `emitted` are accepted drafts and
+    entry n_acc is the resample: a rejection draws from row n_acc with the
+    draft token zeroed, a full acceptance draws the bonus token from row k.
+    The entries past n_acc are the padded draft, for the caller to ignore.
+
+    `uniforms` (k,) in [0, 1) are the acceptance draws; without them they
+    come from `generator`, which also feeds the resample."""
+    k = draft.shape[0]
+    n_vocab = probs.shape[-1]
+    dev = probs.device
+    draft = draft.long()
+    if uniforms is None:
+        uniforms = torch.rand(k, device=dev, generator=generator)
+    p_d = probs[:k].gather(1, draft[:, None])[:, 0]
+    ok = uniforms.to(dev) < p_d
+    n_acc = first_miss(ok)
+    row = probs.index_select(0, n_acc.reshape(1))[0]
+    d_at = draft[n_acc.clamp(0, k - 1)]
+    bonus = n_acc == k
+    zeroed = (torch.arange(n_vocab, device=dev) == d_at) & ~bonus
+    row = torch.where(zeroed, 0.0, row)
+    # 1e-30: a row whose whole mass was the zeroed token stays drawable
+    repl = torch.multinomial(row + 1e-30, 1, generator=generator)[0]
+    pad = torch.cat([draft, draft[-1:]])
+    emitted = torch.where(torch.arange(k + 1, device=dev) == n_acc, repl, pad)
+    return ok, emitted
+
+
+def verify_step(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
+                h: torch.Tensor, pos: int, k: int, temperature: float,
+                top_p: float, generator: Optional[torch.Generator] = None,
+                w8a8: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One lookup -> verify -> accept step at position `pos` (cache rows
+    < pos are valid, h[pos] is known but not cached).  Runs ONE T = k+1
+    forward over [h[pos], draft], writing cache rows pos..pos+k, and
+    returns (n_acc 0-d long, emitted (k+1,) long), both on the device:
+    emitted[:n_acc] are the accepted drafts and emitted[n_acc] the
+    correction or bonus token, so the step yields n_acc + 1 tokens.  The
+    caller needs pos + k + 1 <= seq_len."""
+    draft = lookup_draft(h, pos, k, cfg.vocab_size - 1)
+    toks_in = torch.cat([h[pos:pos + 1], draft])
+    x = embed_tokens(params, cfg, toks_in)
+    logits = forward(params, cfg, cache, x, pos, "all", w8a8=w8a8)
+    if temperature == 0.0:
+        # greedy: the longest prefix with draft[i] == argmax[i]; the first
+        # mismatching row emits its argmax
+        emitted = torch.argmax(logits, dim=-1)
+        ok = draft == emitted[:-1]
+    else:
+        probs = processed_probs(logits, temperature, top_p)
+        ok, emitted = rejection_accept(probs, draft, generator)
+    return first_miss(ok), emitted

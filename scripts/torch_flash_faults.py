@@ -2,7 +2,7 @@
 """Does the flash attention check reject a wrong kernel?  Planted faults,
 on the card.
 
-    python3 scripts/torch_flash_faults.py [--int8]   # one CUDA device, nvcc
+    python3 scripts/torch_flash_faults.py [--int8 | --int4]   # one CUDA device, nvcc
 
 Copies `lmrs_tpu_torch/csrc/flash_attention.cu` into a temporary
 directory, plants one fault in each copy, builds every copy with the
@@ -17,7 +17,11 @@ cache at Llama-3.2-3B's attention (hd 128, 8 KV heads, 3 query heads each,
 no window: the window fault does not apply), `flash_attention_i8_tol`, the
 skipped tile and the dropped diagonal, and two faults of its own (the
 value scale left out of the softmax weight; scales read for rows past the
-last live one, which hold NaN here as a reused cache may).  Prints the
+last live one, which hold NaN here as a reused cache may).  With `--int4`:
+kernel H on an int4 cache, `flash_attention_i4_tol`, at both packings
+(Llama-3.2-3B's attention: pair; Gemma-2-9B's: half), G's faults and two of
+its own: the nibbles swapped (low for high), and the `- 8` bias of the low
+nibble left out.  Prints the
 card's name and power limit, the worst error / bound of every (kernel,
 case) and one JSON line.  Exits non-zero if the unchanged kernel fails a
 case or a faulty one passes every case.  The repository's sources are
@@ -54,6 +58,12 @@ FAULTS_I8 = {
     "stale_scale": ("const bool in = row >= kv_lo && row <= kv_hi;",
                     "const bool in = true;"),
 }
+FAULTS_I4 = {
+    **FAULTS_I8,
+    "nibbles_swapped": ("HIGH ? (b >> 4) : ((b & 15) - 8)",
+                        "HIGH ? ((b & 15) - 8) : (b >> 4)"),
+    "no_bias": ("((b & 15) - 8)", "(b & 15)"),
+}
 S = 8192
 # heads, kv heads, head_dim, window, softcap
 GEMMA = (16, 8, 256, 4096, 50.0)
@@ -83,10 +93,41 @@ def build_faulty(cuda, work: Path, faults: dict) -> dict:
     return libs
 
 
+def make_inputs(torch, geometry, quantize, plain, tol_fn, tag=""):
+    """The cases of one attention geometry: (case name, q, cache tensors,
+    keyword arguments, plain result, bound).  `quantize` is the row
+    quantizer of a quantized cache, or None for the bf16 cache."""
+    H, KH, HD, window, softcap = geometry
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    kf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    vf = torch.randn(S, KH, HD, device="cuda", generator=gen)
+    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
+    inputs = []
+    for t_q, pos in CASES:
+        q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
+        if quantize is not None:
+            rows, scales = quantize(torch.stack([kf, vf]))
+            ks, vs = (scales[i].t().contiguous()[None] for i in (0, 1))
+            for a in (ks, vs):      # stale scales past the last live row
+                a[:, :, pos + t_q:] = float("nan")
+            cache = (rows[0][None].contiguous(), rows[1][None].contiguous(),
+                     ks, vs)
+        else:
+            cache = (kf.reshape(1, S, KH * HD).to(torch.bfloat16),
+                     vf.reshape(1, S, KH * HD).to(torch.bfloat16))
+        inputs.append((f"{tag}T{t_q}_pos{pos}", q, cache, kw,
+                       plain(q, *cache, 0, pos, **kw),
+                       tol_fn(q, *cache, 0, pos, **kw), pos))
+    return inputs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--int8", action="store_true",
-                    help="kernel G on an int8 cache instead of kernel C")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--int8", action="store_true",
+                       help="kernel G on an int8 cache instead of kernel C")
+    which.add_argument("--int4", action="store_true",
+                       help="kernel H on an int4 cache, both packings")
     args = ap.parse_args()
 
     import torch
@@ -99,40 +140,31 @@ def main() -> int:
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
                                                         flash_attention_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_i4 import (
+        flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
     from lmrs_tpu_torch.kernels.flash_attention_i8 import (
         flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
-    from lmrs_tpu_torch.quant import quantize_kv_rows
+    from lmrs_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_q4
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     cuda.plain_numerics()
-    faults = FAULTS_I8 if args.int8 else FAULTS
-    H, KH, HD, window, softcap = LLAMA if args.int8 else GEMMA
-    kernel, plain, tol_fn = ((flash_attention_i8, flash_attention_i8_plain,
-                              flash_attention_i8_tol) if args.int8 else
-                             (flash_attention, flash_attention_plain,
-                              flash_attention_tol))
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    kf = torch.randn(S, KH, HD, device="cuda", generator=gen)
-    vf = torch.randn(S, KH, HD, device="cuda", generator=gen)
-    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
-    inputs = []
-    for t_q, pos in CASES:
-        q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
-        if args.int8:
-            rows, scales = quantize_kv_rows(torch.stack([kf, vf]))
-            ks, vs = (scales[i].t().contiguous()[None] for i in (0, 1))
-            for a in (ks, vs):      # stale scales past the last live row
-                a[:, :, pos + t_q:] = float("nan")
-            cache = (rows[0][None].contiguous(), rows[1][None].contiguous(),
-                     ks, vs)
-        else:
-            cache = (kf.reshape(1, S, KH * HD).to(torch.bfloat16),
-                     vf.reshape(1, S, KH * HD).to(torch.bfloat16))
-        inputs.append((t_q, pos, q, cache, plain(q, *cache, 0, pos, **kw),
-                       tol_fn(q, *cache, 0, pos, **kw)))
+    if args.int4:
+        faults, kernel = FAULTS_I4, flash_attention_i4
+        fns = (quantize_kv_rows_q4, flash_attention_i4_plain,
+               flash_attention_i4_tol)
+        inputs = (make_inputs(torch, LLAMA, *fns, tag="pair_")
+                  + make_inputs(torch, GEMMA, *fns, tag="half_"))
+    elif args.int8:
+        faults, kernel = FAULTS_I8, flash_attention_i8
+        inputs = make_inputs(torch, LLAMA, quantize_kv_rows,
+                             flash_attention_i8_plain, flash_attention_i8_tol)
+    else:
+        faults, kernel = FAULTS, flash_attention
+        inputs = make_inputs(torch, GEMMA, None, flash_attention_plain,
+                             flash_attention_tol)
 
     libs = {"none": cuda.build_all() / "libflash_attention.so"}
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
@@ -141,18 +173,17 @@ def main() -> int:
         for name, lib in libs.items():
             cuda._libs["flash_attention"] = ctypes.CDLL(str(lib))
             row = {}
-            for t_q, pos, q, cache, want, tol in inputs:
+            for case, q, cache, kw, want, tol, pos in inputs:
                 got = kernel(q, *cache, 0, pos, **kw)
                 # a NaN output compares as not <= 1: rejected
-                row[f"T{t_q}_pos{pos}"] = ((got - want).abs() / tol).max(
-                ).item()
+                row[case] = ((got - want).abs() / tol).max().item()
             results[name] = row
         cuda._libs.pop("flash_attention")
 
     print(card)
-    print(f"{'fault':14s}" + "".join(f"{c:>14s}" for c in results["none"]))
+    print(f"{'fault':16s}" + "".join(f"{c:>18s}" for c in results["none"]))
     for name, row in results.items():
-        print(f"{name:14s}" + "".join(f"{r:14.3f}" for r in row.values()))
+        print(f"{name:16s}" + "".join(f"{r:18.3f}" for r in row.values()))
     print("(worst |kernel - plain| / bound per case; above 1.000 = rejected)")
     ok = all(r <= 1.0 for r in results["none"].values())
     missed = [n for n in faults if all(r <= 1.0 for r in results[n].values())]

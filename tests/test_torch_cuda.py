@@ -16,8 +16,14 @@ sums in another order); D's quantizer pre-pass bit for bit; D and E 1e-4
 of the output scale (D's integer dots are exact, so both differ from their
 plain versions only in the f32 order of the sums); F 1e-3 as B; G per
 element, `flash_attention_i8_tol` (C's bound with the softmax weight times
-the value scale in the weight's place); whole-model logits 1e-2 of the
-logit scale (the per-kernel differences compound over layers).
+the value scale in the weight's place); H per element,
+`flash_attention_i4_tol` (G's bound on the unpacked nibble values); C on an
+f32 cache as C, and bit for bit the bf16 cache's result; the int4 row
+quantizer bit for bit card vs CPU; whole-model logits 1e-2 of the
+logit scale (the per-kernel differences compound over layers);
+speculative greedy tokens equal to plain greedy tokens up to the first
+step whose top-2 logit margin is below 1e-3 of the logit scale (the reason
+stands at the test).
 """
 
 import numpy as np
@@ -29,6 +35,8 @@ from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                     flash_attention_plain,
                                                     flash_attention_tol)
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm, q4_gemm_plain
+from lmrs_tpu_torch.kernels.flash_attention_i4 import (
+    flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
 from lmrs_tpu_torch.kernels.flash_attention_i8 import (
     flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv, q4_gemv_plain
@@ -36,9 +44,10 @@ from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm, q8_gemm_plain
 from lmrs_tpu_torch.kernels.q8_gemv import q8_gemv, q8_gemv_plain
 from lmrs_tpu_torch.kernels.q8_gemv_i8 import (q8_act_quant, q8_gemv_i8,
                                                q8_gemv_i8_plain)
-from lmrs_tpu_torch.quant import (q4_file_to_runtime_np, quantize_kv_rows,
+from lmrs_tpu_torch.quant import (q4_cache_pair_mode, q4_file_to_runtime_np,
+                                  quantize_kv_rows, quantize_kv_rows_q4,
                                   quantize_q8_act, quantize_q40_np,
-                                  quantize_q80_np)
+                                  quantize_q80_np, unpack_kv_q4)
 
 
 def _weights(o, k, device, gs=128):
@@ -233,6 +242,96 @@ def test_flash_i8_kernel_on_card(cuda_device, hd, kh, g, t_q, pos, softcap,
     assert ((got - want).abs() <= tol).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,kh,g", [(256, 8, 2), (128, 8, 3), (128, 3, 2),
+                                     (64, 4, 1), (64, 1, 4)])
+@pytest.mark.parametrize("t_q,pos", [(1, 0), (1, 1100), (5, 63), (64, 5000),
+                                     (256, 300)])
+@pytest.mark.parametrize("softcap,window", [(50.0, 4096), (None, None),
+                                            (30.0, 200)])
+def test_flash_i4_kernel_on_card(cuda_device, hd, kh, g, t_q, pos, softcap,
+                                 window):
+    """Kernel H, both packings (half: hd 256, or an odd kv-head count; pair
+    otherwise).  Rows and scales past the last live row hold garbage and
+    NaN, as a reused cache may: they must add exactly nothing."""
+    L, S = 2, 6144
+    assert q4_cache_pair_mode(kh, hd) == (hd != 256 and kh % 2 == 0)
+    gen = torch.Generator(device=cuda_device).manual_seed(pos + t_q)
+    kv = torch.randn(2, L * S, kh, hd, device=cuda_device, generator=gen)
+    kv = kv * (0.25 + 4 * torch.rand(2, L * S, kh, 1, device=cuda_device,
+                                     generator=gen))
+    rows, scales = quantize_kv_rows_q4(kv)
+    k = rows[0].reshape(L, S, kh * hd // 2).contiguous()
+    v = rows[1].reshape(L, S, kh * hd // 2).contiguous()
+    ks, vs = (scales[i].reshape(L, S, kh).transpose(1, 2).contiguous()
+              for i in (0, 1))
+    n = pos + t_q
+    for a in (ks, vs):
+        a[:, :, n:] = float("nan")
+    k[:, n:] = 0x77
+    q = torch.randn(t_q, kh * g, hd, device=cuda_device, generator=gen)
+    kw = dict(n_kv=kh, scale=hd ** -0.5, softcap=softcap, window=window)
+    reset_launches()
+    got = flash_attention_i4(q, k, v, ks, vs, 1, pos, **kw)
+    assert launches()["flash_attention_i4"] == 1
+    want = flash_attention_i4_plain(q, k, v, ks, vs, 1, pos, **kw)
+    torch.cuda.synchronize()
+    tol = flash_attention_i4_tol(q, k, v, ks, vs, 1, pos, **kw)
+    assert torch.isfinite(got).all()
+    assert ((got - want).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,kh,g", [(256, 8, 2), (128, 2, 4), (64, 4, 1)])
+@pytest.mark.parametrize("t_q,pos", [(1, 1100), (5, 63), (256, 300)])
+@pytest.mark.parametrize("softcap,window", [(50.0, 4096), (None, None)])
+def test_flash_f32_cache_kernel_on_card(cuda_device, hd, kh, g, t_q, pos,
+                                        softcap, window):
+    """Kernel C's f32 instantiation rounds the tile to bf16 on load: within
+    flash_attention_tol of the plain version on the f32 rows, and bit for
+    bit the bf16 instantiation's result on the rounded rows."""
+    L, S = 2, 2048
+    gen = torch.Generator(device=cuda_device).manual_seed(pos + t_q)
+    k = torch.randn(L, S, kh * hd, device=cuda_device, generator=gen)
+    v = torch.randn(L, S, kh * hd, device=cuda_device, generator=gen)
+    q = torch.randn(t_q, kh * g, hd, device=cuda_device, generator=gen)
+    kw = dict(n_kv=kh, scale=hd ** -0.5, softcap=softcap, window=window)
+    reset_launches()
+    got = flash_attention(q, k, v, 1, pos, **kw)
+    assert launches()["flash_attention"] == 1
+    want = flash_attention_plain(q, k, v, 1, pos, **kw)
+    torch.cuda.synchronize()
+    tol = flash_attention_tol(q, k, v, 1, pos, **kw)
+    assert ((got - want).abs() <= tol).all()
+    same = flash_attention(q, k.to(torch.bfloat16), v.to(torch.bfloat16), 1,
+                           pos, **kw)
+    assert torch.equal(got, same)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kh,hd", [(8, 256), (8, 128), (3, 32), (32, 128)])
+def test_kv_q4_quantizer_bit_exact_on_card(cuda_device, kh, hd):
+    """quantize_kv_rows_q4 on the card gives the CPU's bytes and scales
+    (7 / amax and amax / 7 are tensor / tensor quotients on both), the
+    traps included: an all-zero row, exact ties at absmax 7, a clip to -8,
+    and lanes that are zero as Phi's padded head dim leaves them."""
+    x = torch.randn(2, 9, kh, hd, generator=torch.Generator().manual_seed(kh))
+    x = x * (0.1 + 10 * torch.rand(2, 9, kh, 1,
+                                   generator=torch.Generator().manual_seed(1)))
+    x[0, 1, 0] = 0.0
+    x[0, 0, 0] = 0.0
+    x[0, 0, 0, :6] = torch.tensor([7.0, 0.5, 1.5, 2.5, -2.5, -6.5])
+    x[1, 2, 1, hd - hd // 4:] = 0.0
+    got_q, got_s = quantize_kv_rows_q4(x.to(cuda_device))
+    want_q, want_s = quantize_kv_rows_q4(x)
+    torch.cuda.synchronize()
+    assert torch.equal(got_q.cpu(), want_q) and torch.equal(got_s.cpu(), want_s)
+    vals = unpack_kv_q4(got_q, kh, hd)
+    assert torch.equal(vals.cpu(), unpack_kv_q4(want_q, kh, hd))
+    assert vals[0, 0, 0, :6].tolist() == [7, 0, 2, 2, -2, -6]
+    assert not vals[0, 1, 0].any() and got_s[0, 1, 0] == 0
+
+
 def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
                                   w8a8=True):
     """A small model with kernel-legal widths (gs 128, head_dim 64 for
@@ -246,7 +345,7 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
     from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
 
     extra = (dict(sliding_window=48) if family == "gemma" else {})
-    cache_dtype = getattr(torch, cache)
+    cache_dtype = cache if cache == "int4" else getattr(torch, cache)
     cfg = ModelConfig.make(
         ModelType.GEMMA if family == "gemma" else ModelType.LLAMA,
         dim=512, hidden_dim=1024, n_layers=2,
@@ -279,8 +378,8 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
               "Q8_0": {"q8_gemv_i8", "q8_gemv", "q8_gemm"}}[quant]
     if not w8a8:
         expect.discard("q8_gemv_i8")    # the layers take kernel E too
-    expect.add("flash_attention_i8" if cache == "int8"
-               else "flash_attention")
+    expect.add({"int8": "flash_attention_i8",
+                "int4": "flash_attention_i4"}.get(cache, "flash_attention"))
     assert {k for k, n in launches().items() if n > 0} == expect
 
 
@@ -306,3 +405,90 @@ def test_small_q8_model_without_w8a8_card_matches_cpu(cuda_device, tmp_path,
     _small_model_card_matches_cpu(tmp_path, "llama", "Q8_0", cache,
                                   w8a8=False)
 
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,quant,cache", [
+    ("llama", "Q8_0", "int4"), ("gemma", "Q4_0", "int4"),
+    ("llama", "Q8_0", "float32"), ("gemma", "Q4_0", "float32")])
+def test_small_int4_or_f32_cache_model_card_matches_cpu(cuda_device, tmp_path,
+                                                        family, quant, cache):
+    """The int4 cache (Llama hd 64 with 2 kv heads: pair packing; Gemma hd
+    128 with 2 kv heads: pair packing) and the f32 cache on the card
+    against the CPU; kernel H, or C, must have launched."""
+    _small_model_card_matches_cpu(tmp_path, family, quant, cache)
+
+
+def _tiny_flash_engine(tmp_path, cache):
+    from lmrs_tpu_torch.config import QuantType, tiny_flash
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import params_from_lmrs
+    from lmrs_tpu_torch.io.synthetic import write_synthetic_lmrs
+    from lmrs_tpu_torch.runtime.engine import Engine
+
+    cfg = tiny_flash(quant=QuantType.Q4_0, group_size=128)
+    path = str(tmp_path / "m.lmrs")
+    write_synthetic_lmrs(path, cfg, seed=11, scale=0.1)
+    f = read_lmrs(path)
+    return Engine(f.cfg, params_from_lmrs(f, device="cuda"),
+                  cache_dtype=cache if cache == "int4"
+                  else getattr(torch, cache))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["bfloat16", "float32", "int8", "int4"])
+def test_speculative_matches_plain_on_card(cuda_device, tmp_path, cache):
+    """Speculative greedy against plain greedy on the card, tiny-flash.  A
+    verify window runs the matmul kernels at T = k+1 and the flash kernel
+    with t_q = k+1, which may sum in another order than at T = 1: tokens
+    are compared up to the first plain step whose top-2 margin is below
+    1e-3 of the logit scale, and at least 8 steps must be compared."""
+    from lmrs_tpu_torch.runtime.engine import GenerationConfig
+
+    eng = _tiny_flash_engine(tmp_path, cache)
+    prompt = [5, 9, 11, 5, 9, 11, 5, 9, 11, 5, 9]
+    n_new = 40
+    logits = eng.prefill(prompt)
+    want, margins = [], []
+    for _ in range(n_new):
+        top = torch.topk(logits, 2)
+        want.append(int(top.indices[0]))
+        margins.append(float(top.values[0] - top.values[1])
+                       / float(logits.abs().max()))
+        logits = eng.decode_step(want[-1])
+    eng.reset()
+    assert eng.generate(prompt, GenerationConfig(
+        temperature=0.0, max_new_tokens=n_new)) == want
+    eng.reset()
+    reset_launches()
+    got = eng.generate(prompt, GenerationConfig(
+        temperature=0.0, max_new_tokens=n_new, speculative_k=4))
+    close = [i for i, m in enumerate(margins) if m < 1e-3]
+    n_eq = close[0] if close else n_new
+    assert n_eq >= 8, margins
+    assert got[:n_eq] == want[:n_eq]
+    assert eng.metrics.spec_proposed > 0
+    name = {"int8": "flash_attention_i8",
+            "int4": "flash_attention_i4"}.get(cache, "flash_attention")
+    assert launches()[name] > 0 and launches()["q4_gemv"] > 0
+    eng.reset()
+    sampled = eng.generate(prompt, GenerationConfig(
+        temperature=0.9, top_p=0.9, seed=7, max_new_tokens=24,
+        speculative_k=3))
+    assert len(sampled) == 24
+    assert all(0 <= t < eng.cfg.vocab_size for t in sampled)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["bfloat16", "int4"])
+def test_session_round_trip_on_card(cuda_device, tmp_path, cache):
+    from lmrs_tpu_torch.runtime.engine import GenerationConfig
+
+    eng = _tiny_flash_engine(tmp_path, cache)
+    gen = GenerationConfig(temperature=0.0, max_new_tokens=8)
+    eng.generate([3, 17, 42, 7, 99], gen)
+    eng.save_session(str(tmp_path / "s.npz"))
+    other = _tiny_flash_engine(tmp_path, cache)
+    other.load_session(str(tmp_path / "s.npz"))
+    assert other.pos == eng.pos
+    assert torch.equal(other.cache.k, eng.cache.k)
+    assert other.generate([7, 7, 2], gen) == eng.generate([7, 7, 2], gen)

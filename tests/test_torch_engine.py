@@ -118,10 +118,21 @@ def test_engine_needs_a_device_or_a_gpu(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(tcfg, tp)
     eng = Engine(tcfg, tp, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        eng.generate(PROMPT, GenerationConfig(speculative_k=3))
-    with pytest.raises(NotImplementedError, match="A8"):
-        Engine(tcfg, tp, device="cpu", cache_dtype=torch.float32)
+    # speculative decoding and every cache type are served
+    want = eng.generate(PROMPT, GenerationConfig(temperature=0.0,
+                                                 max_new_tokens=6))
+    eng.reset()
+    assert eng.generate(PROMPT, GenerationConfig(
+        temperature=0.0, max_new_tokens=6, speculative_k=3)) == want
+    assert eng.metrics.spec_proposed > 0
+    for dtype, store in ((torch.float32, torch.float32), ("float32",
+                         torch.float32), ("int4", torch.int8)):
+        other = Engine(tcfg, tp, device="cpu", cache_dtype=dtype)
+        assert other.cache.k.dtype == store
+        assert len(other.generate(PROMPT, GenerationConfig(
+            temperature=0.0, max_new_tokens=3))) == 3
+    with pytest.raises(ValueError, match="no KV cache of type"):
+        Engine(tcfg, tp, device="cpu", cache_dtype=torch.float16)
 
 
 def test_decode_step_matches_forward(tmp_path):

@@ -89,20 +89,38 @@ def test_chat_cli_answers_on_cpu(tmp_path):
     counts = json.loads(counted[-1].split(": ", 1)[1])
     assert set(counts) == {"q4_gemv", "q4_gemm", "flash_attention",
                            "q8_gemv_i8", "q8_gemv", "q8_gemm",
-                           "flash_attention_i8"}
+                           "flash_attention_i8", "flash_attention_i4"}
     assert not any(counts.values())
     assert "jax" not in out.stderr.lower()
-    bad = subprocess.run(
-        [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
-         str(tmp_path / "m.lmrs"), "--tokenizer", str(tmp_path / "tok.bin"),
-         "--device", "cpu", "--spec-k", "3"],
-        input="", capture_output=True, text=True, timeout=120, env=env)
-    assert bad.returncode != 0 and "A9" in bad.stderr
+    # --spec-k: the same greedy reply, and the acceptance rate is printed
+    base = [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
+            str(tmp_path / "m.lmrs"), "--tokenizer",
+            str(tmp_path / "tok.bin"), "--device", "cpu"]
+    spec = subprocess.run(
+        base + ["--temperature", "0", "--max-new-tokens", "8",
+                "--show-metrics", "--spec-k", "3"],
+        input="hello world\n", capture_output=True, text=True, timeout=120,
+        env=env, cwd=str(tmp_path))
+    assert spec.returncode == 0, spec.stderr
+
+    def reply(text):
+        lines = text.splitlines()
+        at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
+        return lines[at[0] + 1]
+
+    assert reply(spec.stdout) == reply(out.stdout)
+    assert "Speculative: " in spec.stdout and "drafts accepted" in spec.stdout
+    # what is not ported yet still raises, naming its ROADMAP entry
+    for flags, entry in ((["--image", "x.png"], "A13"), (["--tp", "2"], "A15"),
+                         (["--cp", "2"], "A15")):
+        bad = subprocess.run(base + flags, input="", capture_output=True,
+                             text=True, timeout=120, env=env)
+        assert bad.returncode != 0 and entry in bad.stderr
 
 
 def test_chat_cli_q8_int8_cache_on_cpu(tmp_path):
-    """The Q8_0 path with `--cache-dtype int8` through the CLI on the CPU;
-    `--cache-dtype int4` and `float32` still raise, naming ROADMAP A8."""
+    """The Q8_0 path with `--cache-dtype int8`, `int4` and `float32`
+    through the CLI on the CPU."""
     # Gemma: its chat template ids fit a 4096-entry vocabulary
     cfg = tiny_config(ModelType.GEMMA, QuantType.Q8_0, vocab_size=4096)
     write_lmrs(str(tmp_path / "m.lmrs"), cfg, random_weights(cfg, 0))
@@ -127,8 +145,13 @@ def test_chat_cli_q8_int8_cache_on_cpu(tmp_path):
         at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
         assert lines[at[0] + 1].strip()
     for dtype in ("int4", "float32"):
-        bad = subprocess.run(base + ["--cache-dtype", dtype], input="",
-                             capture_output=True, text=True, timeout=120,
-                             env=env)
-        assert bad.returncode != 0 and "A8" in bad.stderr
+        out = subprocess.run(
+            base + ["--temperature", "0", "--max-new-tokens", "8",
+                    "--cache-dtype", dtype],
+            input="hello world\n", capture_output=True, text=True,
+            timeout=120, env=env, cwd=str(tmp_path))
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.splitlines()
+        at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
+        assert lines[at[0] + 1].strip()
 

@@ -111,8 +111,14 @@ def test_forward_refuses_a_batch(tmp_path):
     with pytest.raises(NotImplementedError, match="A11"):
         forward(tp, tcfg, init_kv_cache(tcfg, "cpu"),
                 torch.zeros(2, 3, tcfg.dim), 0, 0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        init_kv_cache(tcfg, "cpu", dtype=torch.float32)
+    f32 = init_kv_cache(tcfg, "cpu", dtype=torch.float32, seq_len=64)
+    assert f32.k.dtype == torch.float32 and f32.k_scale is None
+    i4 = init_kv_cache(tcfg, "cpu", dtype="int4", seq_len=64)
+    assert i4.k.dtype == torch.int8 and i4.k.shape == (
+        tcfg.n_layers, 64, tcfg.n_kv_heads * tcfg.cache_head_dim // 2)
+    assert i4.k_scale.shape == (tcfg.n_layers, tcfg.n_kv_heads, 64)
+    with pytest.raises(ValueError, match="no KV cache of type"):
+        init_kv_cache(tcfg, "cpu", dtype="int2")
     i8 = init_kv_cache(tcfg, "cpu", dtype=torch.int8, seq_len=64)
     assert i8.k.dtype == torch.int8 and i8.k.shape == (
         tcfg.n_layers, 64, tcfg.n_kv_heads * tcfg.cache_head_dim)
