@@ -19,9 +19,16 @@ Phases (any failure ends the run with a non-zero exit):
    on an f32 cache, G (flash_attention_i8) and H (pair packing) at the
    Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 and
    the flash kernels at T 1, 5 and 256: T = 5 is a speculative verify
-   window of k = 4.  Then, per kernel, whether a row of a T = 5 call
-   equals the same row computed alone (what makes speculative greedy
-   decoding exact).
+   window of k = 4.  I (flash_attention_batched, per-slot cache: bf16,
+   f32, int8) and J (flash_attention_paged, pools of 512- and 56-row
+   pages: bf16, f32, int8, int4) at both models' geometry, 8 slots at
+   positions 0..6,000 (some past Gemma's window), T 1 and 5: within the
+   plain version's bound, each slot bit for bit C / G / H on its own rows,
+   J bit for bit I, and a slot unchanged when every other slot, page and
+   the trash page hold NaN; timed at the per-slot cache and 512-row pages
+   (library yardstick: SDPA over each slot's live rows, padded, with a
+   mask).  Then, per kernel, whether a row of a T = 5 call equals the same
+   row computed alone (what makes speculative greedy decoding exact).
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
@@ -32,6 +39,13 @@ Phases (any failure ends the run with a non-zero exit):
    plain greedy tokens.  Then the chat CLI in a subprocess on the same
    file with a synthetic tokenizer; the launch counts it prints
    (--show-metrics) must show the same kernels.
+   3b. Batched serving of the same file through BackendServer(batch=8):
+   8 requests of 256-1,024 random tokens at once (6 greedy, 2 top-p 0.9
+   at T 0.7), 64 tokens each, then 4 more on the freed slots, then a
+   two-turn conversation through `handle` on an in-process connection; on
+   the default paged pool (bf16; J), the contiguous cache (I, and C for
+   prefill) and the int4 pool (J, half packing).  Every greedy stream
+   equals the single-stream Engine's greedy tokens up to a near-tie.
 4. The Q8_0 main path at full width and depth: a synthetic Llama-3.2-3B
    Q8_0 .lmrs (seed 0), the same three generations with the bf16 KV cache
    (D, E, F and C must have launched), with the int8 KV cache (D, E, F and
@@ -44,6 +58,15 @@ Phases (any failure ends the run with a non-zero exit):
    continues.  One greedy run on an f32 cache, whose tokens are the bf16
    path's.  Then the chat CLI with --cache-dtype int8, and with
    --cache-dtype int4 --spec-k 4.
+   4b. Batched serving through BackendServer(batch=16): one request with
+   a 512-token system prefix first, then 15 at once (8 sharing that
+   prefix, whose pages they fork: 8 prefix-cache hits; 12 greedy, 3 top-p)
+   on the int8 pool (F carries the layers and the classifier at 16 rows),
+   then on the int4 pool (pair packing) with speculation, k = 4 (80 rows a
+   step).  Each batched path prints aggregate and per-request tok/s,
+   TTFT, pool pages used and their peak, peak memory, prefix-cache hits
+   and the speculative acceptance; its launch counts are set to 0 just
+   before and read just after.
 5. One JSON line of per-kernel results, the card's name and power limit,
    and the last line {"ok": true, "device": {...}}.
 """
@@ -114,10 +137,20 @@ REPLACES = {
     "flash_attention_f32": "lmrs_tpu/kernels/flash_attention.py:140 "
                            "_flash_kernel (f32 cache, rounded to bf16 on "
                            "load; _head_block_update :110)",
+    "flash_attention_batched": "lmrs_tpu/kernels/flash_attention.py:503 "
+                               "_flash_kernel_batched via "
+                               "flash_decode_batched",
+    "flash_attention_paged": "lmrs_tpu/kernels/flash_attention.py:650 "
+                             "_flash_kernel_batched via flash_decode_paged",
 }
+# B and F also compute the unstacked _q4_kernel / _q8_kernel that the JAX
+# package reaches through qmatmul_pallas (a batched step's classifier)
+REPLACES["q4_gemm"] += "; lmrs_tpu/kernels/dequant_matmul.py:837 _q4_kernel"
+REPLACES["q8_gemm"] += "; lmrs_tpu/kernels/dequant_matmul.py:806 _q8_kernel"
 SOURCES = {name: f"lmrs_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 for _name in ("flash_attention_i8", "flash_attention_i4",
-              "flash_attention_f32"):
+              "flash_attention_f32", "flash_attention_batched",
+              "flash_attention_paged"):
     SOURCES[_name] = SOURCES["flash_attention"]             # one template
 # kernel C's f32 instantiation shares C's wrapper and launch count: its
 # launches are those of the path that runs an f32 cache
@@ -128,10 +161,27 @@ Q8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention"}
 Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8"}
 Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4"}
 GEMV_T = (1, 4, 5)      # 5: a speculative verify window of k = 4
+# batched serving paths: (kernels that must launch, kernels that may).  A
+# prefill chunk's classifier runs on its one logits row (A or E); a prompt
+# tail of up to 8 rows takes the T <= 8 kernels
+GEMMA_PAGED = ({"q4_gemv", "q4_gemm", "flash_attention_paged"}, set())
+GEMMA_CONTIG = ({"q4_gemv", "q4_gemm", "flash_attention",
+                 "flash_attention_batched"}, set())
+LLAMA_PAGED = ({"q8_gemm", "q8_gemv", "flash_attention_paged"},
+               {"q8_gemv_i8"})
+# the slots' positions of the batched kernel checks: 0 to 6,000, some past
+# Gemma's 4,096-row window; pages of 512 rows and of 56 (a 64-row tile then
+# spans two or three pages)
+BATCH_POS = (0, 300, 1100, 2500, 4100, 4600, 5200, 6000)
+SMALL_PAGE = 56
+
+
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A progress line, stamped with the seconds since the run began."""
+    print(f"[{time.perf_counter() - T_START:7.1f} s] {msg}", flush=True)
 
 
 class Timer:
@@ -487,6 +537,300 @@ def check_row_independence(torch):
     return same
 
 
+def batched_cache(torch, model, cache, pos, S=6144, seed=4):
+    """Random K/V rows of `model`'s geometry for len(pos) slots as one layer
+    of a per-slot cache (B, 1, S, row) of `cache` type ("bf16", "f32",
+    "int8" or "int4"; int4 only feeds a pool); scales (B, 1, KH, S) for
+    the integer caches.  Returns (k, v, ks, vs), the bf16 dequantized rows
+    (B, S, KH, HD) of K and V for the library yardstick, bytes per cached
+    row of K and V together."""
+    from lmrs_tpu_torch.quant import (quantize_kv_rows, quantize_kv_rows_q4,
+                                      unpack_kv_q4)
+
+    KH, HD = model["KH"], model["HD"]
+    b = len(pos)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kv = torch.randn(2, b, S, KH, HD, device="cuda", generator=gen)
+    if cache in ("int8", "int4"):
+        quantize = quantize_kv_rows if cache == "int8" else quantize_kv_rows_q4
+        rows, sc = quantize(kv)                   # (2,B,S,row), (2,B,S,KH)
+        k, v = (rows[i][:, None].contiguous() for i in (0, 1))
+        ks, vs = (sc[i].permute(0, 2, 1)[:, None].contiguous()
+                  for i in (0, 1))
+        ints = [r.reshape(b, S, KH, HD).float() if cache == "int8"
+                else unpack_kv_q4(r, KH, HD) for r in rows]
+        lib = [(ints[i] * sc[i][..., None]).to(torch.bfloat16)
+               for i in (0, 1)]
+        row_bytes = 2 * (KH * HD // (1 if cache == "int8" else 2) + 4 * KH)
+        return (k, v, ks, vs), lib, row_bytes
+    dtype = torch.bfloat16 if cache == "bf16" else torch.float32
+    k, v = (kv[i].reshape(b, 1, S, KH * HD).to(dtype) for i in (0, 1))
+    lib = [kv[i].to(dtype).to(torch.bfloat16) for i in (0, 1)]
+    return ((k, v, None, None), lib,
+            2 * KH * HD * (2 if cache == "bf16" else 4))
+
+
+def to_pool(torch, contig, psz, live, seed=5):
+    """The per-slot cache's rows in a pool of psz-row pages behind a
+    shuffled (B, maxp) page table; page 0, the trash page, holds NaN (the
+    byte 0x77 and NaN scales for an integer pool), and table entries past
+    the page of slot b's last live row (live[b] - 1) point at it, as the
+    scheduler's do.  Returns (k_pool, v_pool, table, ks_pool, vs_pool)."""
+    k, v, ks, vs = contig
+    b, _, S, row = k.shape
+    maxp = -(-S // psz)
+    n_pages = 1 + b * maxp
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")
+             + 1).reshape(b, maxp).to(torch.int32)
+    flat = table.reshape(-1).long()
+
+    def pool(a):
+        padded = torch.zeros((b, maxp * psz, row), dtype=a.dtype,
+                             device="cuda")
+        padded[:, :S] = a[:, 0]
+        bad = 0x77 if a.dtype == torch.int8 else float("nan")
+        out = torch.full((1, n_pages, psz, row), bad, dtype=a.dtype,
+                         device="cuda")
+        out[0, flat] = padded.reshape(b * maxp, psz, row)
+        return out
+
+    def planes(s):
+        if s is None:
+            return None
+        kh = s.shape[2]
+        padded = torch.zeros((b, kh, maxp * psz), device="cuda")
+        padded[..., :S] = s[:, 0]
+        out = torch.full((1, n_pages, kh, psz), float("nan"), device="cuda")
+        out[0, flat] = padded.reshape(b, kh, maxp, psz).permute(
+            0, 2, 1, 3).reshape(b * maxp, kh, psz)
+        return out
+
+    out = pool(k), pool(v), table, planes(ks), planes(vs)
+    for i, n in enumerate(live):
+        table[i, -(-n // psz):] = 0
+    return out
+
+
+def single_flash(q, k, v, ks, vs, pos, kw):
+    """Kernel C, G or H on one slot's (1, S, row) layer."""
+    from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+    from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
+    from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
+
+    if ks is None:
+        return flash_attention(q, k, v, 0, pos, **kw)
+    packed4 = 2 * k.shape[-1] == kw["n_kv"] * q.shape[-1]
+    fn = flash_attention_i4 if packed4 else flash_attention_i8
+    return fn(q, k, v, ks, vs, 0, pos, **kw)
+
+
+def check_batched_kernels(torch, timer, peak, model, cache):
+    """Kernels I (per-slot cache; not int4) and J (pool; pages of 512 and
+    of 56 rows) at `model`'s attention geometry, B = 8 slots at BATCH_POS,
+    T 1 and 5, against their plain versions with the per-element bound of
+    flash_attention_batched_tol / flash_attention_paged_tol.  Bit for bit:
+    each slot equals C / G / H on its own rows (the same walk), J equals I
+    on a pool holding I's rows, and slot 3 is unchanged when every other
+    slot, its pages and the trash page hold NaN.  Timed (kernel, plain,
+    library) at the 512-row pages and the per-slot cache."""
+    import torch.nn.functional as F
+
+    from lmrs_tpu_torch.kernels.flash_attention_batched import (
+        flash_attention_batched, flash_attention_batched_plain,
+        flash_attention_batched_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_paged import (
+        flash_attention_paged, flash_attention_paged_plain,
+        flash_attention_paged_tol)
+
+    H, KH, HD = model["H"], model["KH"], model["HD"]
+    window, softcap = model["WINDOW"], model["SOFTCAP"]
+    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
+    b = len(BATCH_POS)
+    contig, lib_rows, row_bytes = batched_cache(torch, model, cache,
+                                                BATCH_POS)
+    k, v, ks, vs = contig
+    sc = dict(k_scale=ks, v_scale=vs)
+    live = [p + 5 for p in BATCH_POS]           # rows of a T = 5 call
+    pools = {psz: to_pool(torch, contig, psz, live)
+             for psz in (512, SMALL_PAGE)}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = []
+    for t_q in (1, 5):
+        q = torch.randn(b, t_q, H, HD, device="cuda", generator=gen)
+        pos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+        runs = []
+        if cache != "int4":
+            runs.append(("flash_attention_batched", "per-slot",
+                         lambda: flash_attention_batched(q, k, v, 0, pos,
+                                                         **kw, **sc),
+                         lambda: flash_attention_batched_plain(
+                             q, k, v, 0, pos, **kw, **sc),
+                         lambda: flash_attention_batched_tol(
+                             q, k, v, 0, pos, **kw, **sc)))
+        for psz, (kp, vp, table, pks, pvs) in pools.items():
+            psc = dict(k_scale=pks, v_scale=pvs)
+            runs.append((
+                "flash_attention_paged", f"page{psz}",
+                lambda kp=kp, vp=vp, table=table, psc=psc:
+                    flash_attention_paged(q, kp, vp, table, 0, pos, **kw,
+                                          **psc),
+                lambda kp=kp, vp=vp, table=table, psc=psc:
+                    flash_attention_paged_plain(q, kp, vp, table, 0, pos,
+                                                **kw, **psc),
+                lambda kp=kp, vp=vp, table=table, psc=psc:
+                    flash_attention_paged_tol(q, kp, vp, table, 0, pos,
+                                              **kw, **psc)))
+        # work: live rows and (query, key) pairs of each slot
+        rows_read = pairs = 0
+        for p in BATCH_POS:
+            r, pr = attention_work(t_q, p, window)
+            rows_read, pairs = rows_read + r, pairs + pr
+        nbytes = rows_read * row_bytes + 2 * b * t_q * H * HD * 4
+        b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * H * HD, peak["bf16"],
+                              peak["mem"])
+        # library yardstick: SDPA over each slot's live rows, gathered into
+        # a padded (B, KH, S_max, HD) bf16 tensor with a boolean mask
+        first = torch.tensor([0 if window is None else max(p - window, 0)
+                              for p in BATCH_POS], device="cuda")
+        n_live = pos.long() + t_q - first
+        s_max = int(n_live.max())
+        j = torch.arange(s_max, device="cuda")
+        idx = (first[:, None] + j).clamp(max=lib_rows[0].shape[1] - 1)
+        ar = torch.arange(b, device="cuda")[:, None]
+        kl, vl = (r[ar, idx].transpose(1, 2).contiguous() for r in lib_rows)
+        qp = pos.long()[:, None] + torch.arange(t_q, device="cuda")
+        kpos = first[:, None] + j
+        mask = (kpos[:, None] <= qp[..., None]) & \
+            (j[None, None] < n_live[:, None, None])
+        if window is not None:
+            mask = mask & (qp[..., None] - kpos[:, None] <= window)
+        qs = q.to(torch.bfloat16).transpose(1, 2)
+        lib = lambda: F.scaled_dot_product_attention(   # noqa: E731
+            qs, kl, vl, attn_mask=mask[:, None], enable_gqa=True)
+        got_i = None
+        for name, shape, run, plain, tol_fn in runs:
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{name} {shape} T={t_q}: non-finite")
+            tol = tol_fn()
+            diff = (got - want).abs()
+            # a slot with one live row (pos 0) has output channels whose
+            # values quantize to 0: a bound of 0 met exactly counts as 0
+            err = diff.max().item()
+            ratio = torch.where(diff == 0, 0.0, diff / tol).max().item()
+            same_single = all(torch.equal(
+                got[i], single_flash(q[i], k[i], v[i],
+                                     None if ks is None else ks[i],
+                                     None if vs is None else vs[i],
+                                     BATCH_POS[i], kw)) for i in range(b))
+            if name == "flash_attention_batched":
+                got_i = got
+            same_i = got_i is None or torch.equal(got, got_i)
+            # slot independence: NaN in every other slot and page
+            if name == "flash_attention_batched":
+                k2, v2 = k.clone(), v.clone()
+                others = [i for i in range(b) if i != 3]
+                k2[others] = float("nan") if k.dtype != torch.int8 else 0x77
+                v2[others] = float("nan") if v.dtype != torch.int8 else 0x77
+                extra = {}
+                if ks is not None:
+                    ks2, vs2 = ks.clone(), vs.clone()
+                    ks2[others] = vs2[others] = float("nan")
+                    extra = dict(k_scale=ks2, v_scale=vs2)
+                bad = flash_attention_batched(q, k2, v2, 0, pos, **kw,
+                                              **(extra or sc))
+            else:
+                psz = int(shape[len("page"):])
+                kp, vp, table, pks, pvs = pools[psz]
+                mine = table[3].long()
+                keep = torch.zeros(kp.shape[1], dtype=torch.bool,
+                                   device="cuda")
+                keep[mine] = True
+                kp2, vp2 = kp.clone(), vp.clone()
+                fill = float("nan") if kp.dtype != torch.int8 else 0x77
+                kp2[:, ~keep] = fill
+                vp2[:, ~keep] = fill
+                psc2 = dict(k_scale=pks, v_scale=pvs)
+                if pks is not None:
+                    pks2, pvs2 = pks.clone(), pvs.clone()
+                    pks2[:, ~keep] = pvs2[:, ~keep] = float("nan")
+                    psc2 = dict(k_scale=pks2, v_scale=pvs2)
+                bad = flash_attention_paged(q, kp2, vp2, table, 0, pos, **kw,
+                                            **psc2)
+            independent = torch.equal(bad[3], got[3])
+            case = dict(kernel=name, model=model["name"], cache=cache,
+                        shape=f"{cache} {shape}", T=t_q, B=b,
+                        max_abs_err=err,
+                        tol_min=tol.min().item(), err_over_tol=ratio,
+                        same_as_single=same_single, same_as_i=same_i,
+                        slot_independent=independent, bound_ms=b_ms,
+                        bound_by=b_by, blocks=((H // KH * t_q + 63) // 64)
+                        * KH * b)
+            if shape != f"page{SMALL_PAGE}":
+                case.update(ms=timer(run), plain_ms=timer(plain),
+                            library_ms=timer(lib))
+                times = (f"kernel {case['ms']:.4f} ms  plain "
+                         f"{case['plain_ms']:.4f}  library "
+                         f"{case['library_ms']:.4f}  ")
+            else:
+                times = ""
+            log(f"  {name:23s} {model['name']} {cache:4s} {shape:8s} "
+                f"T={t_q}: err/tol {ratio:.3f}  same as C/G/H "
+                f"{same_single}  same as I {same_i}  slot-independent "
+                f"{independent}  {times}bound {b_ms:.4f} ({b_by})")
+            if not (ratio <= 1.0 and same_single and same_i and independent):
+                raise RuntimeError(f"{name} {model['name']} {cache} {shape} "
+                                   f"T={t_q} failed its checks: {case}")
+            cases.append(case)
+            del got, want, tol, diff, bad
+        del kl, vl
+    del contig, pools
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_batched_row_independence(torch):
+    """Row independence for I and J: a slot's row t of a T = 5 call equals
+    the row computed alone at pos + t (Gemma bf16 per-slot and paged,
+    Llama int4 paged)."""
+    from lmrs_tpu_torch.kernels.flash_attention_batched import \
+        flash_attention_batched
+    from lmrs_tpu_torch.kernels.flash_attention_paged import \
+        flash_attention_paged
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    same = {}
+    pos_l = [0, 700, 1500, 2000]
+    for model, cache in ((GEMMA, "bf16"), (LLAMA, "int4")):
+        contig, _, _ = batched_cache(torch, model, cache, pos_l, S=2048)
+        kw = dict(n_kv=model["KH"], scale=model["HD"] ** -0.5,
+                  softcap=model["SOFTCAP"], window=model["WINDOW"])
+        q = torch.randn(len(pos_l), 5, model["H"], model["HD"],
+                        device="cuda", generator=gen)
+        kp, vp, table, pks, pvs = to_pool(torch, contig, 512,
+                                          [p + 5 for p in pos_l])
+        fns = {"flash_attention_paged": lambda q, p: flash_attention_paged(
+            q, kp, vp, table, 0, p, k_scale=pks, v_scale=pvs, **kw)}
+        if cache != "int4":
+            k, v, _, _ = contig
+            fns["flash_attention_batched"] = \
+                lambda q, p: flash_attention_batched(q, k, v, 0, p, **kw)
+        for name, fn in fns.items():
+            p = torch.tensor(pos_l, dtype=torch.int32, device="cuda")
+            whole = fn(q, p)
+            rows = torch.cat([fn(q[:, i:i + 1].contiguous(), p + i)
+                              for i in range(5)], dim=1)
+            same[f"{name} ({model['name']}, {cache})"] = torch.equal(whole,
+                                                                     rows)
+    torch.cuda.synchronize()
+    for name, ok in same.items():
+        log(f"  {name}: rows of a T=5 call {'equal' if ok else 'DIFFER from'}"
+            f" the rows alone")
+    return same
+
+
 def synthetic_tokenizer(path: Path, vocab_size: int):
     from lmrs_tpu_torch.tokenizer import Tokenizer
 
@@ -570,6 +914,11 @@ def greedy_margins(torch, engine, prompt, n):
 
 
 NEAR_TIE = 1e-3     # of the logit scale
+# A batched Llama-3.2-3B step of 16 rows runs its layers through F (bf16
+# activations) where the single-stream Engine runs W8A8 (D): the logits
+# differ by the W8A8 noise, up to ~1e-2 of the logit scale
+# (tests/test_torch_q8_model.py), so a near-tie is wider there
+NEAR_TIE_W8A8 = 1e-2
 
 
 def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
@@ -728,6 +1077,294 @@ def drive_cli(label, model, tok_path, expect, extra_args=()):
     return counts
 
 
+class Conn:
+    """An in-process WebSocket connection for BackendServer.handle: yields
+    `messages` and records what the server sends."""
+
+    def __init__(self, messages):
+        self.messages = list(messages)
+        self.sent = []
+
+    async def send(self, msg):
+        self.sent.append(json.loads(msg))
+
+    def __aiter__(self):
+        return self._gen()
+
+    async def _gen(self):
+        for m in self.messages:
+            yield m
+
+
+def serve_wave(thread, prompts, sampling, n_new):
+    """Submit `prompts` to a SchedulerThread at once (sampling: a
+    (temperature, top_p) per prompt) and wait for all of them.  Returns
+    the requests and the wall seconds from the first submit to the last
+    token."""
+    import threading
+
+    events = [threading.Event() for _ in prompts]
+    t0 = time.perf_counter()
+    reqs = [thread.submit(p, max_new_tokens=n_new, temperature=t, top_p=tp,
+                          on_done=lambda out, e=e: e.set())
+            for p, (t, tp), e in zip(prompts, sampling, events)]
+    for e in events:
+        if not e.wait(600):
+            raise RuntimeError("a batched request did not finish in 600 s")
+    wall = max(r.done_time for r in reqs) - t0
+    for r in reqs:
+        if r.error is not None or len(r.out) != n_new:
+            raise RuntimeError(f"request {r.id}: error {r.error!r}, "
+                               f"{len(r.out)} tokens")
+    return reqs, wall
+
+
+def wave_metrics(reqs, wall):
+    """Aggregate and per-request rates of one wave (host clock)."""
+    per_req = []
+    for r in reqs:
+        first = r.submit_time + r.ttft
+        per_req.append(dict(ttft_ms=1e3 * r.ttft, decode_tok_s=(
+            (len(r.out) - 1) / (r.done_time - first))))
+    n_tok = sum(len(r.out) for r in reqs)
+    return dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
+                aggregate_tok_s=n_tok / wall, per_request=per_req)
+
+
+def check_greedy(torch, label, engine, prompt, got, want, near_tie):
+    """A batched greedy stream against the single-stream Engine's greedy
+    tokens, up to the first step whose top-2 margin in a plain run is
+    below `near_tie` of the logit scale."""
+    if got == want:
+        return len(got)
+    _, margins = greedy_margins(torch, engine, prompt, len(want))
+    close = [i for i, m in enumerate(margins) if m < near_tie]
+    n_eq = close[0] if close else len(want)
+    if got[:n_eq] != want[:n_eq]:
+        raise RuntimeError(f"{label}: batched greedy {got} differs from the "
+                           f"Engine's {want} before a near-tie (step {n_eq})")
+    log(f"    {label}: equal to the Engine up to the near-tie at step {n_eq}")
+    return n_eq
+
+
+def engine_refs(torch, cfg, params, cache_dtype, prompts, n_new):
+    """The single-stream Engine's greedy tokens for each prompt (and the
+    engine, for the near-tie rule)."""
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    engine = Engine(cfg, params, cache_dtype=cache_dtype)
+    refs = []
+    for p in prompts:
+        engine.reset()
+        refs.append(engine.generate(p, GenerationConfig(
+            temperature=0.0, max_new_tokens=n_new)))
+    return engine, refs
+
+
+def drive_batched(torch, label, server, waves, refs, engine, expect,
+                  conversation=None, prefix_first=None, near_tie=NEAR_TIE):
+    """One batched serving path through a BackendServer in --batch mode,
+    the launch counts set to 0 just before and read just after: each wave
+    of (prompts, sampling) served at once; optionally a prompt served
+    first, alone, so that the next wave's prompts sharing its prefix fork
+    its pages; then optionally a two-turn conversation through `handle`.
+    `expect` = (kernels that must launch, kernels that may besides).  Then
+    each greedy stream is held against `refs` (prompt tuple -> Engine
+    greedy tokens) up to the first near-tie (`near_tie` of the logit
+    scale)."""
+    import asyncio
+
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+
+    thread = server.scheduler
+    sched = thread.sched
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    hits0, saved0 = sched.prefix_hits, sched.prefix_tokens_saved
+    prop0, acc0 = sched.spec_proposed, sched.spec_accepted
+    dec_s0, dec_steps0 = sched.decode_seconds, sched.decode_steps
+    n_new = 64
+    out = dict(waves=[])
+    if prefix_first is not None:
+        import threading
+
+        ev = threading.Event()
+        first = thread.submit(prefix_first, max_new_tokens=n_new,
+                              temperature=0.0, on_done=lambda o: ev.set())
+        while first.ttft is None and not ev.is_set():
+            time.sleep(0.01)          # its prefill is done: a donor now
+    greedy = []         # (prompt, tokens): held against refs after the path
+    for prompts, sampling in waves:
+        reqs, wall = serve_wave(thread, prompts, sampling, n_new)
+        m = wave_metrics(reqs, wall)
+        m["pages_used_after"] = sched.pages_used() if sched.paged else None
+        out["waves"].append(m)
+        greedy += [(r.prompt, r.out) for r, (t, _) in zip(reqs, sampling)
+                   if t == 0.0]
+        log(f"  {label}: wave of {len(reqs)}: {m['tokens']} tokens in "
+            f"{wall:.2f} s = {m['aggregate_tok_s']:.1f} tok/s aggregate; "
+            f"per request decode "
+            f"{[round(x['decode_tok_s'], 1) for x in m['per_request']]} "
+            f"tok/s, TTFT "
+            f"{[round(x['ttft_ms']) for x in m['per_request']]} ms")
+    if prefix_first is not None:
+        if not ev.wait(600) or first.error is not None:
+            raise RuntimeError(f"{label}: the prefix donor failed")
+        greedy.append((first.prompt, first.out))
+    if conversation is not None:
+        conn = Conn(conversation)
+        asyncio.run(server.handle(conn))
+        eos = [m for m in conn.sent if m["text"] == "<eos>"]
+        status = [m for m in conn.sent if m["category"] == "STATUS"]
+        pieces = [m for m in conn.sent if m["category"] == "OUTPUT"
+                  and m["text"] != "<eos>"]
+        if len(eos) != len(conversation) or status or not pieces:
+            raise RuntimeError(f"{label}: conversation got {conn.sent[:8]}")
+        out["conversation"] = dict(turns=len(eos), pieces=len(pieces))
+        log(f"  {label}: a {len(eos)}-turn conversation through handle: "
+            f"{len(pieces)} pieces")
+    torch.cuda.synchronize()
+    counts = launches()
+    launched = {k for k, n in counts.items() if n > 0}
+    need, may = expect
+    if not need <= launched <= need | may:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(need)} (and perhaps "
+                           f"{sorted(may)})")
+    # after the counts: a near-tie check runs the reference Engine
+    n_cmp = sum(check_greedy(torch, label, engine, p, got, refs[tuple(p)],
+                             near_tie) for p, got in greedy)
+    steps = sched.decode_steps - dec_steps0
+    dec_s = sched.decode_seconds - dec_s0
+    out.update(
+        launches=counts, greedy_tokens_compared=n_cmp,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+        decode_steps=steps, decode_ms_per_step=1e3 * dec_s / steps,
+        prefix_hits=sched.prefix_hits - hits0,
+        prefix_tokens_saved=sched.prefix_tokens_saved - saved0)
+    if sched.paged:
+        out.update(pages=sched.n_pages - 1, pages_peak=sched.pages_peak,
+                   page_size=sched.psz)
+    if sched.spec_k:
+        prop, acc = sched.spec_proposed - prop0, sched.spec_accepted - acc0
+        out.update(spec_proposed=prop, spec_accepted=acc,
+                   acceptance=acc / prop)
+    log(f"  {label}: launches {counts}; peak memory "
+        f"{out['peak_memory_gb']:.2f} GB; {steps} decode steps, "
+        f"{out['decode_ms_per_step']:.1f} ms each; prefix hits "
+        f"{out['prefix_hits']} ({out['prefix_tokens_saved']} rows); "
+        + (f"pool pages peak {sched.pages_peak} of {sched.n_pages - 1}; "
+           if sched.paged else "contiguous cache; ")
+        + (f"speculative acceptance {out['acceptance']:.3f} "
+           f"({out['spec_accepted']}/{out['spec_proposed']})"
+           if sched.spec_k else ""))
+    return out
+
+
+def batched_phase_gemma(torch, model_path, tok_path, cfg):
+    """Gemma-2-9B Q4_0 through BackendServer(batch=8): 8 requests of
+    256-1,024 random tokens (6 greedy, 2 top-p 0.9 at T 0.7) at once, then
+    4 more (greedy, on freed slots), then a two-turn conversation through
+    handle; on the default paged pool (bf16), the contiguous cache
+    (--no-paged) and the int4 pool."""
+    from lmrs_tpu_torch.serve.backend import BackendServer
+
+    rng = torch.Generator().manual_seed(11)
+    lens = torch.randint(256, 1025, (8,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in lens]
+    sampling = [(0.0, 0.9)] * 6 + [(0.7, 0.9)] * 2
+    greedy = prompts[:6]
+    waves = [(prompts, sampling), (greedy[:4], [(0.0, 0.9)] * 4)]
+    conversation = [json.dumps({"text": "hello from the smoke run"}),
+                    json.dumps({"text": "the card"})]
+    paths = {}
+    refs_by_cache = {}
+    for what, kw, cache_dtype, expect in (
+            ("paged bf16 pool", {}, torch.bfloat16, GEMMA_PAGED),
+            ("contiguous bf16 cache", dict(no_paged=True), torch.bfloat16,
+             GEMMA_CONTIG),
+            ("paged int4 pool", dict(cache_dtype="int4"), "int4",
+             GEMMA_PAGED)):
+        t0 = time.perf_counter()
+        server = BackendServer(str(model_path), str(tok_path), batch=8,
+                               max_new_tokens=64, **kw)
+        server.warmup()
+        label = f"gemma2-9b Q4_0 batch 8, {what}"
+        log(f"  {label}: server up in {time.perf_counter() - t0:.1f} s")
+        key = str(cache_dtype)
+        if key not in refs_by_cache:
+            t0 = time.perf_counter()
+            refs_by_cache[key] = engine_refs(torch, cfg, server.params,
+                                             cache_dtype, greedy, 64)
+            log(f"  Engine references ({key}): {len(greedy)} prompts in "
+                f"{time.perf_counter() - t0:.1f} s")
+        engine, refs = refs_by_cache[key]
+        try:
+            paths[label] = drive_batched(
+                torch, label, server, waves,
+                {tuple(p): r for p, r in zip(greedy, refs)}, engine, expect,
+                conversation=conversation)
+        finally:
+            server.shutdown()
+        del server
+        torch.cuda.empty_cache()
+    del refs_by_cache
+    torch.cuda.empty_cache()
+    return paths
+
+
+def batched_phase_llama(torch, model_path, tok_path, cfg):
+    """Llama-3.2-3B Q8_0 through BackendServer(batch=16): one request with
+    a 512-token system prefix served first, then 15 at once (8 greedy
+    sharing that prefix, so their pages fork from the first, and 7 random:
+    4 greedy, 3 top-p 0.9 at T 0.7); on the int8 pool, then on the int4
+    pool with speculation (k = 4, T = 80 rows a step)."""
+    from lmrs_tpu_torch.serve.backend import BackendServer
+
+    rng = torch.Generator().manual_seed(12)
+    system = torch.randint(0, cfg.vocab_size, (512,), generator=rng).tolist()
+    shared = [system + torch.randint(0, cfg.vocab_size, (n,),
+                                     generator=rng).tolist()
+              for n in (8, 40, 100, 200, 300, 17, 64, 150, 90)]
+    rand = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in torch.randint(256, 1025, (7,), generator=rng).tolist()]
+    first, rest = shared[0], shared[1:] + rand
+    sampling = [(0.0, 0.9)] * 12 + [(0.7, 0.9)] * 3
+    greedy = [first] + rest[:12]
+    paths = {}
+    for what, kw, cache_dtype in (
+            ("paged int8 pool", dict(cache_dtype="int8"), torch.int8),
+            ("paged int4 pool, speculative k=4",
+             dict(cache_dtype="int4", spec_k=4), "int4")):
+        t0 = time.perf_counter()
+        server = BackendServer(str(model_path), str(tok_path), batch=16,
+                               max_new_tokens=64, **kw)
+        server.warmup()
+        label = f"llama3.2-3b Q8_0 batch 16, {what}"
+        log(f"  {label}: server up in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        engine, refs = engine_refs(torch, cfg, server.params, cache_dtype,
+                                   greedy, 64)
+        log(f"  Engine references ({cache_dtype}): {len(greedy)} prompts in "
+            f"{time.perf_counter() - t0:.1f} s")
+        try:
+            res = drive_batched(
+                torch, label, server, [(rest, sampling)],
+                {tuple(p): r for p, r in zip(greedy, refs)}, engine,
+                LLAMA_PAGED, prefix_first=first, near_tie=NEAR_TIE_W8A8)
+        finally:
+            server.shutdown()
+        if res["prefix_hits"] < 8:
+            raise RuntimeError(f"{label}: {res['prefix_hits']} prefix-cache "
+                               f"hits, expected the 8 shared prompts")
+        paths[label] = res
+        del server, engine
+        torch.cuda.empty_cache()
+    return paths
+
+
 def load_model(torch, work: Path, cfg):
     """Write the synthetic .lmrs of `cfg` (seed 0) and load it onto the
     card; returns (path, config as read, params, load seconds)."""
@@ -801,8 +1438,14 @@ def main() -> int:
     cases += check_matmul_kernels(torch, timer, peak, LLAMA, "q8")
     for cache in ("bf16", "f32", "int8", "int4"):
         cases += check_flash_kernel(torch, timer, peak, LLAMA, cache)
+    log("phase 2: per-slot and paged flash (I, J) at both models' shapes, "
+        f"B = {len(BATCH_POS)} slots at {BATCH_POS}")
+    for model in (GEMMA, LLAMA):
+        for cache in ("bf16", "f32", "int8", "int4"):
+            cases += check_batched_kernels(torch, timer, peak, model, cache)
     log("phase 2: is a row of a T=5 call the row computed alone?")
     row_independent = check_row_independence(torch)
+    row_independent.update(check_batched_row_independence(torch))
     del timer
     torch.cuda.empty_cache()
 
@@ -836,6 +1479,9 @@ def main() -> int:
         synthetic_tokenizer(tok_path, GEMMA["V"])
         cli_counts = {"gemma2-9b Q4_0 bf16 cache": drive_cli(
             "gemma2-9b Q4_0", model, tok_path, Q4_PATH)}
+        log("phase 3b: Gemma-2-9B Q4_0 batched serving (BackendServer, "
+            "batch 8)")
+        paths.update(batched_phase_gemma(torch, model, tok_path, cfg))
         model.unlink()
 
         # ---- 4. the Q8_0 main path, bf16, int8 and int4 KV cache; on the
@@ -897,6 +1543,9 @@ def main() -> int:
         cli_counts["llama3.2-3b Q8_0 int4 cache, speculative"] = drive_cli(
             "llama3.2-3b Q8_0 --cache-dtype int4 --spec-k 4", model,
             tok_path, Q8_I4_PATH, ("--cache-dtype", "int4", "--spec-k", "4"))
+        log("phase 4b: Llama-3.2-3B Q8_0 batched serving (BackendServer, "
+            "batch 16)")
+        paths.update(batched_phase_llama(torch, model, tok_path, cfg))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -924,6 +1573,14 @@ def main() -> int:
                                "T=1", [(ll, "pos6000", 1, LLAMA["L"])]),
         "flash_attention_f32": ("llama3.2-3b decode token at pos 6000: 28 x "
                                 "T=1", [(ll, "pos6000", 1, LLAMA["L"])]),
+        "flash_attention_batched": (
+            f"gemma2-9b batched decode step, {len(BATCH_POS)} slots at pos "
+            f"{BATCH_POS[0]}..{BATCH_POS[-1]}, bf16 per-slot cache: 42 x T=1",
+            [(g, "bf16 per-slot", 1, GEMMA["L"])]),
+        "flash_attention_paged": (
+            f"gemma2-9b batched decode step, {len(BATCH_POS)} slots at pos "
+            f"{BATCH_POS[0]}..{BATCH_POS[-1]}, bf16 pool of 512-row pages: "
+            "42 x T=1", [(g, "bf16 page512", 1, GEMMA["L"])]),
     }
 
     def path_launches(name):

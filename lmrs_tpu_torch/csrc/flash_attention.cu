@@ -74,9 +74,35 @@
 // the byte 8, which unpacks to (0, 0).  Bound: bytes at decode, a quarter
 // of C's (half a byte per cached value plus 4/hd of scale).
 //
-// Later: at T = 1 there are only KH blocks (8 for Gemma-2-9B and
-// Llama-3.2-3B) on 132 SMs; a split along the sequence (flash-decoding)
-// with a merge pass fills the card.
+// Kernels I and J — the same kernel over many sequences at once, the
+// continuous-batching step (B slots, each at its own position).  Replace
+// lmrs_tpu/kernels/flash_attention.py:_flash_kernel_batched, called
+// through flash_decode_batched (I) and flash_decode_paged (J); its body is
+// _head_block_update, the body of _flash_kernel, so for each slot I and J
+// compute what C, G and H compute for one sequence, bit for bit when the
+// walk is the same.  Only the row address differs, and it is passed at
+// run time (struct Walk) rather than as a template axis, so the fifteen
+// instantiations above serve all three kernels:
+// - one sequence (C, G, H): row r of a layer at base + r*stride;
+// - per slot (I): slot b's (S, stride) block at base + b*slot_stride, its
+//   (KH, S) scale planes at scales + b*scale_slot_stride;
+// - paged (J): a (B, maxp) page table maps the slot's virtual row r to
+//   page table[b*maxp + r/psz], row r%psz of the layer's (P, psz, stride)
+//   pool, and its scales to [page, kh, r%psz] of the (P, KH, psz) planes.
+//   A 64-row tile may span several pages (psz is any multiple of 8), so
+//   each tile's rows are translated once, by 64 threads, into shared
+//   memory before the tile loads.
+// The grid gains a slot axis (blockIdx.z); each block reads its slot's
+// position from a device array (no host read), and walks from the slot's
+// window start to its last live row as C does.  Rows outside that range,
+// the pages of other slots, table entries past the slot's pages and
+// window-freed pages (all 0, the trash page, which any lane may have
+// written) are never read: they are zero-filled with zero scales in
+// shared memory.  Bound: bytes, the sum over slots of C's (G's, H's).
+//
+// Later: at T = 1 there are only KH blocks per sequence (8 for Gemma-2-9B
+// and Llama-3.2-3B) on 132 SMs; a split along the sequence (flash-
+// decoding) with a merge pass fills the card.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -141,6 +167,17 @@ struct Stripe {
   // nibble values (0, 0), 0 is zero in every other type
   static constexpr unsigned fill =
       (C == Cache::I4_HALF || C == Cache::I4_PAIR) ? 0x08080808u : 0u;
+};
+
+// Where a block finds its sequence's rows (see the header note).  One
+// sequence: pos = nullptr, table = nullptr, strides 0.
+struct Walk {
+  const int* pos;               // (B,) positions of each slot's query 0
+  int pos0;                     // the position when pos is nullptr
+  long long slot_stride;        // cache values between slots' blocks
+  long long scale_slot_stride;  // f32 scales between slots' planes
+  const int* table;             // (B, maxp) page table, or nullptr
+  int maxp, psz;                // table columns, rows per page
 };
 
 // 16 int8 values -> 16 bf16 values (exact) at dst, 16-byte aligned
@@ -214,15 +251,18 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* dst, int c,
 }
 
 // kc, vc: one layer of the cache, (S, row_stride) values of the cache's
-// type (bf16, f32, int8, or the bytes of an int4 cache); kscale, vscale:
-// the layer's (KH, S) f32 scales of a quantized cache, else unused.
+// type (bf16, f32, int8, or the bytes of an int4 cache) — of slot 0 for a
+// per-slot cache, the layer's (P, psz, row_stride) pool for a paged one;
+// kscale, vscale: the layer's (KH, S) f32 scales of a quantized cache
+// ((P, KH, psz) for a pool), else unused.  q and out are (B, T, H, HD);
+// S is the rows a slot can hold (maxp * psz for a paged one).
 template <int HD, Cache C>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
              const void* __restrict__ vc_raw,
              const float* __restrict__ kscale,
              const float* __restrict__ vscale, float* __restrict__ out,
-             int T, int H, int KH, int S, int row_stride, int pos,
+             int T, int H, int KH, int S, int row_stride, Walk w,
              float scale, float softcap, int window) {
   constexpr bool Q = quantized(C);
   using L = Smem<HD, Q>;
@@ -240,10 +280,28 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   float* ksc = reinterpret_cast<float*>(smem + L::ks_off);   // Q only
   float* vsc = reinterpret_cast<float*>(smem + L::vs_off);   // Q only
 
+  // paged: each tile row's physical row in the pool and the index of its
+  // scale, translated once per tile
+  __shared__ int tile_row[BKV];
+  __shared__ int tile_srow[BKV];
+
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int kh = blockIdx.y;
+  const int slot = blockIdx.z;
+  const int pos = w.pos ? __ldg(w.pos + slot) : w.pos0;
+  const bool paged = w.table != nullptr;
+  q += (size_t)slot * T * H * HD;
+  out += (size_t)slot * T * H * HD;
+  kc_raw = static_cast<const char*>(kc_raw) +
+           (size_t)slot * w.slot_stride * Stripe<HD, C>::elem;
+  vc_raw = static_cast<const char*>(vc_raw) +
+           (size_t)slot * w.slot_stride * Stripe<HD, C>::elem;
+  if constexpr (quantized(C)) {
+    kscale += (size_t)slot * w.scale_slot_stride;
+    vscale += (size_t)slot * w.scale_slot_stride;
+  }
   const int G = H / KH;
   const int n_rows = G * T;
   const int r_first = blockIdx.x * BQ;
@@ -285,6 +343,23 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
 
   for (int kv0 = (kv_lo / BKV) * BKV; kv0 <= kv_hi; kv0 += BKV) {
     __syncthreads();   // previous tile's readers are done with ks/vs
+    if (paged) {
+      // virtual row -> (page, row in page); rows outside the live range
+      // are never looked up (their table entries may be anything)
+      if (tid < BKV) {
+        const int row = kv0 + tid;
+        int phys = 0, srow = 0;
+        if (row >= kv_lo && row <= kv_hi) {
+          const int vp = row / w.psz, off = row - vp * w.psz;
+          const int pg = __ldg(w.table + (size_t)slot * w.maxp + vp);
+          phys = pg * w.psz + off;
+          srow = (pg * KH + kh) * w.psz + off;
+        }
+        tile_row[tid] = phys;
+        tile_srow[tid] = srow;
+      }
+      __syncthreads();
+    }
     // K/V tile: 16-byte chunks of each per thread, loaded into registers
     // before any is converted and stored, so that many loads are in flight
     // at once (one block per SM has little else to hide memory latency
@@ -311,7 +386,8 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
         const int row = kv0 + r;
         kr[b] = vr[b] = make_uint4(St::fill, St::fill, St::fill, St::fill);
         if (row >= kv_lo && row <= kv_hi) {
-          const size_t off = (size_t)row * row_stride + head_off + d;
+          const size_t off = (size_t)(paged ? tile_row[r] : row) *
+                                 row_stride + head_off + d;
           kr[b] = __ldg(reinterpret_cast<const uint4*>(kc + off));
           vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
         }
@@ -321,8 +397,10 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
         // cache (a stale one may hold anything)
         const int row = kv0 + tid;
         const bool in = row >= kv_lo && row <= kv_hi;
-        ksc[tid] = in ? __ldg(kscale + (size_t)kh * S + row) : 0.f;
-        vsc[tid] = in ? __ldg(vscale + (size_t)kh * S + row) : 0.f;
+        const size_t si =
+            paged ? (size_t)tile_srow[tid] : (size_t)kh * S + row;
+        ksc[tid] = in ? __ldg(kscale + si) : 0.f;
+        vsc[tid] = in ? __ldg(vscale + si) : 0.f;
       }
 #pragma unroll
       for (int b = 0; b < kLoadsPerThread; ++b) {
@@ -349,7 +427,8 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
           const int row = kv0 + r;
           kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);
           if (row >= kv_lo && row <= kv_hi) {
-            const size_t off = (size_t)row * row_stride + head_off + d;
+            const size_t off = (size_t)(paged ? tile_row[r] : row) *
+                                   row_stride + head_off + d;
             kr[b] = __ldg(reinterpret_cast<const uint4*>(kc + off));
             vr[b] = __ldg(reinterpret_cast<const uint4*>(vc + off));
           }
@@ -466,41 +545,76 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
 
 template <int HD, Cache C>
 int launch(const float* q, const void* k, const void* v, const float* ks,
-           const float* vs, float* out, int T, int H, int KH, int S,
-           int row_stride, int pos, float scale, float softcap, int window,
-           cudaStream_t stream) {
+           const float* vs, float* out, int B, int T, int H, int KH, int S,
+           int row_stride, const Walk& w, float scale, float softcap,
+           int window, cudaStream_t stream) {
   constexpr size_t bytes = Smem<HD, quantized(C)>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<HD, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KH;
-  const dim3 grid((G * T + BQ - 1) / BQ, KH);
+  const dim3 grid((G * T + BQ - 1) / BQ, KH, B);
   flash_kernel<HD, C><<<grid, kWarps * 32, bytes, stream>>>(
-      q, k, v, ks, vs, out, T, H, KH, S, row_stride, pos, scale, softcap,
+      q, k, v, ks, vs, out, T, H, KH, S, row_stride, w, scale, softcap,
       window);
   return (int)cudaGetLastError();
 }
 
 template <Cache C>
 int dispatch(const float* q, const void* k, const void* v, const float* ks,
-             const float* vs, float* out, int T, int H, int KH, int hd, int S,
-             int row_stride, int pos, float scale, float softcap, int window,
-             cudaStream_t stream) {
+             const float* vs, float* out, int B, int T, int H, int KH,
+             int hd, int S, int row_stride, const Walk& w, float scale,
+             float softcap, int window, cudaStream_t stream) {
   switch (hd) {
     case 64:
-      return launch<64, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
-                            pos, scale, softcap, window, stream);
+      return launch<64, C>(q, k, v, ks, vs, out, B, T, H, KH, S, row_stride,
+                            w, scale, softcap, window, stream);
     case 128:
-      return launch<128, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
-                             pos, scale, softcap, window, stream);
+      return launch<128, C>(q, k, v, ks, vs, out, B, T, H, KH, S,
+                             row_stride, w, scale, softcap, window, stream);
     case 256:
-      return launch<256, C>(q, k, v, ks, vs, out, T, H, KH, S, row_stride,
-                             pos, scale, softcap, window, stream);
+      return launch<256, C>(q, k, v, ks, vs, out, B, T, H, KH, S,
+                             row_stride, w, scale, softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
+
+// the cache types by number, as the batched entry point takes them
+int dispatch_type(int cache, const float* q, const void* k, const void* v,
+                  const float* ks, const float* vs, float* out, int B, int T,
+                  int H, int KH, int hd, int S, int row_stride, const Walk& w,
+                  float scale, float softcap, int window,
+                  cudaStream_t stream) {
+  switch (cache) {
+    case 0:
+      return dispatch<Cache::BF16>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
+                                   row_stride, w, scale, softcap, window,
+                                   stream);
+    case 1:
+      return dispatch<Cache::F32>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
+                                  row_stride, w, scale, softcap, window,
+                                  stream);
+    case 2:
+      return dispatch<Cache::I8>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
+                                 row_stride, w, scale, softcap, window,
+                                 stream);
+    case 3:
+      return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, B, T, H, KH, hd,
+                                      S, row_stride, w, scale, softcap,
+                                      window, stream);
+    case 4:
+      return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, B, T, H, KH, hd,
+                                      S, row_stride, w, scale, softcap,
+                                      window, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// one sequence at `pos`
+Walk one(int pos) { return Walk{nullptr, pos, 0, 0, nullptr, 0, 0}; }
 
 }  // namespace
 
@@ -515,9 +629,9 @@ extern "C" int lmrs_flash_attention(const float* q, const void* k,
                                     int KH, int hd, int S, int row_stride,
                                     int pos, float scale, float softcap,
                                     int window, cudaStream_t stream) {
-  return dispatch<Cache::BF16>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
-                               row_stride, pos, scale, softcap, window,
-                               stream);
+  return dispatch<Cache::BF16>(q, k, v, nullptr, nullptr, out, 1, T, H, KH,
+                               hd, S, row_stride, one(pos), scale, softcap,
+                               window, stream);
 }
 
 // Kernel C on an f32 cache: as above with (S, row_stride) f32 rows, each
@@ -528,9 +642,9 @@ extern "C" int lmrs_flash_attention_f32(const float* q, const void* k,
                                         int row_stride, int pos, float scale,
                                         float softcap, int window,
                                         cudaStream_t stream) {
-  return dispatch<Cache::F32>(q, k, v, nullptr, nullptr, out, T, H, KH, hd, S,
-                              row_stride, pos, scale, softcap, window,
-                              stream);
+  return dispatch<Cache::F32>(q, k, v, nullptr, nullptr, out, 1, T, H, KH,
+                              hd, S, row_stride, one(pos), scale, softcap,
+                              window, stream);
 }
 
 // Kernel G: as above with k, v pointing at one layer of an int8 cache,
@@ -542,8 +656,9 @@ extern "C" int lmrs_flash_attention_i8(const float* q, const void* k,
                                        int row_stride, int pos, float scale,
                                        float softcap, int window,
                                        cudaStream_t stream) {
-  return dispatch<Cache::I8>(q, k, v, ks, vs, out, T, H, KH, hd, S,
-                             row_stride, pos, scale, softcap, window, stream);
+  return dispatch<Cache::I8>(q, k, v, ks, vs, out, 1, T, H, KH, hd, S,
+                             row_stride, one(pos), scale, softcap, window,
+                             stream);
 }
 
 // Kernel H: k, v point at one layer of an int4 cache, (S, row_stride) bytes
@@ -557,10 +672,33 @@ extern "C" int lmrs_flash_attention_i4(const float* q, const void* k,
                                        float softcap, int window, int pair,
                                        cudaStream_t stream) {
   if (pair)
-    return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, T, H, KH, hd, S,
-                                    row_stride, pos, scale, softcap, window,
-                                    stream);
-  return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, T, H, KH, hd, S,
-                                  row_stride, pos, scale, softcap, window,
-                                  stream);
+    return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, 1, T, H, KH, hd,
+                                    S, row_stride, one(pos), scale, softcap,
+                                    window, stream);
+  return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, 1, T, H, KH, hd, S,
+                                  row_stride, one(pos), scale, softcap,
+                                  window, stream);
+}
+
+// Kernels I and J: B sequences at once.  q (B, T, H, hd) f32 -> out (B, T,
+// H, hd) f32; pos (B,) int32 on the device, the position of each slot's
+// query 0.  cache: 0 bf16, 1 f32, 2 int8, 3 int4 half, 4 int4 pair
+// packing; ks, vs are unused for 0 and 1.
+// I (table == nullptr): k, v point at slot 0's layer of a (B, L, S,
+// row_stride) cache, slot b's block slot_stride values further; ks, vs at
+// slot 0's layer of the (B, L, KH, S) scales, scale_slot_stride apart.
+// J (table != nullptr): k, v point at the layer's (P, psz, row_stride)
+// pool, ks, vs at its (P, KH, psz) scales; table is (B, maxp) int32 and
+// S = maxp * psz.  The wrappers check shapes and types.
+extern "C" int lmrs_flash_attention_batched(
+    const float* q, const void* k, const void* v, const float* ks,
+    const float* vs, float* out, int B, int T, int H, int KH, int hd, int S,
+    int row_stride, const int* pos, long long slot_stride,
+    long long scale_slot_stride, const int* table, int maxp, int psz,
+    float scale, float softcap, int window, int cache, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || (table && (psz < 8 || maxp * psz != S)))
+    return (int)cudaErrorInvalidValue;
+  const Walk w{pos, 0, slot_stride, scale_slot_stride, table, maxp, psz};
+  return dispatch_type(cache, q, k, v, ks, vs, out, B, T, H, KH, hd, S,
+                       row_stride, w, scale, softcap, window, stream);
 }

@@ -10,8 +10,11 @@ from __future__ import annotations
 from typing import Dict
 
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.flash_attention_batched import \
+    flash_attention_batched
 from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
 from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
+from lmrs_tpu_torch.kernels.flash_attention_paged import flash_attention_paged
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm
@@ -22,7 +25,9 @@ WRAPPERS = {"q4_gemv": q4_gemv, "q4_gemm": q4_gemm,
             "flash_attention": flash_attention, "q8_gemv_i8": q8_gemv_i8,
             "q8_gemv": q8_gemv, "q8_gemm": q8_gemm,
             "flash_attention_i8": flash_attention_i8,
-            "flash_attention_i4": flash_attention_i4}
+            "flash_attention_i4": flash_attention_i4,
+            "flash_attention_batched": flash_attention_batched,
+            "flash_attention_paged": flash_attention_paged}
 
 
 def reset_launches() -> None:

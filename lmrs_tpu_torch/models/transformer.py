@@ -1,10 +1,14 @@
 """Decoder-only transformer forward pass (Gemma-2 / Llama-3.2 / Phi-3.5).
 
-One function serves decode steps (T = 1) and prefill chunks (T rows).  The
-layers run in a Python loop over per-layer weights; every matmul goes
-through `ops.matmul.qmatmul` (kernels A and B for Q4_0 weights, D, E and F
-for Q8_0) and every attention through kernel C (bf16 or f32 KV cache), G
-(int8 KV cache) or H (int4 KV cache), which read the cache in place.
+`forward` serves one sequence: decode steps (T = 1) and prefill chunks (T
+rows).  `forward_batched` serves B sequences at their own positions, t_q
+rows each, the continuous-batching step, over a per-slot cache or a shared
+page pool.  The layers run in a Python loop over per-layer weights; every
+matmul goes through `ops.matmul.qmatmul` (kernels A and B for Q4_0
+weights, D, E and F for Q8_0) on all rows at once, and every attention
+through kernel C (bf16 or f32 KV cache), G (int8) or H (int4) for one
+sequence, I (per-slot cache) or J (page pool) for a batch, which read the
+cache in place.
 
 Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
@@ -20,10 +24,13 @@ from typing import List, Optional, Union
 
 import torch
 
-from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType, unsupported
+from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.flash_attention_batched import \
+    flash_attention_batched
 from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
 from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
+from lmrs_tpu_torch.kernels.flash_attention_paged import flash_attention_paged
 from lmrs_tpu_torch.ops.activations import gelu_tanh, silu
 from lmrs_tpu_torch.ops.matmul import qmatmul
 from lmrs_tpu_torch.ops.norms import rmsnorm
@@ -80,32 +87,71 @@ CACHE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "int8": torch.int8, "int4": "int4"}
 
 
+def cache_dtype_of(dtype: CacheDtype) -> CacheDtype:
+    """torch.bfloat16, torch.float32, torch.int8 or "int4" for any of
+    those or the names of CACHE_DTYPES; raises for anything else."""
+    if isinstance(dtype, str):
+        dtype = CACHE_DTYPES.get(dtype, dtype)
+    if dtype not in CACHE_DTYPES.values():
+        raise ValueError(f"no KV cache of type {dtype!r}: one of "
+                         f"{sorted(CACHE_DTYPES)}")
+    return dtype
+
+
+def _alloc(cfg: ModelConfig, device, dtype: CacheDtype, lead, rows: int,
+           scale_shape) -> KVCache:
+    """K and V of shape (*lead, rows, row width) and, for an int8 or int4
+    cache, f32 scales of `scale_shape`, all zero.  An int4 cache is int8
+    storage of half the row width (torch has no int4 dtype)."""
+    dtype = cache_dtype_of(dtype)
+    row = cfg.n_kv_heads * cfg.cache_head_dim
+    if dtype == "int4":
+        row, dtype = row // 2, torch.int8
+    shape = (*lead, rows, row)
+    cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
+                    v=torch.zeros(shape, dtype=dtype, device=device))
+    if dtype == torch.int8:
+        cache.k_scale = torch.zeros(scale_shape, dtype=torch.float32,
+                                    device=device)
+        cache.v_scale = torch.zeros(scale_shape, dtype=torch.float32,
+                                    device=device)
+    return cache
+
+
 def init_kv_cache(cfg: ModelConfig, device,
                   dtype: CacheDtype = torch.bfloat16,
                   seq_len: Optional[int] = None) -> KVCache:
     """Preallocate the cache.  `dtype` is torch.bfloat16, torch.float32,
     torch.int8, or the string "int4" (torch has no such dtype: int8 storage
     of half the row width); the names of CACHE_DTYPES are taken too."""
-    if isinstance(dtype, str):
-        dtype = CACHE_DTYPES.get(dtype, dtype)
-    if dtype not in CACHE_DTYPES.values():
-        raise ValueError(f"no KV cache of type {dtype!r}: one of "
-                         f"{sorted(CACHE_DTYPES)}")
     s_len = seq_len or cfg.seq_len
-    row = cfg.n_kv_heads * cfg.cache_head_dim
-    packed4 = dtype == "int4"
-    if packed4:
-        row, dtype = row // 2, torch.int8
-    shape = (cfg.n_layers, s_len, row)
-    cache = KVCache(k=torch.zeros(shape, dtype=dtype, device=device),
-                    v=torch.zeros(shape, dtype=dtype, device=device))
-    if dtype == torch.int8:
-        sshape = (cfg.n_layers, cfg.n_kv_heads, s_len)
-        cache.k_scale = torch.zeros(sshape, dtype=torch.float32,
-                                    device=device)
-        cache.v_scale = torch.zeros(sshape, dtype=torch.float32,
-                                    device=device)
-    return cache
+    return _alloc(cfg, device, dtype, (cfg.n_layers,), s_len,
+                  (cfg.n_layers, cfg.n_kv_heads, s_len))
+
+
+def init_batched_kv_cache(cfg: ModelConfig, device, n_slots: int,
+                          rows: int,
+                          dtype: CacheDtype = torch.bfloat16) -> KVCache:
+    """The per-slot cache of continuous batching: K and V (B, L, rows,
+    KH*hd) and, for int8, scales (B, L, KH, rows).  Slot b's (L, rows, ...)
+    block is a single-stream cache (`forward` prefills through it).  int4
+    is paged only, as in the JAX scheduler."""
+    if cache_dtype_of(dtype) == "int4":
+        raise ValueError("the batched int4 KV cache is paged-only (pass "
+                         "pool_tokens=...); use int8 for the contiguous "
+                         "batched cache")
+    return _alloc(cfg, device, dtype, (n_slots, cfg.n_layers), rows,
+                  (n_slots, cfg.n_layers, cfg.n_kv_heads, rows))
+
+
+def init_kv_pool(cfg: ModelConfig, device, n_pages: int, page_size: int,
+                 dtype: CacheDtype = torch.bfloat16) -> KVCache:
+    """The shared page pool of the paged cache: K and V (L, P, psz, KH*hd)
+    (KH*hd/2 bytes for int4) and, for int8 and int4, scales (L, P, KH,
+    psz).  Page 0 is the trash page: table entries that no slot owns point
+    at it, and rows written through them are never read."""
+    return _alloc(cfg, device, dtype, (cfg.n_layers, n_pages), page_size,
+                  (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size))
 
 
 def embed_tokens(params: TransformerParams, cfg: ModelConfig,
@@ -128,6 +174,11 @@ def embed_tokens(params: TransformerParams, cfg: ModelConfig,
     return x
 
 
+def _attn_kw(cfg: ModelConfig) -> dict:
+    return dict(n_kv=cfg.n_kv_heads, scale=cfg.attn_scale,
+                softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
+
+
 def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
            cache: KVCache, layer: int, cos: torch.Tensor, sin: torch.Tensor,
            pos: int, w8a8: bool) -> torch.Tensor:
@@ -135,8 +186,31 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     the layer's K/V rows (and, for an int8 or int4 cache, their scales)
     into the cache."""
     t_q = x.shape[0]
-    gemma = cfg.model_type == ModelType.GEMMA
+    q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
+    # the cache stores rotated keys
+    rows, scales = _quantize_kv(cfg, cache, k, v)
+    cache.k[layer, pos:pos + t_q] = rows[0]
+    cache.v[layer, pos:pos + t_q] = rows[1]
+    if scales is None:
+        att = flash_attention(q, cache.k, cache.v, layer, pos,
+                              **_attn_kw(cfg))
+    else:
+        cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
+        cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
+        # an int4 cache is int8 storage of half the row width
+        packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
+        flash = flash_attention_i4 if packed4 else flash_attention_i8
+        att = flash(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
+                    layer, pos, **_attn_kw(cfg))
+    return _layer_post(cfg, x, lw, att, w8a8)
 
+
+def _qkv(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
+         cos: torch.Tensor, sin: torch.Tensor, w8a8: bool):
+    """q (T, H, hd), k and v (T, KH, hd) of T rows with RoPE applied to q
+    and k, all zero-padded to cache_head_dim (Phi): zero q/k lanes add
+    nothing to scores, zero v lanes are sliced off the output."""
+    t_q = x.shape[0]
     xb = rmsnorm(x, lw.att_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
     qkv = qmatmul(xb, lw.wqkv, w8a8=w8a8)
     a, kv = cfg.att_dim, cfg.kv_dim
@@ -145,36 +219,35 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     v = qkv[:, a + kv:].reshape(t_q, cfg.n_kv_heads, cfg.head_dim)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-
-    # zero-pad head_dim to cache_head_dim (Phi): zero q/k lanes add nothing
-    # to scores, zero v lanes are sliced off the output
     hd_pad = cfg.cache_head_dim - cfg.head_dim
     if hd_pad:
         pad = lambda a: torch.nn.functional.pad(a, (0, hd_pad))  # noqa: E731
         q, k, v = pad(q), pad(k), pad(v)
+    return q, k, v
 
-    # the cache stores rotated keys
-    attn_kw = dict(n_kv=cfg.n_kv_heads, scale=cfg.attn_scale,
-                   softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
-    if cache.k.dtype == torch.int8:
-        # an int4 cache is int8 storage of half the row width
-        packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
-        quantize, flash = ((quantize_kv_rows_q4, flash_attention_i4)
-                           if packed4 else
-                           (quantize_kv_rows, flash_attention_i8))
-        # K and V quantize in one pass: rows (2, T, row), scales (2, T, KH)
-        rows, scales = quantize(torch.stack([k, v]))
-        cache.k[layer, pos:pos + t_q] = rows[0]
-        cache.v[layer, pos:pos + t_q] = rows[1]
-        cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
-        cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
-        att = flash(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                    layer, pos, **attn_kw)
-    else:
-        cache.k[layer, pos:pos + t_q] = k.reshape(t_q, -1).to(cache.k.dtype)
-        cache.v[layer, pos:pos + t_q] = v.reshape(t_q, -1).to(cache.v.dtype)
-        att = flash_attention(q, cache.k, cache.v, layer, pos, **attn_kw)
-    if hd_pad:
+
+def _quantize_kv(cfg: ModelConfig, cache: KVCache, k: torch.Tensor,
+                 v: torch.Tensor):
+    """K and V rows as the cache stores them: ((2, T, row) rows of the
+    cache's type, (2, T, KH) f32 scales or None).  An int4 cache is int8
+    storage of half the row width."""
+    t_q = k.shape[0]
+    if cache.k.dtype != torch.int8:
+        rows = torch.stack([k, v]).reshape(2, t_q, -1).to(cache.k.dtype)
+        return rows, None
+    packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
+    quantize = quantize_kv_rows_q4 if packed4 else quantize_kv_rows
+    # K and V quantize in one pass
+    return quantize(torch.stack([k, v]))
+
+
+def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
+                att: torch.Tensor, w8a8: bool) -> torch.Tensor:
+    """The layer after attention, shared by one sequence and a batch:
+    output projection, residual, norms and the GLU FFN over all rows."""
+    t_q = x.shape[0]
+    gemma = cfg.model_type == ModelType.GEMMA
+    if cfg.cache_head_dim != cfg.head_dim:
         att = att[..., :cfg.head_dim]
     o = qmatmul(att.reshape(t_q, cfg.att_dim), lw.wo, w8a8=w8a8)
 
@@ -206,7 +279,9 @@ def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
     the numerics of Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`);
     the classifier never quantizes its activations."""
     if x.ndim != 2:
-        raise unsupported("a batched forward", "A11 batched serving")
+        raise ValueError(f"forward takes the (T, D) rows of one sequence, "
+                         f"got {tuple(x.shape)}; forward_batched serves a "
+                         f"batch")
     t_q = x.shape[0]
     if pos + t_q > cache.k.shape[1]:
         raise ValueError(f"context overflow: rows [{pos}, {pos + t_q}) past "
@@ -221,8 +296,16 @@ def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
     every = isinstance(logit_idx, str)
     if every and logit_idx != "all":
         raise ValueError(f"logit_idx is a row or 'all', got {logit_idx!r}")
-    xl = rmsnorm(x if every else x[logit_idx:logit_idx + 1],
-                 params.final_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
+    logits = _classify(params, cfg,
+                       x if every else x[logit_idx:logit_idx + 1])
+    return logits if every else logits[0]
+
+
+def _classify(params: TransformerParams, cfg: ModelConfig,
+              x: torch.Tensor) -> torch.Tensor:
+    """Final norm, classifier and final softcap of (N, D) rows -> (N, V)
+    float32 logits.  The classifier never quantizes its activations."""
+    xl = rmsnorm(x, params.final_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
     cls = params.embed if cfg.tied_lm_head else params.lm_head
     logits = qmatmul(xl, cls, classifier=True)
     if cfg.final_logit_softcap is not None:
@@ -233,4 +316,97 @@ def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
             logits = torch.cat([head, logits[:, cfg.dim:]], dim=-1)
         else:
             logits = torch.tanh(logits / cap) * cap
-    return logits if every else logits[0]
+    return logits
+
+
+def _layer_batched(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
+                   cache: KVCache, layer: int, cos: torch.Tensor,
+                   sin: torch.Tensor, pos: torch.Tensor, t_q: int,
+                   dest, table: Optional[torch.Tensor],
+                   w8a8: bool) -> torch.Tensor:
+    """One decoder layer over B slots of t_q rows each, x (B*t_q, D) slot
+    by slot.  Writes each slot's K/V rows (and scales) with one indexed
+    write per plane, at `dest`: (slot, row) index tensors of the per-slot
+    cache, or (page, row in page) ones of the pool when `table` is given;
+    then attention runs kernel I or J.  The matmuls and the rest of the
+    layer run on all rows at once."""
+    n = x.shape[0]
+    q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
+    rows, scales = _quantize_kv(cfg, cache, k, v)
+    i0, i1 = dest
+    if table is None:
+        cache.k[i0, layer, i1] = rows[0]
+        cache.v[i0, layer, i1] = rows[1]
+        if scales is not None:
+            cache.k_scale[i0, layer, :, i1] = scales[0]
+            cache.v_scale[i0, layer, :, i1] = scales[1]
+    else:
+        cache.k[layer, i0, i1] = rows[0]
+        cache.v[layer, i0, i1] = rows[1]
+        if scales is not None:
+            cache.k_scale[layer, i0, :, i1] = scales[0]
+            cache.v_scale[layer, i0, :, i1] = scales[1]
+    qb = q.reshape(n // t_q, t_q, cfg.n_heads, cfg.cache_head_dim)
+    kw = dict(_attn_kw(cfg), k_scale=cache.k_scale, v_scale=cache.v_scale)
+    if table is None:
+        att = flash_attention_batched(qb, cache.k, cache.v, layer, pos, **kw)
+    else:
+        att = flash_attention_paged(qb, cache.k, cache.v, table, layer, pos,
+                                    **kw)
+    return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1), w8a8)
+
+
+def _write_index(cache: KVCache, pos: torch.Tensor, t_q: int,
+                 table: Optional[torch.Tensor] = None):
+    """Where the t_q rows of each slot land: (slot, row) index tensors of
+    the per-slot cache, or (page, row in page) ones of the pool through
+    `table`, each (B*t_q,), built on the device from `pos` (B,).  Indices
+    are clamped into the cache so that a lane can never write outside it;
+    the scheduler's slack rows keep every live write inside."""
+    b = pos.shape[0]
+    dev = pos.device
+    rows = (pos.long()[:, None]
+            + torch.arange(t_q, device=dev)[None]).reshape(-1)
+    if table is None:
+        slots = torch.arange(b, device=dev).repeat_interleave(t_q)
+        return slots, rows.clamp(max=cache.k.shape[2] - 1)
+    psz = cache.k.shape[2]
+    vp = (rows // psz).clamp(max=table.shape[1] - 1).reshape(b, t_q)
+    pages = table.long().gather(1, vp).reshape(-1)
+    return pages, rows % psz
+
+
+def forward_batched(params: TransformerParams, cfg: ModelConfig,
+                    cache: KVCache, x: torch.Tensor, pos: torch.Tensor,
+                    t_q: int = 1, table: Optional[torch.Tensor] = None,
+                    logit_idx: Optional[int] = None,
+                    w8a8: bool = True) -> torch.Tensor:
+    """One step of B independent sequences: x (B*t_q, D) float32 holds t_q
+    rows per slot, slot by slot, at positions pos[b]..pos[b]+t_q-1 (pos a
+    (B,) int32 tensor on the device, never read on the host).  The cache is
+    per-slot ((B, L, S, row), `init_batched_kv_cache`) or, with `table` (a
+    (B, maxp) int32 page table), a page pool (`init_kv_pool`).  Rows are
+    written in place.  Returns the (B*t_q, V) float32 logits, or those of
+    row `logit_idx` alone ((1, V): a prefill chunk needs one).
+
+    All matmuls run on the B*t_q rows at once, so the weights stream once
+    per step whatever B is; only the cache writes and attention are per
+    slot."""
+    b = pos.shape[0]
+    if x.ndim != 2 or x.shape[0] != b * t_q:
+        raise ValueError(f"forward_batched takes ({b} * {t_q}, D) rows, "
+                         f"got {tuple(x.shape)}")
+    if table is None and cache.k.dim() == 4 and cache.k.shape[0] != b:
+        raise ValueError(f"a per-slot cache of {cache.k.shape[0]} slots for "
+                         f"{b} positions")
+    rows = (pos.long()[:, None] + torch.arange(t_q, device=pos.device))
+    # rope rows of dead lanes past the table's end are never read
+    rows = rows.reshape(-1).clamp(max=params.rope_cos.shape[0] - 1)
+    cos, sin = params.rope_cos[rows], params.rope_sin[rows]
+    dest = _write_index(cache, pos, t_q, table)
+    for layer, lw in enumerate(params.layers):
+        x = _layer_batched(cfg, x, lw, cache, layer, cos, sin, pos, t_q,
+                           dest, table, w8a8)
+    if logit_idx is not None:
+        x = x[logit_idx:logit_idx + 1]
+    return _classify(params, cfg, x)

@@ -1,5 +1,8 @@
 """GQA attention over a KV-cache prefix — the plain version of the flash
-attention kernel (`lmrs_tpu_torch.kernels.flash_attention`).
+attention kernel (`lmrs_tpu_torch.kernels.flash_attention`) — and its
+per-slot form for a batch of sequences at their own positions, the plain
+version of kernels I and J (`kernels.flash_attention_batched`,
+`kernels.flash_attention_paged`).
 
 One batched product over all heads against the cache rows, with the causal
 structure and Gemma's sliding window expressed as masks, and lm.rs's exact
@@ -84,3 +87,78 @@ def attention(
         att = att * v_scale[None, :, None, :]
     out = torch.einsum("tkgs,skd->tkgd", rnd(att), v_in)
     return out.reshape(t_q, n_heads, head_dim).float()
+
+
+def attention_batched_multi(
+    q: torch.Tensor,         # (B, T, H, head_dim) float32, RoPE applied
+    k_cache: torch.Tensor,   # (B, S, KH, head_dim) per-slot cache rows
+    v_cache: torch.Tensor,   # (B, S, KH, head_dim)
+    pos: torch.Tensor,       # (B,) integer positions of each slot's q[:, 0]
+    *,
+    scale: float,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    precision: str = "fast",
+    k_scale: Optional[torch.Tensor] = None,   # (B, KH, S) f32: int caches
+    v_scale: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """`attention` for B slots at once, each slot masked at its own
+    positions q_pos = pos[b] + t; returns (B, T, H, head_dim) float32.
+    `pos` is a tensor and is never read on the host.
+
+    Rows outside a slot's live range [max(pos - window, 0), pos + T - 1]
+    are zeroed (values and scales) before the products, as the kernels
+    zero-fill them: their weights are 0 either way, and a stale row (a
+    reused slot, the trash page of a pool) may hold anything, NaN
+    included."""
+    b, t_q, n_heads, head_dim = q.shape
+    _, s_len, n_kv, _ = k_cache.shape
+    kv_group = n_heads // n_kv
+    if precision == "fast":
+        rnd = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    else:
+        rnd = lambda a: a.float()  # noqa: E731
+
+    dev = q.device
+    pos = pos.to(device=dev, dtype=torch.long)
+    t_idx = torch.arange(s_len, device=dev)                        # (S,)
+    first = (pos - window).clamp(min=0) if window is not None \
+        else torch.zeros_like(pos)
+    live = (t_idx[None] >= first[:, None]) & \
+        (t_idx[None] <= (pos + t_q - 1)[:, None])                  # (B, S)
+    k_cache = torch.where(live[..., None, None], k_cache.float(), 0.0)
+    v_cache = torch.where(live[..., None, None], v_cache.float(), 0.0)
+
+    qg = rnd(q).reshape(b, t_q, n_kv, kv_group, head_dim)
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, rnd(k_cache)) * scale
+    if k_scale is not None:
+        ks = torch.where(live[:, None], k_scale, 0.0)
+        scores = scores * ks[:, None, :, None, :]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+
+    q_pos = (pos[:, None] + torch.arange(t_q, device=dev)[None])[..., None]
+    t_b = t_idx[None, None]                                        # (1,1,S)
+    if window is not None:
+        win = torch.where(q_pos - t_b <= window, 0.0, _WINDOW_NEG)
+        scores = scores + win[:, :, None, None, :]
+    causal = t_b <= q_pos                                          # (B,T,S)
+    scores = torch.where(causal[:, :, None, None, :], scores, _MASK_NEG)
+
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    att = e / e.sum(dim=-1, keepdim=True)
+    if v_scale is not None:
+        vs = torch.where(live[:, None], v_scale, 0.0)
+        att = att * vs[:, None, :, None, :]
+    out = torch.einsum("btkgs,bskd->btkgd", rnd(att), rnd(v_cache))
+    return out.reshape(b, t_q, n_heads, head_dim).float()
+
+
+def attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, pos: torch.Tensor,
+                      **kw) -> torch.Tensor:
+    """One decode token per slot: q (B, H, head_dim) -> (B, H, head_dim)
+    (`attention_batched_multi` at T = 1)."""
+    return attention_batched_multi(q[:, None], k_cache, v_cache, pos,
+                                   **kw)[:, 0]

@@ -25,18 +25,22 @@ Counterpart of `lmrs_tpu/runtime/speculative.py`, whose verify loop is a
 scan with masked writes into fixed buffers because its shapes must be
 static.  Here a verify step is eager: draft on the device, one T = k+1
 forward, accept; the caller reads the accepted count from the device once
-per step.
+per step.  `spec_chunk_batched` is the batched scheduler's form (the
+`vmap`ped draft and accept of `lmrs_tpu/serve/scheduler.py:_spec_chunk_b`
+with the batch dimension written out): all slots verify in one forward,
+and the host reads the chunk's tokens once at its end.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig
 from lmrs_tpu_torch.models.transformer import (KVCache, TransformerParams,
-                                               embed_tokens, forward)
+                                               embed_tokens, forward,
+                                               forward_batched)
 from lmrs_tpu_torch.ops.sampling import processed_probs
 
 
@@ -128,3 +132,75 @@ def verify_step(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
         probs = processed_probs(logits, temperature, top_p)
         ok, emitted = rejection_accept(probs, draft, generator)
     return first_miss(ok), emitted
+
+
+def lookup_draft_batched(h: torch.Tensor, p: torch.Tensor, k: int,
+                         vmax: int) -> torch.Tensor:
+    """`lookup_draft` for every slot at once: h (B, S) histories, p (B,)
+    positions on the device -> (B, k) drafts, without a host read."""
+    b, s_len = h.shape
+    p = p.long()
+    idx = torch.arange(s_len - 1, device=h.device)
+    a = h.gather(1, (p - 1).clamp(min=0)[:, None])
+    c = h.gather(1, p.clamp(max=s_len - 1)[:, None])
+    m = (h[:, :-1] == a) & (h[:, 1:] == c) & (idx[None] < (p - 1)[:, None])
+    j = torch.where(m, idx[None], -1).amax(dim=1)
+    start = (j + 2).clamp(0, s_len - k)
+    take = start[:, None] + torch.arange(k, device=h.device)[None]
+    return h.gather(1, take).clamp(0, vmax)
+
+
+def spec_chunk_batched(params: TransformerParams, cfg: ModelConfig,
+                       cache: KVCache, h: torch.Tensor, tokens: torch.Tensor,
+                       pos: torch.Tensor, n_steps: int, k: int,
+                       temperatures: Sequence[float], top_ps: Sequence[float],
+                       generator: Optional[torch.Generator] = None,
+                       table: Optional[torch.Tensor] = None,
+                       w8a8: bool = True):
+    """`n_steps` batched verify steps from tokens (B,) at positions pos (B,)
+    (device tensors; h (B, S) is each slot's token history, updated in
+    place).  Each step runs ONE forward of t_q = k+1 rows per slot; greedy
+    slots accept their longest draft prefix equal to the argmaxes, slots
+    with temperature > 0 accept by rejection sampling against
+    `processed_probs` (one `rejection_accept` each).  An all-greedy batch
+    never forms a probability, decided on the host from `temperatures`.
+    Cache rows past a slot's accepted prefix hold the rejected continuation,
+    hidden by the causal mask until overwritten.
+
+    Returns device tensors: out (B, n_steps*(k+1)) of each slot's emitted
+    tokens, n_out (B,) how many, and accs (n_steps, B) the accepted drafts
+    per step."""
+    b = tokens.shape[0]
+    dev = tokens.device
+    s_len = h.shape[1]
+    sampled = [i for i, t in enumerate(temperatures) if t > 0.0]
+    ar = torch.arange(k + 1, device=dev)
+    toks, p = tokens.long(), pos.clone()
+    out = torch.zeros((b, n_steps * (k + 1)), dtype=torch.long, device=dev)
+    n_out = torch.zeros((b,), dtype=torch.long, device=dev)
+    accs = []
+    for _ in range(n_steps):
+        draft = lookup_draft_batched(h, p, k, cfg.vocab_size - 1)  # (B, k)
+        tin = torch.cat([toks[:, None], draft], dim=1)
+        x = embed_tokens(params, cfg, tin.reshape(-1))
+        logits = forward_batched(params, cfg, cache, x, p, t_q=k + 1,
+                                 table=table, w8a8=w8a8)
+        logits = logits.reshape(b, k + 1, -1)
+        emit = torch.argmax(logits, dim=-1)                       # (B, k+1)
+        ok = draft == emit[:, :-1]
+        for i in sampled:
+            probs = processed_probs(logits[i], temperatures[i], top_ps[i])
+            ok_i, emit_i = rejection_accept(probs, draft[i], generator)
+            ok[i], emit[i] = ok_i, emit_i
+        n_acc = torch.cat([ok, ok.new_zeros((b, 1))], 1).to(
+            torch.int8).argmin(dim=1)                              # (B,)
+        # dead lanes may run past the history's end: their clamped writes
+        # are never read
+        h.scatter_(1, (p.long()[:, None] + 1 + ar).clamp(max=s_len - 1),
+                   emit.to(h.dtype))
+        out.scatter_(1, n_out[:, None] + ar, emit)
+        toks = emit.gather(1, n_acc[:, None])[:, 0]
+        p = p + (n_acc + 1).to(p.dtype)
+        n_out = n_out + n_acc + 1
+        accs.append(n_acc)
+    return out, n_out, torch.stack(accs)

@@ -5,6 +5,7 @@
         [--model gemma2-9b|llama3.2-3b|...] [--quant Q4_0|Q8_0]
         [--cache-dtype bfloat16|float32|int8|int4] [--spec-k K]
     LMRS_W8A8=0 python3 scripts/torch_decode_profile.py ...  # Q8_0 layers W8A16
+    python3 scripts/torch_decode_profile.py --batch 8 [--no-paged] ...
 
 Writes a synthetic .lmrs of the chosen preset (default Gemma-2-9B Q4_0,
 seed 0) under build/, loads it onto the GPU with the chosen KV cache type,
@@ -17,8 +18,13 @@ figures show a verify step by kernel).  Prints the card's name and power
 limit, device time per step by kernel (from the profiled steps), the
 device's busy share of a step (device time per step over the UNPROFILED
 host-clock time per step: the profiler's own host overhead would stretch
-the traced window), and one JSON line with the same numbers.  Needs one
-CUDA device.
+the traced window), and one JSON line with the same numbers.  With
+`--batch B` a step is one step of the continuous-batching scheduler
+(`serve.scheduler.BatchScheduler`, the paged pool unless `--no-paged`,
+`--spec-k` for its speculative chunk): B greedy requests with prompts of
+`--pos` tokens are prefilled, then `--steps` decode chunks of 8 steps run
+with every slot active, and the figures are per decode step (B tokens, or
+more with speculation).  Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +70,10 @@ def main() -> int:
                     choices=["bfloat16", "float32", "int8", "int4"])
     ap.add_argument("--spec-k", dest="spec_k", type=int, default=0,
                     help="profile speculative verify steps of K drafts")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="profile the batched scheduler's step at B slots")
+    ap.add_argument("--no-paged", dest="no_paged", action="store_true",
+                    help="with --batch: the contiguous per-slot cache")
     args = ap.parse_args()
 
     import torch
@@ -91,6 +101,8 @@ def main() -> int:
             quant=QuantType[args.quant]))
         f = read_lmrs(str(path))
         w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"   # as the chat CLI
+        if args.batch:
+            return profile_batched(torch, args, card, f, w8a8)
         engine = Engine(f.cfg, params_from_lmrs(f, device="cuda"),
                         cache_dtype=args.cache_dtype, w8a8=w8a8)
         prompt = torch.randint(0, f.cfg.vocab_size, (args.pos,),
@@ -167,6 +179,92 @@ def main() -> int:
         print(json.dumps(result))
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return 0
+
+
+def device_time(torch, prof, steps: int):
+    """Device time per step by kernel group of a profiled window."""
+    by_group = defaultdict(float)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_group[_kernel_group(e.name)] += e.time_range.elapsed_us()
+    return {g: v / 1e3 / steps for g, v in by_group.items()}
+
+
+def profile_batched(torch, args, card, f, w8a8) -> int:
+    """The batched scheduler's decode step at `--batch` slots (see the
+    module note)."""
+    from lmrs_tpu_torch.io.params import params_from_lmrs
+    from lmrs_tpu_torch.serve.scheduler import BatchScheduler
+
+    b, chunk = args.batch, 8
+    max_ctx = min(f.cfg.seq_len, args.pos + (3 * args.steps + 2) * chunk
+                  * (args.spec_k + 1) + 64)
+    # a pool that holds every slot's whole context: all B slots run at once
+    pool = None if args.no_paged else b * -(-max_ctx // 512) * 512
+    sched = BatchScheduler(f.cfg, params_from_lmrs(f, device="cuda"),
+                           max_batch=b, max_ctx=max_ctx,
+                           cache_dtype=args.cache_dtype, prefill_chunk=256,
+                           decode_chunk=chunk, speculative_k=args.spec_k,
+                           pool_tokens=pool, w8a8=w8a8)
+    rng = torch.Generator().manual_seed(0)
+    for _ in range(b):
+        sched.submit(torch.randint(0, f.cfg.vocab_size, (args.pos,),
+                                   generator=rng).tolist(),
+                     max_new_tokens=1 << 30, temperature=0.0)
+    for _ in range(64):                     # prefill every slot
+        if sched.active == b:
+            break
+        sched.step()
+    else:
+        raise RuntimeError(f"only {sched.active} of {b} slots became active")
+
+    def chunks():
+        """`--steps` scheduler ticks, each one decode chunk; the tokens."""
+        before = sched.tokens_emitted
+        for _ in range(args.steps):
+            sched.step()
+        return sched.tokens_emitted - before
+
+    chunks()                                # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_tokens = chunks()
+    torch.cuda.synchronize()
+    n_steps = args.steps * chunk
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_steps
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        chunks()
+        torch.cuda.synchronize()
+    per_step = device_time(torch, prof, n_steps)
+    result = dict(card=card, model=args.model, quant=args.quant,
+                  cache_dtype=args.cache_dtype, w8a8=w8a8, batch=b,
+                  paged=pool is not None, pos=args.pos, spec_k=args.spec_k,
+                  steps=n_steps, wall_ms_per_step=wall_ms,
+                  tokens_per_step=n_tokens / n_steps,
+                  aggregate_tok_s=1e3 * n_tokens / n_steps / wall_ms,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(card)
+    print(f"{args.model} {args.quant}, {args.cache_dtype} "
+          f"{'pool' if pool else 'per-slot cache'}, batch {b} "
+          f"{'verify (k=%d)' % args.spec_k if args.spec_k else 'decode'} "
+          f"from pos {args.pos}: {wall_ms:.3f} ms per step on the host "
+          f"clock, {n_tokens / n_steps:.2f} tokens per step "
+          f"({result['aggregate_tok_s']:.1f} tok/s aggregate)")
+    if per_step:
+        busy = sum(per_step.values()) / wall_ms
+        result.update(device_ms_per_step=per_step, device_busy_share=busy,
+                      device_idle_share=1.0 - busy)
+        for g, v in sorted(per_step.items(), key=lambda kv: -kv[1]):
+            print(f"  {g:30s} {v:8.3f} ms of device time per step")
+        print(f"  device busy {100 * busy:.1f}% of a step")
+    else:
+        result["device_ms_per_step"] = "not measured"
+        print("  the profiler recorded no device activity: device time not "
+              "measured")
+    print(json.dumps(result))
     return 0
 
 

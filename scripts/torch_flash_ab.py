@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Two versions of `flash_attention.cu` side by side on one card: did a
-change to the kernel template move kernels C and G?
+change to the kernel template move kernels C, G and H?
 
     python3 scripts/torch_flash_ab.py --parent path/to/old/flash_attention.cu
 
 Builds the given source and the tree's `lmrs_tpu_torch/csrc/
 flash_attention.cu` with the package's nvcc flags, then times kernel C
-(bf16 cache) and kernel G (int8 cache) of each at Llama-3.2-3B's and
+(bf16 cache), kernel G (int8 cache) and kernel H (int4 cache: pair packing
+at Llama's geometry, half at Gemma's) of each at Llama-3.2-3B's and
 Gemma-2-9B's attention geometry, S = 8,192, T = 1 at pos 1,100 and 6,000:
 median of 50 launches with the L2 flushed before each (as `chip_smoke.py`
 times them), in the order parent, change, change, parent, so that drift
 within the call shows as a difference between the two runs of one version.
 Each version's result is held against the plain version first.  Prints the
 card's name and power limit, one line per case and one JSON line.  Needs
-one CUDA device and nvcc; the entry points C and G must exist in both
+one CUDA device and nvcc; the entry points C, G and H must exist in both
 sources.
 """
 
@@ -51,9 +52,11 @@ def main() -> int:
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
                                                         flash_attention_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_i4 import (
+        flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
     from lmrs_tpu_torch.kernels.flash_attention_i8 import (
         flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
-    from lmrs_tpu_torch.quant import quantize_kv_rows
+    from lmrs_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_q4
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -88,6 +91,9 @@ def main() -> int:
                 vf.reshape(1, S, KH * HD).to(torch.bfloat16))
         int8 = (rows[0][None].contiguous(), rows[1][None].contiguous(),
                 ks, vs)
+        rows4, scales4 = quantize_kv_rows_q4(torch.stack([kf, vf]))
+        int4 = (rows4[0][None].contiguous(), rows4[1][None].contiguous(),
+                *(scales4[i].t().contiguous()[None] for i in (0, 1)))
         kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
         q = torch.randn(1, H, HD, device="cuda", generator=gen)
         for pos in (1100, 6000):
@@ -97,6 +103,9 @@ def main() -> int:
             cases.append((f"G {name} pos {pos}", flash_attention_i8,
                           flash_attention_i8_plain, flash_attention_i8_tol,
                           (q, *int8, 0, pos), kw))
+            cases.append((f"H {name} pos {pos}", flash_attention_i4,
+                          flash_attention_i4_plain, flash_attention_i4_tol,
+                          (q, *int4, 0, pos), kw))
 
     sources = {"parent": Path(args.parent),
                "change": cuda.CSRC / "flash_attention.cu"}

@@ -2,7 +2,8 @@
 """Does the flash attention check reject a wrong kernel?  Planted faults,
 on the card.
 
-    python3 scripts/torch_flash_faults.py [--int8 | --int4]   # one CUDA device, nvcc
+    python3 scripts/torch_flash_faults.py [--int8 | --int4 | --batched]
+    # one CUDA device, nvcc
 
 Copies `lmrs_tpu_torch/csrc/flash_attention.cu` into a temporary
 directory, plants one fault in each copy, builds every copy with the
@@ -21,7 +22,13 @@ last live one, which hold NaN here as a reused cache may).  With `--int4`:
 kernel H on an int4 cache, `flash_attention_i4_tol`, at both packings
 (Llama-3.2-3B's attention: pair; Gemma-2-9B's: half), G's faults and two of
 its own: the nibbles swapped (low for high), and the `- 8` bias of the low
-nibble left out.  Prints the
+nibble left out.  With `--batched`: kernels I (per-slot bf16 cache) and J
+(bf16 pool, pages of 512 and of 56 rows) at Gemma-2-9B's attention, 8
+slots at `chip_smoke.BATCH_POS`, T 1 and 5, `flash_attention_batched_tol`
+/ `flash_attention_paged_tol`, and four faults of the batched addressing:
+a row read from the slot's previous page (wrong page), the slot stride
+one row short, rows past the last live one let through to the trash page
+(NaN), and each slot walking its neighbour's position.  Prints the
 card's name and power limit, the worst error / bound of every (kernel,
 case) and one JSON line.  Exits non-zero if the unchanged kernel fails a
 case or a faulty one passes every case.  The repository's sources are
@@ -64,6 +71,24 @@ FAULTS_I4 = {
                         "HIGH ? ((b & 15) - 8) : (b >> 4)"),
     "no_bias": ("((b & 15) - 8)", "(b & 15)"),
 }
+FAULTS_BATCHED = {
+    "wrong_page": ("__ldg(w.table + (size_t)slot * w.maxp + vp)",
+                   "__ldg(w.table + (size_t)slot * w.maxp + max(vp - 1, 0))"),
+    "slot_stride": ("(size_t)slot * w.slot_stride * Stripe<HD, C>::elem;\n"
+                    "  vc_raw",
+                    "(size_t)slot * (w.slot_stride - row_stride) *\n"
+                    "               Stripe<HD, C>::elem;\n  vc_raw"),
+    "trash_row": [
+        ("        if (row >= kv_lo && row <= kv_hi) {\n"
+         "          const int vp",
+         "        if (row >= kv_lo && row <= kv_hi + BKV) {\n"
+         "          const int vp"),
+        ("          kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);\n"
+         "          if (row >= kv_lo && row <= kv_hi) {",
+         "          kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);\n"
+         "          if (row >= kv_lo && row <= kv_hi + BKV) {")],
+    "pos_swapped": ("__ldg(w.pos + slot)", "__ldg(w.pos + (slot ^ 1))"),
+}
 S = 8192
 # heads, kv heads, head_dim, window, softcap
 GEMMA = (16, 8, 256, 4096, 50.0)
@@ -74,12 +99,15 @@ CASES = [(1, 1100), (1, 6000), (256, 1100), (256, 6000), (3, 63)]
 def build_faulty(cuda, work: Path, faults: dict) -> dict:
     src = (cuda.CSRC / "flash_attention.cu").read_text()
     procs = {}
-    for name, (old, new) in faults.items():
-        if src.count(old) != 1:
-            raise RuntimeError(f"fault {name}: its target text is not in "
-                               f"flash_attention.cu exactly once")
+    for name, edits in faults.items():
+        faulty = src
+        for old, new in (edits if isinstance(edits, list) else [edits]):
+            if src.count(old) != 1:
+                raise RuntimeError(f"fault {name}: its target text is not "
+                                   f"in flash_attention.cu exactly once")
+            faulty = faulty.replace(old, new)
         path = work / f"{name}.cu"
-        path.write_text(src.replace(old, new))
+        path.write_text(faulty)
         lib = work / f"lib{name}.so"
         procs[name] = (subprocess.Popen(
             [cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(lib), str(path)],
@@ -121,6 +149,45 @@ def make_inputs(torch, geometry, quantize, plain, tol_fn, tag=""):
     return inputs
 
 
+def batched_inputs(torch):
+    """Kernel I's and J's cases at Gemma-2-9B's attention (bf16): per-slot
+    cache and pools of 512- and 56-row pages holding the same rows, 8
+    slots at chip_smoke.BATCH_POS, T 1 and 5.  Returns (cases as
+    make_inputs gives them, kernel of each case prefix)."""
+    from chip_smoke import BATCH_POS, GEMMA as G, batched_cache, to_pool
+    from lmrs_tpu_torch.kernels.flash_attention_batched import (
+        flash_attention_batched, flash_attention_batched_plain,
+        flash_attention_batched_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_paged import (
+        flash_attention_paged, flash_attention_paged_plain,
+        flash_attention_paged_tol)
+
+    (k, v, _, _), _, _ = batched_cache(torch, G, "bf16", BATCH_POS)
+    pos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+    kw = dict(n_kv=G["KH"], scale=G["HD"] ** -0.5, softcap=G["SOFTCAP"],
+              window=G["WINDOW"])
+    layouts = [("I", (k, v), flash_attention_batched_plain,
+                flash_attention_batched_tol)]
+    for psz in (512, 56):
+        kp, vp, table, _, _ = to_pool(torch, (k, v, None, None), psz,
+                                      [p + 5 for p in BATCH_POS])
+        layouts.append((f"J{psz}", (kp, vp, table),
+                        flash_attention_paged_plain,
+                        flash_attention_paged_tol))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    inputs = []
+    for t_q in (1, 5):
+        q = torch.randn(len(BATCH_POS), t_q, G["H"], G["HD"], device="cuda",
+                        generator=gen)
+        for tag, cache, plain, tol_fn in layouts:
+            inputs.append((f"{tag}_T{t_q}", q, cache, kw,
+                           plain(q, *cache, 0, pos, **kw),
+                           tol_fn(q, *cache, 0, pos, **kw), pos))
+    return inputs, {"I": flash_attention_batched,
+                    "J512": flash_attention_paged,
+                    "J56": flash_attention_paged}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     which = ap.add_mutually_exclusive_group()
@@ -128,6 +195,8 @@ def main() -> int:
                        help="kernel G on an int8 cache instead of kernel C")
     which.add_argument("--int4", action="store_true",
                        help="kernel H on an int4 cache, both packings")
+    which.add_argument("--batched", action="store_true",
+                       help="kernels I and J: per-slot and paged caches")
     args = ap.parse_args()
 
     import torch
@@ -151,7 +220,10 @@ def main() -> int:
                           text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     cuda.plain_numerics()
-    if args.int4:
+    if args.batched:
+        faults = FAULTS_BATCHED
+        inputs, kernels = batched_inputs(torch)
+    elif args.int4:
         faults, kernel = FAULTS_I4, flash_attention_i4
         fns = (quantize_kv_rows_q4, flash_attention_i4_plain,
                flash_attention_i4_tol)
@@ -174,6 +246,8 @@ def main() -> int:
             cuda._libs["flash_attention"] = ctypes.CDLL(str(lib))
             row = {}
             for case, q, cache, kw, want, tol, pos in inputs:
+                if args.batched:
+                    kernel = kernels[case.split("_")[0]]
                 got = kernel(q, *cache, 0, pos, **kw)
                 # a NaN output compares as not <= 1: rejected
                 row[case] = ((got - want).abs() / tol).max().item()
@@ -187,7 +261,9 @@ def main() -> int:
     print("(worst |kernel - plain| / bound per case; above 1.000 = rejected)")
     ok = all(r <= 1.0 for r in results["none"].values())
     missed = [n for n in faults if all(r <= 1.0 for r in results[n].values())]
-    print(json.dumps(dict(card=card, kernel=kernel.__name__,
+    print(json.dumps(dict(card=card, kernel=(
+        "flash_attention_batched, flash_attention_paged" if args.batched
+        else kernel.__name__),
                           err_over_tol=results,
                           unchanged_kernel_passes=ok, faults_missed=missed)))
     return 0 if ok and not missed else 1

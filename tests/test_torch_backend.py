@@ -1,0 +1,216 @@
+"""The port's WebSocket backend (`serve.backend.BackendServer`, CPU): lm.rs's
+JSON text protocol over an in-process connection (any object with an
+async `send` and async iteration), single-stream and --batch (paged and
+contiguous), as tests/test_backend.py holds the JAX backend over a live
+server; one test runs a live localhost server where the `websockets`
+package is installed.
+
+Tolerance: greedy replies text for text between the single-stream engine
+and the batched scheduler (token for token: tests/test_torch_scheduler.py).
+"""
+
+import asyncio
+import json
+import string
+
+import pytest
+import torch
+
+from lmrs_tpu_torch.config import ModelType, QuantType
+from lmrs_tpu_torch.io.lmrs import write_lmrs
+from lmrs_tpu_torch.io.synthetic import random_weights, tiny_config
+from lmrs_tpu_torch.serve.backend import (CAPACITY, CONTEXT_FULL,
+                                          BackendServer, main)
+from lmrs_tpu_torch.tokenizer import Tokenizer
+
+torch.set_num_threads(1)
+
+VOCAB = 2560
+
+
+@pytest.fixture(scope="module")
+def artifacts(tmp_path_factory):
+    d = tmp_path_factory.mktemp("backend")
+    # Gemma: its chat-format ids (up to 2516) fit a small vocabulary
+    cfg = tiny_config(ModelType.GEMMA, QuantType.Q8_0, vocab_size=VOCAB,
+                      head_dim=128, n_heads=2, n_kv_heads=2, dim=128,
+                      hidden_dim=256, n_layers=2, seq_len=256)
+    model_path = str(d / "m.lmrs")
+    write_lmrs(model_path, cfg, random_weights(cfg, 2))
+    vocab = ["<pad>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    vocab += list(" " + string.ascii_letters + ".,!?")
+    vocab += ["~"] * (VOCAB - len(vocab))
+    tok_path = str(d / "tok.bin")
+    Tokenizer(vocab, [0.0] * len(vocab), 1, 2).save(tok_path)
+    return model_path, tok_path
+
+
+class Conn:
+    """An in-process connection: yields `incoming` (after `gate`, if
+    given, is set) and records what the server sends."""
+
+    def __init__(self, incoming, gate=None):
+        self.incoming = list(incoming)
+        self.sent = []
+        self.gate = gate
+
+    async def send(self, msg):
+        self.sent.append(json.loads(msg))
+
+    def __aiter__(self):
+        return self._gen()
+
+    async def _gen(self):
+        if self.gate is not None:
+            await self.gate.wait()
+        for m in self.incoming:
+            yield m
+            await asyncio.sleep(0)
+
+
+def server(artifacts, **kw):
+    model_path, tok_path = artifacts
+    kw.setdefault("max_new_tokens", 12)
+    return BackendServer(model_path, tok_path, temperature=0.0,
+                         device="cpu", **kw)
+
+
+def replies(conn):
+    """The OUTPUT texts of each turn (split at "<eos>") and the STATUS
+    lines."""
+    turns, cur, status = [], [], []
+    for m in conn.sent:
+        if m["category"] == "STATUS":
+            status.append(m["text"])
+        elif m["text"] == "<eos>":
+            turns.append("".join(cur))
+            cur = []
+        else:
+            cur.append(m["text"])
+    return turns, status
+
+
+def talk(srv, *convs):
+    async def go():
+        await asyncio.gather(*(srv.handle(c) for c in convs))
+    asyncio.run(go())
+    return [replies(c) for c in convs]
+
+
+MSGS = [json.dumps({"text": "Hello there"}),
+        json.dumps({"text": "And again?"})]
+
+
+@pytest.fixture(scope="module")
+def single_replies(artifacts):
+    srv = server(artifacts)
+    (turns, status), = talk(srv, Conn(MSGS))
+    return turns, status
+
+
+def test_protocol_single_stream(single_replies):
+    turns, status = single_replies
+    assert len(turns) == 2 and not status
+    assert all(isinstance(t, str) for t in turns)
+
+
+@pytest.mark.parametrize("mode", [dict(batch=2),
+                                  dict(batch=2, no_paged=True),
+                                  dict(batch=2, cache_dtype="int8")])
+def test_batched_replies_match_single_stream(artifacts, single_replies,
+                                             mode):
+    """Two connections decode together, each in its own leased slot, and
+    each reads the single-stream engine's greedy replies (the int8 cache:
+    its own single-stream replies)."""
+    want = single_replies[0]
+    if mode.get("cache_dtype") == "int8":
+        (want, _), = talk(server(artifacts, cache_dtype="int8"), Conn(MSGS))
+    srv = server(artifacts, **mode)
+    try:
+        sched = srv.scheduler.sched
+        assert sched.paged == (not mode.get("no_paged"))
+        a, b = Conn(MSGS), Conn(MSGS)
+        (ta, sa), (tb, sb) = talk(srv, a, b)
+        assert ta == want and tb == want and not sa and not sb
+        # both conversations ended: their slots are free again
+        assert all(s.lease is None for s in sched.slots)
+    finally:
+        srv.shutdown()
+
+
+def test_capacity_and_bad_frames(artifacts):
+    """With one slot, a second conversation that arrives while the first
+    holds it is told the server is at capacity; malformed frames are
+    skipped."""
+    srv = server(artifacts, batch=1)
+    try:
+        async def go():
+            gate = asyncio.Event()
+            first = Conn([b"\xff\xfe", "not json", json.dumps({"x": 1}),
+                          MSGS[0]], gate=gate)
+            task = asyncio.ensure_future(srv.handle(first))
+            await asyncio.sleep(0.05)        # the first holds the slot
+            second = Conn(MSGS)
+            await srv.handle(second)
+            gate.set()
+            await task
+            return first, second
+        first, second = asyncio.run(go())
+        assert replies(second) == ([], [CAPACITY])
+        turns, status = replies(first)
+        assert len(turns) == 1 and not status
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.parametrize("batch", [0, 1])
+def test_context_full(artifacts, batch):
+    srv = server(artifacts, batch=batch, max_ctx=32 if batch else None)
+    try:
+        long = json.dumps({"text": "x" * 300})
+        (turns, status), = talk(srv, Conn([long]))
+        assert status == [CONTEXT_FULL] and turns == [""]
+    finally:
+        srv.shutdown()
+
+
+def test_unsupported_options_raise(artifacts):
+    model_path, tok_path = artifacts
+    for kw, entry in ((dict(tp=2), "A15"), (dict(cp=2), "A15"),
+                      (dict(dp=2, batch=2), "A15"),
+                      (dict(multimodal=True), "A13")):
+        with pytest.raises(NotImplementedError, match=entry):
+            BackendServer(model_path, tok_path, device="cpu", **kw)
+    with pytest.raises(ValueError, match="requires --batch"):
+        BackendServer(model_path, tok_path, device="cpu", pool_tokens=512)
+    srv = server(artifacts)
+    with pytest.raises(NotImplementedError, match="A13"):
+        talk(srv, Conn([json.dumps({"text": "hi", "image": "AAAA"})]))
+    with pytest.raises(NotImplementedError, match="A15"):
+        main(["--model", model_path, "--tokenizer", tok_path, "--device",
+              "cpu", "--tp", "2"])
+
+
+def test_live_websocket_server(artifacts, single_replies):
+    """The protocol over a live localhost server (`serve` path)."""
+    websockets = pytest.importorskip("websockets")
+    srv = server(artifacts, batch=2)
+    try:
+        async def go():
+            async with websockets.serve(srv.handle, "127.0.0.1", 0) as ws:
+                port = ws.sockets[0].getsockname()[1]
+                async with websockets.connect(
+                        f"ws://127.0.0.1:{port}") as c:
+                    out = []
+                    for m in MSGS:
+                        await c.send(m)
+                        while True:
+                            r = json.loads(await c.recv())
+                            if r["text"] == "<eos>":
+                                break
+                            out.append(r["text"])
+                        out.append("|")
+                    return "".join(out).split("|")[:-1]
+        assert asyncio.run(go()) == single_replies[0]
+    finally:
+        srv.shutdown()

@@ -23,7 +23,11 @@ quantizer bit for bit card vs CPU; whole-model logits 1e-2 of the
 logit scale (the per-kernel differences compound over layers);
 speculative greedy tokens equal to plain greedy tokens up to the first
 step whose top-2 logit margin is below 1e-3 of the logit scale (the reason
-stands at the test).
+stands at the test).  I and J (per-slot and paged flash) per element within
+their plain versions' bound, as C's; slot b of an I or J call bit for bit
+C's, G's or H's result on the slot's rows (the same walk), J bit for bit
+I on a pool holding I's rows, and a slot's result bit for bit unchanged
+when every other slot, page and the trash page hold NaN.
 """
 
 import numpy as np
@@ -37,8 +41,14 @@ from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm, q4_gemm_plain
 from lmrs_tpu_torch.kernels.flash_attention_i4 import (
     flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
+from lmrs_tpu_torch.kernels.flash_attention_batched import (
+    flash_attention_batched, flash_attention_batched_plain,
+    flash_attention_batched_tol)
 from lmrs_tpu_torch.kernels.flash_attention_i8 import (
     flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
+from lmrs_tpu_torch.kernels.flash_attention_paged import (
+    flash_attention_paged, flash_attention_paged_plain,
+    flash_attention_paged_tol)
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv, q4_gemv_plain
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm, q8_gemm_plain
 from lmrs_tpu_torch.kernels.q8_gemv import q8_gemv, q8_gemv_plain
@@ -48,6 +58,7 @@ from lmrs_tpu_torch.quant import (q4_cache_pair_mode, q4_file_to_runtime_np,
                                   quantize_kv_rows, quantize_kv_rows_q4,
                                   quantize_q8_act, quantize_q40_np,
                                   quantize_q80_np, unpack_kv_q4)
+from torch_batched_cases import make_case, spoil
 
 
 def _weights(o, k, device, gs=128):
@@ -492,3 +503,84 @@ def test_session_round_trip_on_card(cuda_device, tmp_path, cache):
     assert other.pos == eng.pos
     assert torch.equal(other.cache.k, eng.cache.k)
     assert other.generate([7, 7, 2], gen) == eng.generate([7, 7, 2], gen)
+
+
+def _single(cache, q, k, v, ks, vs, pos, **kw):
+    """Kernel C, G or H on one slot's (L, S, row) rows."""
+    if cache in ("bf16", "f32"):
+        return flash_attention(q, k, v, 1, pos, **kw)
+    fn = flash_attention_i8 if cache == "int8" else flash_attention_i4
+    return fn(q, k, v, ks, vs, 1, pos, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("hd,kh,g", [(256, 8, 2), (128, 8, 3), (64, 4, 1)])
+@pytest.mark.parametrize("t_q,psz", [(1, 512), (5, 512), (5, 56), (1, 8)])
+def test_flash_batched_and_paged_on_card(cuda_device, cache, hd, kh, g, t_q,
+                                         psz):
+    """Kernels I (per-slot cache; not int4) and J (page pool) at B = 5,
+    ragged positions including 0 and some past a 1,024-row window,
+    softcap 50: within the plain versions' bound; each slot bit for bit
+    C / G / H on its own rows; J bit for bit I; a slot unchanged when the
+    other slots, their pages and the trash page hold NaN."""
+    pos = [0, 700, 1030 - t_q, 1300, 37]
+    case = make_case(cuda_device, b=5, n_layers=2, s_len=1344, kh=kh, hd=hd,
+                     cache=cache, psz=psz, pos=pos, t_q=t_q, seed=hd + t_q,
+                     g=g)
+    q, p = case["q"], case["pos"]
+    kw = dict(n_kv=kh, scale=hd ** -0.5, softcap=50.0, window=1024)
+    k, v, ks, vs = case["contig"]
+    kp, vp, table, pks, pvs = case["paged"]
+    reset_launches()
+    got_j = flash_attention_paged(q, kp, vp, table, 1, p, k_scale=pks,
+                                  v_scale=pvs, **kw)
+    assert launches()["flash_attention_paged"] == 1
+    want = flash_attention_paged_plain(q, kp, vp, table, 1, p, k_scale=pks,
+                                       v_scale=pvs, **kw)
+    tol = flash_attention_paged_tol(q, kp, vp, table, 1, p, k_scale=pks,
+                                    v_scale=pvs, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got_j).all()
+    assert ((got_j - want).abs() <= tol).all()
+    for i, pi in enumerate(pos):
+        one = _single(cache, q[i], k[i], v[i], None if ks is None else ks[i],
+                      None if vs is None else vs[i], pi, **kw)
+        assert torch.equal(got_j[i], one), i
+    if cache != "int4":
+        got_i = flash_attention_batched(q, k, v, 1, p, k_scale=ks,
+                                        v_scale=vs, **kw)
+        assert launches()["flash_attention_batched"] == 1
+        want_i = flash_attention_batched_plain(q, k, v, 1, p, k_scale=ks,
+                                               v_scale=vs, **kw)
+        tol_i = flash_attention_batched_tol(q, k, v, 1, p, k_scale=ks,
+                                            v_scale=vs, **kw)
+        torch.cuda.synchronize()
+        assert ((got_i - want_i).abs() <= tol_i).all()
+        assert torch.equal(got_i, got_j)
+    (sk, sv, sks, svs), (spk, spv, stb, spks, spvs) = spoil(case, 3)
+    bad_j = flash_attention_paged(q, spk, spv, stb, 1, p, k_scale=spks,
+                                  v_scale=spvs, **kw)
+    assert torch.equal(bad_j[3], got_j[3])
+    if cache != "int4":
+        bad_i = flash_attention_batched(q, sk, sv, 1, p, k_scale=sks,
+                                        v_scale=svs, **kw)
+        assert torch.equal(bad_i[3], got_j[3])
+
+
+@pytest.mark.gpu
+def test_flash_batched_rejects_what_it_cannot_take(cuda_device):
+    """Host positions, int64 positions and a table of another dtype raise
+    instead of launching."""
+    case = make_case(cuda_device, b=2, n_layers=1, s_len=64, kh=2, hd=128,
+                     cache="bf16", psz=16, pos=[3, 9], t_q=1)
+    k, v, _, _ = case["contig"]
+    kp, vp, table, _, _ = case["paged"]
+    kw = dict(n_kv=2, scale=0.1)
+    with pytest.raises(ValueError):
+        flash_attention_batched(case["q"], k, v, 0, case["pos"].cpu(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_batched(case["q"], k, v, 0, case["pos"].long(), **kw)
+    with pytest.raises(ValueError):
+        flash_attention_paged(case["q"], kp, vp, table.long(), 0,
+                              case["pos"], **kw)

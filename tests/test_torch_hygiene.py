@@ -24,6 +24,8 @@ def _modules():
 def test_importing_every_module_loads_no_jax():
     mods = list(_modules())
     assert "lmrs_tpu_torch.kernels.q4_gemv" in mods
+    assert {"lmrs_tpu_torch.serve.scheduler",
+            "lmrs_tpu_torch.serve.backend"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -89,7 +89,8 @@ def test_chat_cli_answers_on_cpu(tmp_path):
     counts = json.loads(counted[-1].split(": ", 1)[1])
     assert set(counts) == {"q4_gemv", "q4_gemm", "flash_attention",
                            "q8_gemv_i8", "q8_gemv", "q8_gemm",
-                           "flash_attention_i8", "flash_attention_i4"}
+                           "flash_attention_i8", "flash_attention_i4",
+                           "flash_attention_batched", "flash_attention_paged"}
     assert not any(counts.values())
     assert "jax" not in out.stderr.lower()
     # --spec-k: the same greedy reply, and the acceptance rate is printed

@@ -108,7 +108,7 @@ def test_forward_logits_match_jax(tmp_path, monkeypatch, name, cfg_kw):
 
 def test_forward_refuses_a_batch(tmp_path):
     _, _, tcfg, tp = build_pair(tmp_path, "tiny-llama")
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(ValueError, match="forward_batched"):
         forward(tp, tcfg, init_kv_cache(tcfg, "cpu"),
                 torch.zeros(2, 3, tcfg.dim), 0, 0)
     f32 = init_kv_cache(tcfg, "cpu", dtype=torch.float32, seq_len=64)
