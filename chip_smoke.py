@@ -27,14 +27,24 @@ Phases (any failure ends the run with a non-zero exit):
    J bit for bit I, and a slot unchanged when every other slot, page and
    the trash page hold NaN; timed at the per-slot cache and 512-row pages
    (library yardstick: SDPA over each slot's live rows, padded, with a
-   mask).  Then, per kernel, whether a row of a T = 5 call equals the same
-   row computed alone (what makes speculative greedy decoding exact).
+   mask).  K (ffn_fused_xe, T 1, 5, 8) and L (ffn_fused, T 9, 16), the
+   fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0, tanh-GELU) and
+   Llama-3.2-3B's (Q8_0, silu); library yardstick: the unfused chain in
+   PyTorch calls (two torch.matmul on pre-dequantized bf16 W13 and W2,
+   the GLU between them).  Then, per kernel, whether a row of a T = 5 call
+   equals the same row computed alone (what makes speculative greedy
+   decoding exact).
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
    prompt (256-token chunks) for 64 new tokens twice across reset()
    (identical tokens), then one top-p generation; A, B and C, and no other
-   kernel, must have launched.  The same with the int4 KV cache (A, B and
+   kernel, must have launched.  The same with fuse_ffn on (K besides; the
+   launches of one decode step exactly K 42, A 85, C 42; greedy tokens
+   equal the unfused path's up to a near-tie), then speculative greedy
+   decoding (k = 4, K at T = 5) on that engine and one BatchScheduler wave
+   of 8 requests on the paged bf16 pool (K), all on the loaded params.
+   Then the int4 KV cache (A, B and
    H), then speculative greedy decoding (k = 4) on that engine against its
    plain greedy tokens.  Then the chat CLI in a subprocess on the same
    file with a synthetic tokenizer; the launch counts it prints
@@ -56,8 +66,11 @@ Phases (any failure ends the run with a non-zero exit):
    session saved after the prompt and 16 tokens, loaded into a fresh
    Engine and continued for 16 tokens as the uninterrupted engine
    continues.  One greedy run on an f32 cache, whose tokens are the bf16
-   path's.  Then the chat CLI with --cache-dtype int8, and with
-   --cache-dtype int4 --spec-k 4.
+   path's.  The int8 path with fuse_ffn on (the launches of one decode
+   step exactly K 28, D 56, E 1, G 28; greedy tokens equal the unfused
+   path's up to a near-tie) and one BatchScheduler wave of 16 requests on
+   the int8 pool (L, 28 launches a step of 9..16 rows).  Then the chat
+   CLI with --cache-dtype int8, and with --cache-dtype int4 --spec-k 4.
    4b. Batched serving through BackendServer(batch=16): one request with
    a 512-token system prefix first, then 15 at once (8 sharing that
    prefix, whose pages they fork: 8 prefix-cache hits; 12 greedy, 3 top-p)
@@ -142,12 +155,22 @@ REPLACES = {
                                "flash_decode_batched",
     "flash_attention_paged": "lmrs_tpu/kernels/flash_attention.py:650 "
                              "_flash_kernel_batched via flash_decode_paged",
+    "ffn_fused_xe": "lmrs_tpu/kernels/fused_ffn.py:526 _ffn_xe_kernel via "
+                    "ffn_fused_xe_stacked",
+    "ffn_fused": "lmrs_tpu/kernels/fused_ffn.py:242 _ffn_kernel via "
+                 "ffn_fused_pallas",
 }
 # B and F also compute the unstacked _q4_kernel / _q8_kernel that the JAX
-# package reaches through qmatmul_pallas (a batched step's classifier)
+# package reaches through qmatmul_pallas (a batched step's classifier); E
+# and F the experimental group-loop _q8_kernel_gl (scripts/kbench.py)
 REPLACES["q4_gemm"] += "; lmrs_tpu/kernels/dequant_matmul.py:837 _q4_kernel"
 REPLACES["q8_gemm"] += "; lmrs_tpu/kernels/dequant_matmul.py:806 _q8_kernel"
+REPLACES["q8_gemv"] += ("; lmrs_tpu/kernels/dequant_matmul.py:220 "
+                        "_q8_kernel_gl (T <= 8)")
+REPLACES["q8_gemm"] += ("; lmrs_tpu/kernels/dequant_matmul.py:220 "
+                        "_q8_kernel_gl (T > 8)")
 SOURCES = {name: f"lmrs_tpu_torch/csrc/{name}.cu" for name in REPLACES}
+SOURCES["ffn_fused_xe"] = SOURCES["ffn_fused"]              # one source
 for _name in ("flash_attention_i8", "flash_attention_i4",
               "flash_attention_f32", "flash_attention_batched",
               "flash_attention_paged"):
@@ -169,6 +192,21 @@ GEMMA_CONTIG = ({"q4_gemv", "q4_gemm", "flash_attention",
                  "flash_attention_batched"}, set())
 LLAMA_PAGED = ({"q8_gemm", "q8_gemv", "flash_attention_paged"},
                {"q8_gemv_i8"})
+# the fused-FFN paths: the main path's kernels and K; the launches of one
+# decode step after the prompt, exactly
+GEMMA_FUSED = Q4_PATH | {"ffn_fused_xe"}
+GEMMA_FUSED_TOKEN = {"q4_gemv": 85, "flash_attention": 42,
+                     "ffn_fused_xe": 42}
+LLAMA_I8_FUSED = Q8_I8_PATH | {"ffn_fused_xe"}
+LLAMA_I8_FUSED_TOKEN = {"q8_gemv_i8": 56, "q8_gemv": 1,
+                        "flash_attention_i8": 28, "ffn_fused_xe": 28}
+# batched: a prefill tail of 9..16 rows takes L, of up to 8 rows K; a step
+# with fewer than 9 rows left takes K
+GEMMA_PAGED_FUSED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
+                      "ffn_fused_xe"}, {"ffn_fused"})
+LLAMA_PAGED_FUSED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
+                      "ffn_fused"}, {"q8_gemv_i8", "ffn_fused_xe"})
+FFN_T = {"ffn_fused_xe": (1, 5, 8), "ffn_fused": (9, 16)}
 # the slots' positions of the batched kernel checks: 0 to 6,000, some past
 # Gemma's 4,096-row window; pages of 512 rows and of 56 (a 64-row tile then
 # spans two or three pages)
@@ -368,6 +406,80 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
     return cases
 
 
+def check_ffn_kernels(torch, timer, peak, model, quant):
+    """K (T 1, 5, 8) and L (T 9, 16) against their plain versions at one
+    layer's FFN of `model` ("q4": Gemma-2-9B, tanh-GELU; "q8":
+    Llama-3.2-3B, silu); returns per-case results.  Tolerance 1e-3 of the
+    output scale: the same bf16 operands and exact products, f32 sums in
+    another order, and a last-bit difference of the f32 gate or up flips a
+    g value's bf16 rounding by one step (~2e-4 of the outputs at most).
+    Library yardstick: the unfused chain in PyTorch calls, bf16 x through
+    torch.matmul on pre-dequantized bf16 W13, the GLU, torch.matmul on
+    bf16 W2.  Bound: the weight and scale bytes, f32 x in and y out, or
+    the 2 T (2H D + D H) operations at the bf16 rate."""
+    import torch.nn.functional as F
+
+    from lmrs_tpu_torch.kernels import ffn_fused, ffn_fused_xe
+    from lmrs_tpu_torch.kernels.ffn_fused import (ffn_fused_plain,
+                                                  ffn_fused_xe_plain)
+    from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as dequant_q4
+    from lmrs_tpu_torch.kernels.q8_gemm import dequant_bf16 as dequant_q8
+
+    d, h = model["D"], model["HID"]
+    act = "gelu" if model is GEMMA else "silu"
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    make = random_q4 if quant == "q4" else random_q8
+    dequant = dequant_q4 if quant == "q4" else dequant_q8
+    w = [*make(torch, gen, 2 * h, d), *make(torch, gen, d, h)]
+    w13d, w2d = dequant(w[0], w[1], GS), dequant(w[2], w[3], GS)
+    wbytes = (0.5 if quant == "q4" else 1.0) * 3 * h * d + 4 * 3 * h * d / GS
+
+    def lib_chain(xb):
+        gu = torch.matmul(xb, w13d.t())
+        gate, up = gu[:, :h], gu[:, h:]
+        a = F.gelu(gate, approximate="tanh") if act == "gelu" else F.silu(
+            gate)
+        return torch.matmul(a * up, w2d.t())
+
+    cases = []
+    for kern, (fn, plain_fn) in (("ffn_fused_xe", (ffn_fused_xe,
+                                                   ffn_fused_xe_plain)),
+                                 ("ffn_fused", (ffn_fused, ffn_fused_plain))):
+        for t in FFN_T[kern]:
+            x = torch.randn(t, d, device="cuda", generator=gen)
+            xb = x.to(torch.bfloat16)
+            run = lambda: fn(x, *w, GS, act)              # noqa: E731
+            plain = lambda: plain_fn(x, *w, GS, act)      # noqa: E731
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            if not torch.isfinite(got).all():
+                raise RuntimeError(f"{kern} {model['name']} T={t}: "
+                                   f"non-finite output")
+            err = (got - want).abs().max().item()
+            tol = 1e-3 * want.abs().max().item()
+            nbytes = wbytes + 4 * t * d + 4 * t * d
+            b_ms, b_by = bound_ms(nbytes, 2.0 * t * 3 * h * d, peak["bf16"],
+                                  peak["mem"])
+            case = dict(kernel=kern, model=model["name"], shape="ffn", T=t,
+                        D=d, H=h, act=act, max_abs_err=err, tol=tol,
+                        err_over_tol=err / tol, ms=timer(run),
+                        plain_ms=timer(plain),
+                        library_ms=timer(lambda: lib_chain(xb)),
+                        bound_ms=b_ms, bound_by=b_by)
+            log(f"  {kern:12s} {model['name']} ffn T={t:2d}: max_abs_err "
+                f"{err:.3e} (tol {tol:.3e})  kernel {case['ms']:.4f} ms  "
+                f"plain {case['plain_ms']:.4f}  library "
+                f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+            if not err <= tol:
+                raise RuntimeError(f"{kern} {model['name']} T={t}: error "
+                                   f"{err} > {tol}")
+            cases.append(case)
+            del got, want
+    del w, w13d, w2d
+    torch.cuda.empty_cache()
+    return cases
+
+
 def attention_work(t_q, pos, window):
     """(live key rows read, live (query, key) pairs per head) of one call:
     what this call's data needs under the causal mask and the window."""
@@ -499,14 +611,26 @@ def check_flash_kernel(torch, timer, peak, model, cache):
 def check_row_independence(torch):
     """Does a row of a T = 5 call equal, bit for bit, the same row computed
     alone (T = 1)?  Speculative greedy decoding is exact where every
-    kernel of the verify forward says yes.  The T <= 8 matmul kernels on
-    Llama-3.2-3B's wqkv shape (A on Gemma-2-9B's), the flash kernels at
-    their models' geometry, pos 1,100.  Returns kernel -> bool; a "no" is
-    a finding to record, not a failure."""
-    from lmrs_tpu_torch.kernels import q4_gemv, q8_gemv, q8_gemv_i8
+    kernel of the verify forward says yes.  K at both models' FFN, the
+    T <= 8 matmul kernels on Llama-3.2-3B's wqkv shape (A on Gemma-2-9B's),
+    the flash kernels at their models' geometry, pos 1,100.  Returns
+    kernel -> bool; a "no" is a finding to record, not a failure, but for
+    K, whose design promises it (main() fails on it)."""
+    from lmrs_tpu_torch.kernels import ffn_fused_xe, q4_gemv, q8_gemv
+    from lmrs_tpu_torch.kernels import q8_gemv_i8
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     same = {}
+    for model, make, act in ((GEMMA, random_q4, "gelu"),
+                             (LLAMA, random_q8, "silu")):
+        d, h = model["D"], model["HID"]
+        w = [*make(torch, gen, 2 * h, d), *make(torch, gen, d, h)]
+        x = torch.randn(5, d, device="cuda", generator=gen)
+        whole = ffn_fused_xe(x, *w, GS, act)
+        rows = torch.cat([ffn_fused_xe(x[i:i + 1].contiguous(), *w, GS, act)
+                          for i in range(5)])
+        same[f"ffn_fused_xe ({model['name']})"] = torch.equal(whole, rows)
+        del w
     for name, fn, make, model in (("q4_gemv", q4_gemv, random_q4, GEMMA),
                                   ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA),
                                   ("q8_gemv", q8_gemv, random_q8, LLAMA)):
@@ -919,6 +1043,10 @@ NEAR_TIE = 1e-3     # of the logit scale
 # differ by the W8A8 noise, up to ~1e-2 of the logit scale
 # (tests/test_torch_q8_model.py), so a near-tie is wider there
 NEAR_TIE_W8A8 = 1e-2
+# fuse_ffn on against off: the FFN takes bf16 activations (K) where the
+# unfused path takes f32 (A) or W8A8 (D); the tests measure up to 2.2e-3
+# of the logit scale on a tiny model (tests/test_torch_ffn_fused.py)
+NEAR_TIE_FUSED = 1e-2
 
 
 def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
@@ -1365,6 +1493,92 @@ def batched_phase_llama(torch, model_path, tok_path, cfg):
     return paths
 
 
+def per_token_launches(torch, engine, prompt):
+    """The kernel launches of one decode step after `prompt`."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+
+    engine.reset()
+    tok = int(torch.argmax(engine.prefill(prompt)))
+    torch.cuda.synchronize()
+    reset_launches()
+    engine.decode_step(tok)
+    torch.cuda.synchronize()
+    return {k: n for k, n in launches().items() if n}
+
+
+def drive_fused_path(torch, label, cfg, params, cache_dtype, expect,
+                     per_token, unfused_engine, unfused_toks):
+    """The main path of `cfg` with fuse_ffn on, on the loaded params:
+    drive_main_path's generations (exactly the kernels of `expect`), greedy
+    tokens equal to the unfused engine's up to the first near-tie
+    (NEAR_TIE_FUSED of the logit scale in the unfused run), and the
+    launches of one decode step exactly `per_token`.  Returns (result,
+    engine, prompt, greedy tokens)."""
+    res, engine, prompt, toks = drive_main_path(
+        torch, label, cfg.replace(fuse_ffn=True), params, cache_dtype,
+        expect)
+    res["greedy_tokens_equal_to_unfused"] = check_greedy(
+        torch, label, unfused_engine, prompt, toks, unfused_toks,
+        NEAR_TIE_FUSED)
+    counts = per_token_launches(torch, engine, prompt)
+    log(f"  {label}: launches of one decode step {counts}")
+    if counts != per_token:
+        raise RuntimeError(f"{label}: one decode step launched {counts}, "
+                           f"expected {per_token}")
+    res["launches_per_decode_token"] = counts
+    return res, engine, prompt, toks
+
+
+def batched_fused(torch, label, cfg, params, cache_dtype, batch, expect,
+                  near_tie, seed):
+    """One wave of `batch` requests (prompts of 256-1,024 random tokens,
+    half greedy, half top-p 0.9 at T 0.7; 64 tokens each) through a
+    BatchScheduler with fuse_ffn on, on the loaded params and the paged
+    pool (`cache_dtype`), through drive_batched: the launch counts set to
+    0 just before and read just after, each greedy stream held against the
+    single-stream fused Engine up to a near-tie.  Every forward launches
+    one FFN kernel a layer, so K's and L's counts are whole multiples of
+    the layer count."""
+    from types import SimpleNamespace
+
+    from lmrs_tpu_torch.serve.scheduler import (BatchScheduler,
+                                                SchedulerThread,
+                                                auto_pool_tokens)
+
+    fcfg = cfg.replace(fuse_ffn=True)
+    rng = torch.Generator().manual_seed(seed)
+    lens = torch.randint(256, 1025, (batch,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+               for n in lens]
+    n_greedy = batch // 2
+    sampling = [(0.0, 0.9)] * n_greedy + [(0.7, 0.9)] * (batch - n_greedy)
+    t0 = time.perf_counter()
+    engine, refs = engine_refs(torch, fcfg, params, cache_dtype,
+                               prompts[:n_greedy], 64)
+    log(f"  Engine references (fuse_ffn, {cache_dtype}): {n_greedy} prompts "
+        f"in {time.perf_counter() - t0:.1f} s")
+    thread = SchedulerThread(BatchScheduler(
+        fcfg, params, max_batch=batch, cache_dtype=cache_dtype,
+        pool_tokens=auto_pool_tokens(batch, fcfg.seq_len, 512),
+        page_size=512, prefill_chunk=256))
+    try:
+        res = drive_batched(
+            torch, label, SimpleNamespace(scheduler=thread),
+            [(prompts, sampling)],
+            {tuple(p): r for p, r in zip(prompts, refs)}, engine, expect,
+            near_tie=near_tie)
+    finally:
+        thread.shutdown()
+    for name in ("ffn_fused_xe", "ffn_fused"):
+        if res["launches"][name] % cfg.n_layers:
+            raise RuntimeError(f"{label}: {name} launched "
+                               f"{res['launches'][name]} times, not a "
+                               f"multiple of {cfg.n_layers} layers")
+    del engine, thread
+    torch.cuda.empty_cache()
+    return {label: res}
+
+
 def load_model(torch, work: Path, cfg):
     """Write the synthetic .lmrs of `cfg` (seed 0) and load it onto the
     card; returns (path, config as read, params, load seconds)."""
@@ -1428,14 +1642,17 @@ def main() -> int:
     timer = Timer(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    log("phase 2: kernels vs plain versions at Gemma-2-9B shapes (A, B, C)")
+    log("phase 2: kernels vs plain versions at Gemma-2-9B shapes (A, K, L, "
+        "B, C)")
     cases = check_matmul_kernels(torch, timer, peak, GEMMA, "q4")
+    cases += check_ffn_kernels(torch, timer, peak, GEMMA, "q4")
     cases += check_flash_kernel(torch, timer, peak, GEMMA, "bf16")
     cases += check_flash_kernel(torch, timer, peak, GEMMA, "int4")
     log("phase 2: kernels vs plain versions at Llama-3.2-3B shapes "
-        "(D, E, F, C, C on f32, G, H)")
+        "(D, E, F, K, L, C, C on f32, G, H)")
     check_act_quant(torch, torch.Generator(device="cuda").manual_seed(2))
     cases += check_matmul_kernels(torch, timer, peak, LLAMA, "q8")
+    cases += check_ffn_kernels(torch, timer, peak, LLAMA, "q8")
     for cache in ("bf16", "f32", "int8", "int4"):
         cases += check_flash_kernel(torch, timer, peak, LLAMA, cache)
     log("phase 2: per-slot and paged flash (I, J) at both models' shapes, "
@@ -1446,6 +1663,10 @@ def main() -> int:
     log("phase 2: is a row of a T=5 call the row computed alone?")
     row_independent = check_row_independence(torch)
     row_independent.update(check_batched_row_independence(torch))
+    if not all(ok for name, ok in row_independent.items()
+               if name.startswith("ffn_fused_xe")):
+        raise RuntimeError(f"kernel K breaks row independence: "
+                           f"{row_independent}")
     del timer
     torch.cuda.empty_cache()
 
@@ -1465,8 +1686,21 @@ def main() -> int:
         res, engine, prompt, plain = drive_main_path(
             torch, label, cfg, params, torch.bfloat16, Q4_PATH)
         paths[label] = dict(load_s=load_s, **res)
+        # the fused FFN on the same params: single stream, speculation, a
+        # batched wave
+        label = "gemma2-9b Q4_0 bf16 cache, fuse_ffn"
+        res, f_engine, _, f_plain = drive_fused_path(
+            torch, label, cfg, params, torch.bfloat16, GEMMA_FUSED,
+            GEMMA_FUSED_TOKEN, engine, plain)
+        paths[label] = dict(load_s=load_s, **res)
         del engine
+        paths[label + ", speculative"] = drive_speculative(
+            torch, label, f_engine, prompt, f_plain, GEMMA_FUSED)
+        del f_engine
         torch.cuda.empty_cache()
+        paths.update(batched_fused(
+            torch, "gemma2-9b Q4_0 batch 8, paged bf16 pool, fuse_ffn", cfg,
+            params, torch.bfloat16, 8, GEMMA_PAGED_FUSED, NEAR_TIE, seed=13))
         label = "gemma2-9b Q4_0 int4 cache"
         res, engine, prompt, plain = drive_main_path(
             torch, label, cfg, params, "int4", Q4_I4_PATH)
@@ -1534,7 +1768,21 @@ def main() -> int:
             peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
             runs={"greedy": dict(ttft_ms=1e3 * m.ttft_seconds,
                                  decode_tok_s=m.tokens_per_second)})
-        del params, engine
+        del engine
+        # the fused FFN on the same params: the int8 path, a batched wave
+        label = "llama3.2-3b Q8_0 int8 cache, fuse_ffn"
+        engine = Engine(cfg, params, cache_dtype=torch.int8)
+        res, f_engine, _, _ = drive_fused_path(
+            torch, label, cfg, params, torch.int8, LLAMA_I8_FUSED,
+            LLAMA_I8_FUSED_TOKEN, engine, greedy["int8"])
+        paths[label] = dict(load_s=load_s, **res)
+        del engine, f_engine
+        torch.cuda.empty_cache()
+        paths.update(batched_fused(
+            torch, "llama3.2-3b Q8_0 batch 16, paged int8 pool, fuse_ffn",
+            cfg, params, torch.int8, 16, LLAMA_PAGED_FUSED, NEAR_TIE_W8A8,
+            seed=14))
+        del params
         torch.cuda.empty_cache()
         synthetic_tokenizer(tok_path, LLAMA["V"])
         cli_counts["llama3.2-3b Q8_0 int8 cache"] = drive_cli(
@@ -1581,6 +1829,10 @@ def main() -> int:
             f"gemma2-9b batched decode step, {len(BATCH_POS)} slots at pos "
             f"{BATCH_POS[0]}..{BATCH_POS[-1]}, bf16 pool of 512-row pages: "
             "42 x T=1", [(g, "bf16 page512", 1, GEMMA["L"])]),
+        "ffn_fused_xe": ("gemma2-9b decode token's FFNs: 42 x T=1",
+                         [(g, "ffn", 1, GEMMA["L"])]),
+        "ffn_fused": ("llama3.2-3b batched decode step of 16 rows, its "
+                      "FFNs: 28 x T=16", [(ll, "ffn", 16, LLAMA["L"])]),
     }
 
     def path_launches(name):

@@ -4,7 +4,7 @@ The `.lmrs` binary header carries the shape hyperparameters; several
 per-family constants (Gemma's softcaps, sliding window and unit-offset
 norms, Llama-3's RoPE rescale, Phi-3.5's longrope) are explicit fields
 here.  Same fields and presets as `lmrs_tpu.config`, minus the multi-chip
-and fused-FFN knobs this package does not have yet.
+knobs this package does not have yet.
 """
 
 from __future__ import annotations
@@ -103,6 +103,13 @@ class ModelConfig:
     # the first `dim` logits.  Off by default: the softcap then covers ALL
     # logits, which is what Gemma-2 specifies.
     parity_gemma_softcap_bug: bool = False
+    # Run each layer's whole FFN ([gate; up] matmul, GLU, down matmul) as
+    # one fused kernel at up to 16 rows: K `ffn_fused_xe` at T <= 8, L
+    # `ffn_fused` at 9..16 (`models.transformer._layer_post`).  Off by
+    # default, as in the JAX package; the .lmrs header does not carry it,
+    # so the CLI and the backend keep it off.  It implies the fast bf16
+    # numerics for the FFN: a Q8_0 layer's FFN then takes no W8A8.
+    fuse_ffn: bool = False
 
     # ---- derived sizes ----
     @property

@@ -20,6 +20,7 @@ import torch
 from lmrs_tpu_torch.config import (ModelConfig, ModelType, QuantType,
                                    resolve_device, unsupported)
 from lmrs_tpu_torch.io.lmrs import LmrsFile
+from lmrs_tpu_torch.kernels.ffn_fused import ffn_split_perm
 from lmrs_tpu_torch.models.transformer import (KVCache, LayerWeights,
                                                TransformerParams)
 from lmrs_tpu_torch.ops.rope import rope_tables
@@ -85,19 +86,29 @@ def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
     "layers.wqkv.q" (L, O, K/2) runtime-layout Q4 bytes or (L, O, K) int8
     Q8 values, "layers.wqkv.s" (L, O, G), "layers.att_norm" (L, D), ...,
     "final_norm", "lm_head.q", "rope_cos", "rope_sin".  Its Q4 bytes are
-    already in the runtime layout, so they are copied as they are.  Float
-    (NONE) weights have no ".s".  K-major tiles are refused."""
+    already in the runtime layout, so they are copied as they are, but for
+    the w13 rows of a load with `fuse_ffn` (`cfg.fuse_ffn`), which are put
+    back in their logical order.  Float (NONE) weights have no ".s".
+    K-major tiles are refused."""
     device = resolve_device(device)
     gs = cfg.group_size
     if arrays["embed.q"].ndim != 2 or arrays["layers.wqkv.q"].ndim != 3:
         raise unsupported("K-major weight tiles",
                           "A18 K-major parameter input")
     per_byte = 2 if cfg.quant == QuantType.Q4_0 else 1
+    # a JAX load with fuse_ffn stores Q4 w13 rows in its fused kernel's
+    # split order; this package keeps the logical [gate; up] order
+    w13_rows = None
+    if cfg.fuse_ffn and cfg.quant == QuantType.Q4_0:
+        p = ffn_split_perm(cfg.hidden_dim, gs)
+        w13_rows = np.argsort(np.concatenate([p, cfg.hidden_dim + p]))
 
     def qt(prefix, l=None):
         q, s = arrays[f"{prefix}.q"], arrays.get(f"{prefix}.s")
         if l is not None:
             q, s = q[l], None if s is None else s[l]
+        if prefix == "layers.w13" and w13_rows is not None:
+            q, s = q[w13_rows], s[w13_rows]
         return QTensor(_to_device(q, device),
                        None if s is None else _to_device(s, device),
                        cfg.quant, gs, q.shape[0], q.shape[1] * per_byte)

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+from lmrs_tpu_torch.kernels.ffn_fused import ffn_fused, ffn_fused_xe
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
 from lmrs_tpu_torch.kernels.flash_attention_batched import \
     flash_attention_batched
@@ -27,7 +28,8 @@ WRAPPERS = {"q4_gemv": q4_gemv, "q4_gemm": q4_gemm,
             "flash_attention_i8": flash_attention_i8,
             "flash_attention_i4": flash_attention_i4,
             "flash_attention_batched": flash_attention_batched,
-            "flash_attention_paged": flash_attention_paged}
+            "flash_attention_paged": flash_attention_paged,
+            "ffn_fused_xe": ffn_fused_xe, "ffn_fused": ffn_fused}
 
 
 def reset_launches() -> None:

@@ -24,7 +24,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "lmrs_tpu_torch"
 SOURCES = ("q4_gemv", "q4_gemm", "flash_attention", "q8_gemv_i8", "q8_gemv",
-           "q8_gemm")
+           "q8_gemm", "ffn_fused")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -8,7 +8,8 @@ matmul goes through `ops.matmul.qmatmul` (kernels A and B for Q4_0
 weights, D, E and F for Q8_0) on all rows at once, and every attention
 through kernel C (bf16 or f32 KV cache), G (int8) or H (int4) for one
 sequence, I (per-slot cache) or J (page pool) for a batch, which read the
-cache in place.
+cache in place.  With `cfg.fuse_ffn` a layer's FFN of up to 16 rows is one
+launch of kernel K (T <= 8) or L (9..16) instead.
 
 Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
@@ -25,6 +26,9 @@ from typing import List, Optional, Union
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
+from lmrs_tpu_torch.kernels.ffn_fused import MAX_T as FUSED_MAX_T
+from lmrs_tpu_torch.kernels.ffn_fused import MAX_T_XE as FUSED_XE_MAX_T
+from lmrs_tpu_torch.kernels.ffn_fused import ffn_fused, ffn_fused_xe
 from lmrs_tpu_torch.kernels.flash_attention import flash_attention
 from lmrs_tpu_torch.kernels.flash_attention_batched import \
     flash_attention_batched
@@ -244,7 +248,9 @@ def _quantize_kv(cfg: ModelConfig, cache: KVCache, k: torch.Tensor,
 def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
                 att: torch.Tensor, w8a8: bool) -> torch.Tensor:
     """The layer after attention, shared by one sequence and a batch:
-    output projection, residual, norms and the GLU FFN over all rows."""
+    output projection, residual, norms and the GLU FFN over all rows (one
+    fused kernel when `cfg.fuse_ffn` is on, the weights are quantized and
+    there are at most 16 rows)."""
     t_q = x.shape[0]
     gemma = cfg.model_type == ModelType.GEMMA
     if cfg.cache_head_dim != cfg.head_dim:
@@ -259,10 +265,19 @@ def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
         x = x + o
         xb2 = rmsnorm(x, lw.post_att_norm, cfg.rms_norm_eps, False)
 
-    gu = qmatmul(xb2, lw.w13, w8a8=w8a8)
-    gate, up = gu[:, :cfg.hidden_dim], gu[:, cfg.hidden_dim:]
-    ff = qmatmul((gelu_tanh(gate) if gemma else silu(gate)) * up, lw.w2,
-                 w8a8=w8a8)
+    if (cfg.fuse_ffn and lw.w13.qtype != QuantType.NONE
+            and t_q <= FUSED_MAX_T):
+        # the whole FFN in one launch: K at T <= 8, L at 9..16 rows (the
+        # JAX package's stacked and unstacked fused kernels); float weights
+        # and longer chunks take the matmuls below
+        fused = ffn_fused_xe if t_q <= FUSED_XE_MAX_T else ffn_fused
+        ff = fused(xb2, lw.w13.q, lw.w13.s, lw.w2.q, lw.w2.s,
+                   lw.w13.group_size, "gelu" if gemma else "silu")
+    else:
+        gu = qmatmul(xb2, lw.w13, w8a8=w8a8)
+        gate, up = gu[:, :cfg.hidden_dim], gu[:, cfg.hidden_dim:]
+        ff = qmatmul((gelu_tanh(gate) if gemma else silu(gate)) * up, lw.w2,
+                     w8a8=w8a8)
     if gemma:
         return x + rmsnorm(ff, lw.post_ffn_norm, cfg.rms_norm_eps, True)
     return x + ff

@@ -6,6 +6,7 @@
         [--cache-dtype bfloat16|float32|int8|int4] [--spec-k K]
     LMRS_W8A8=0 python3 scripts/torch_decode_profile.py ...  # Q8_0 layers W8A16
     python3 scripts/torch_decode_profile.py --batch 8 [--no-paged] ...
+    python3 scripts/torch_decode_profile.py --fuse-ffn on|off|ab ...
 
 Writes a synthetic .lmrs of the chosen preset (default Gemma-2-9B Q4_0,
 seed 0) under build/, loads it onto the GPU with the chosen KV cache type,
@@ -24,7 +25,11 @@ the traced window), and one JSON line with the same numbers.  With
 `--spec-k` for its speculative chunk): B greedy requests with prompts of
 `--pos` tokens are prefilled, then `--steps` decode chunks of 8 steps run
 with every slot active, and the figures are per decode step (B tokens, or
-more with speculation).  Needs one CUDA device.
+more with speculation).  `--fuse-ffn on` runs each layer's FFN through
+the fused kernels (K, or L at 9..16 rows: `ModelConfig.fuse_ffn`); `ab`
+measures off, on, on, off in turns on the one loaded model, each turn on
+a fresh engine (or scheduler), and prints one JSON line of the turns.
+Needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ FLASH_CACHES = ("bf16", "int8", "f32", "int4 half", "int4 pair")
 
 
 def _kernel_group(name: str) -> str:
+    if "ffn_kernel" in name:        # kernels K and L
+        return "ffn_fused (K, L)"
     if "flash_kernel" in name:      # kernels C, G and H: one template
         m = re.search(r"Cache\)\s*(\d)", name)
         return (f"flash_kernel ({FLASH_CACHES[int(m.group(1))]} cache)"
@@ -74,6 +81,9 @@ def main() -> int:
                     help="profile the batched scheduler's step at B slots")
     ap.add_argument("--no-paged", dest="no_paged", action="store_true",
                     help="with --batch: the contiguous per-slot cache")
+    ap.add_argument("--fuse-ffn", dest="fuse_ffn", default="off",
+                    choices=["off", "on", "ab"],
+                    help="the fused FFN kernels; ab: off, on, on, off")
     args = ap.parse_args()
 
     import torch
@@ -86,8 +96,6 @@ def main() -> int:
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import params_from_lmrs
     from lmrs_tpu_torch.io.synthetic import write_synthetic_lmrs
-    from lmrs_tpu_torch.runtime.engine import Engine
-    from lmrs_tpu_torch.runtime.speculative import verify_step
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -101,85 +109,102 @@ def main() -> int:
             quant=QuantType[args.quant]))
         f = read_lmrs(str(path))
         w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"   # as the chat CLI
-        if args.batch:
-            return profile_batched(torch, args, card, f, w8a8)
-        engine = Engine(f.cfg, params_from_lmrs(f, device="cuda"),
-                        cache_dtype=args.cache_dtype, w8a8=w8a8)
-        prompt = torch.randint(0, f.cfg.vocab_size, (args.pos,),
-                               generator=torch.Generator().manual_seed(0))
-        engine.prefill(prompt.tolist())
-        tok = torch.tensor([5], device="cuda")
-        k = args.spec_k
-
-        def steps() -> int:
-            """`--steps` decode (or verify) steps; the tokens they gave."""
-            nonlocal tok
-            n_tokens = 0
-            for _ in range(args.steps):
-                if k:
-                    with torch.no_grad():
-                        n_acc, emitted = verify_step(
-                            engine.params, engine.cfg, engine.cache,
-                            engine._hist, engine.pos, k, 0.0, 1.0,
-                            w8a8=engine.w8a8)
-                        engine._hist[engine.pos + 1:
-                                     engine.pos + k + 2] = emitted
-                    n = int(n_acc.item()) + 1     # the step's one host read
-                    engine.pos += n
-                    n_tokens += n
-                else:
-                    logits = engine.decode_step(tok)
-                    tok = torch.argmax(logits).reshape(1)
-                    n_tokens += 1
-            return n_tokens
-
-        if k:
-            engine._note(tok)                     # the token at `pos`
-        steps()                                   # warm-up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        n_tokens = steps()
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
-
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            steps()
-            torch.cuda.synchronize()
-        by_group = defaultdict(float)
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                by_group[_kernel_group(e.name)] += e.time_range.elapsed_us()
-        result = dict(card=card, model=args.model, quant=args.quant,
-                      cache_dtype=args.cache_dtype, w8a8=w8a8, pos=args.pos,
-                      steps=args.steps, spec_k=k, wall_ms_per_step=wall_ms,
-                      tokens_per_step=n_tokens / args.steps,
-                      wall_ms_per_token=wall_ms * args.steps / n_tokens,
-                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        params = params_from_lmrs(f, device="cuda")
         print(card)
-        what = f"verify (k={k})" if k else "decode"
-        print(f"{args.model} {args.quant}, {args.cache_dtype} cache, {what} "
-              f"at pos {args.pos}: {wall_ms:.3f} ms per step on the "
-              f"host clock, {n_tokens / args.steps:.2f} tokens per step "
-              f"({1e3 * n_tokens / args.steps / wall_ms:.2f} tok/s)")
-        if by_group:
-            per_token = {g: v / 1e3 / args.steps for g, v in by_group.items()}
-            busy = sum(per_token.values()) / wall_ms
-            result.update(device_ms_per_step=per_token,
-                          device_busy_share=busy,
-                          device_idle_share=1.0 - busy)
-            for g, v in sorted(per_token.items(), key=lambda kv: -kv[1]):
-                print(f"  {g:30s} {v:8.3f} ms of device time per step")
-            print(f"  device busy {100 * busy:.1f}% of a step")
-        else:
-            result["device_ms_per_step"] = "not measured"
-            print("  the profiler recorded no device activity: device time "
-                  "not measured")
-        print(json.dumps(result))
+        turns = {"off": [False], "on": [True],
+                 "ab": [False, True, True, False]}[args.fuse_ffn]
+        results = []
+        for fuse in turns:
+            cfg = f.cfg.replace(fuse_ffn=fuse)
+            profile = profile_batched if args.batch else profile_decode
+            results.append(profile(torch, args, card, cfg, params, w8a8))
+            torch.cuda.empty_cache()
+        print(json.dumps(results[0] if len(results) == 1
+                         else dict(card=card, turns=results)))
     finally:
         shutil.rmtree(work, ignore_errors=True)
     return 0
+
+
+def report(result: dict, per_step: dict, wall_ms: float) -> dict:
+    """Print device time per step by kernel group and the busy share."""
+    if per_step:
+        busy = sum(per_step.values()) / wall_ms
+        result.update(device_ms_per_step=per_step, device_busy_share=busy,
+                      device_idle_share=1.0 - busy)
+        for g, v in sorted(per_step.items(), key=lambda kv: -kv[1]):
+            print(f"  {g:30s} {v:8.3f} ms of device time per step")
+        print(f"  device busy {100 * busy:.1f}% of a step")
+    else:
+        result["device_ms_per_step"] = "not measured"
+        print("  the profiler recorded no device activity: device time not "
+              "measured")
+    return result
+
+
+def profile_decode(torch, args, card, cfg, params, w8a8) -> dict:
+    """Single-stream decode (or verify) steps after a `--pos`-token prompt
+    (see the module note)."""
+    from lmrs_tpu_torch.runtime.engine import Engine
+    from lmrs_tpu_torch.runtime.speculative import verify_step
+
+    engine = Engine(cfg, params, cache_dtype=args.cache_dtype, w8a8=w8a8)
+    prompt = torch.randint(0, cfg.vocab_size, (args.pos,),
+                           generator=torch.Generator().manual_seed(0))
+    engine.prefill(prompt.tolist())
+    tok = torch.tensor([5], device="cuda")
+    k = args.spec_k
+
+    def steps() -> int:
+        """`--steps` decode (or verify) steps; the tokens they gave."""
+        nonlocal tok
+        n_tokens = 0
+        for _ in range(args.steps):
+            if k:
+                with torch.no_grad():
+                    n_acc, emitted = verify_step(
+                        engine.params, engine.cfg, engine.cache,
+                        engine._hist, engine.pos, k, 0.0, 1.0,
+                        w8a8=engine.w8a8)
+                    engine._hist[engine.pos + 1:
+                                 engine.pos + k + 2] = emitted
+                n = int(n_acc.item()) + 1     # the step's one host read
+                engine.pos += n
+                n_tokens += n
+            else:
+                logits = engine.decode_step(tok)
+                tok = torch.argmax(logits).reshape(1)
+                n_tokens += 1
+        return n_tokens
+
+    if k:
+        engine._note(tok)                     # the token at `pos`
+    steps()                                   # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_tokens = steps()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        steps()
+        torch.cuda.synchronize()
+    result = dict(card=card, model=args.model, quant=args.quant,
+                  cache_dtype=args.cache_dtype, w8a8=w8a8,
+                  fuse_ffn=cfg.fuse_ffn, pos=args.pos, steps=args.steps,
+                  spec_k=k, wall_ms_per_step=wall_ms,
+                  tokens_per_step=n_tokens / args.steps,
+                  wall_ms_per_token=wall_ms * args.steps / n_tokens,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    what = f"verify (k={k})" if k else "decode"
+    print(f"{args.model} {args.quant}, {args.cache_dtype} cache, fuse_ffn "
+          f"{cfg.fuse_ffn}, {what} at pos {args.pos}: {wall_ms:.3f} ms per "
+          f"step on the host clock, {n_tokens / args.steps:.2f} tokens per "
+          f"step ({1e3 * n_tokens / args.steps / wall_ms:.2f} tok/s)")
+    del engine
+    return report(result, device_time(torch, prof, args.steps), wall_ms)
 
 
 def device_time(torch, prof, steps: int):
@@ -191,25 +216,23 @@ def device_time(torch, prof, steps: int):
     return {g: v / 1e3 / steps for g, v in by_group.items()}
 
 
-def profile_batched(torch, args, card, f, w8a8) -> int:
+def profile_batched(torch, args, card, cfg, params, w8a8) -> dict:
     """The batched scheduler's decode step at `--batch` slots (see the
     module note)."""
-    from lmrs_tpu_torch.io.params import params_from_lmrs
     from lmrs_tpu_torch.serve.scheduler import BatchScheduler
 
     b, chunk = args.batch, 8
-    max_ctx = min(f.cfg.seq_len, args.pos + (3 * args.steps + 2) * chunk
+    max_ctx = min(cfg.seq_len, args.pos + (3 * args.steps + 2) * chunk
                   * (args.spec_k + 1) + 64)
     # a pool that holds every slot's whole context: all B slots run at once
     pool = None if args.no_paged else b * -(-max_ctx // 512) * 512
-    sched = BatchScheduler(f.cfg, params_from_lmrs(f, device="cuda"),
-                           max_batch=b, max_ctx=max_ctx,
+    sched = BatchScheduler(cfg, params, max_batch=b, max_ctx=max_ctx,
                            cache_dtype=args.cache_dtype, prefill_chunk=256,
                            decode_chunk=chunk, speculative_k=args.spec_k,
                            pool_tokens=pool, w8a8=w8a8)
     rng = torch.Generator().manual_seed(0)
     for _ in range(b):
-        sched.submit(torch.randint(0, f.cfg.vocab_size, (args.pos,),
+        sched.submit(torch.randint(0, cfg.vocab_size, (args.pos,),
                                    generator=rng).tolist(),
                      max_new_tokens=1 << 30, temperature=0.0)
     for _ in range(64):                     # prefill every slot
@@ -240,32 +263,22 @@ def profile_batched(torch, args, card, f, w8a8) -> int:
         torch.cuda.synchronize()
     per_step = device_time(torch, prof, n_steps)
     result = dict(card=card, model=args.model, quant=args.quant,
-                  cache_dtype=args.cache_dtype, w8a8=w8a8, batch=b,
-                  paged=pool is not None, pos=args.pos, spec_k=args.spec_k,
-                  steps=n_steps, wall_ms_per_step=wall_ms,
+                  cache_dtype=args.cache_dtype, w8a8=w8a8,
+                  fuse_ffn=cfg.fuse_ffn, batch=b, paged=pool is not None,
+                  pos=args.pos, spec_k=args.spec_k, steps=n_steps,
+                  wall_ms_per_step=wall_ms,
                   tokens_per_step=n_tokens / n_steps,
                   aggregate_tok_s=1e3 * n_tokens / n_steps / wall_ms,
                   peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    print(card)
     print(f"{args.model} {args.quant}, {args.cache_dtype} "
-          f"{'pool' if pool else 'per-slot cache'}, batch {b} "
+          f"{'pool' if pool else 'per-slot cache'}, fuse_ffn "
+          f"{cfg.fuse_ffn}, batch {b} "
           f"{'verify (k=%d)' % args.spec_k if args.spec_k else 'decode'} "
           f"from pos {args.pos}: {wall_ms:.3f} ms per step on the host "
           f"clock, {n_tokens / n_steps:.2f} tokens per step "
           f"({result['aggregate_tok_s']:.1f} tok/s aggregate)")
-    if per_step:
-        busy = sum(per_step.values()) / wall_ms
-        result.update(device_ms_per_step=per_step, device_busy_share=busy,
-                      device_idle_share=1.0 - busy)
-        for g, v in sorted(per_step.items(), key=lambda kv: -kv[1]):
-            print(f"  {g:30s} {v:8.3f} ms of device time per step")
-        print(f"  device busy {100 * busy:.1f}% of a step")
-    else:
-        result["device_ms_per_step"] = "not measured"
-        print("  the profiler recorded no device activity: device time not "
-              "measured")
-    print(json.dumps(result))
-    return 0
+    del sched
+    return report(result, per_step, wall_ms)
 
 
 if __name__ == "__main__":

@@ -27,7 +27,12 @@ stands at the test).  I and J (per-slot and paged flash) per element within
 their plain versions' bound, as C's; slot b of an I or J call bit for bit
 C's, G's or H's result on the slot's rows (the same walk), J bit for bit
 I on a pool holding I's rows, and a slot's result bit for bit unchanged
-when every other slot, page and the trash page hold NaN.
+when every other slot, page and the trash page hold NaN.  K and L (the
+fused FFN) 1e-3 of the output scale (the same bf16 operands and exact
+products, f32 sums in another order; a last-bit difference of the f32
+gate or up flips a g value's bf16 rounding by one step, 2^-8 of it, and
+moves the outputs by ~2e-4 of their scale at most), and a row of a K call
+bit for bit the row computed alone.
 """
 
 import numpy as np
@@ -35,6 +40,9 @@ import pytest
 import torch
 
 from lmrs_tpu_torch.kernels import launches, reset_launches
+from lmrs_tpu_torch.kernels.ffn_fused import (ffn_fused, ffn_fused_plain,
+                                              ffn_fused_xe,
+                                              ffn_fused_xe_plain)
 from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                     flash_attention_plain,
                                                     flash_attention_tol)
@@ -344,11 +352,13 @@ def test_kv_q4_quantizer_bit_exact_on_card(cuda_device, kh, hd):
 
 
 def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
-                                  w8a8=True):
+                                  w8a8=True, fuse_ffn=False):
     """A small model with kernel-legal widths (gs 128, head_dim 64 for
     Llama with 3 query heads per kv head, 128 for Gemma with a 48-row
     window) on the card against the same file on the CPU: prefill and
-    decode logits, greedy tokens, and the kernels the path must launch."""
+    decode logits, greedy tokens, and the kernels the path must launch.
+    With `fuse_ffn` the prompt's 13-row tail takes L and the decode steps
+    K."""
     from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import params_from_lmrs
@@ -370,7 +380,8 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
     logits = {}
     for dev in ("cuda", "cpu"):
         f = read_lmrs(path)
-        eng = Engine(f.cfg, params_from_lmrs(f, device=dev), device=dev,
+        eng = Engine(f.cfg.replace(fuse_ffn=fuse_ffn),
+                     params_from_lmrs(f, device=dev), device=dev,
                      prefill_chunk=32, cache_dtype=cache_dtype, w8a8=w8a8)
         rows = [eng.prefill(prompt)]
         rows += [eng.decode_step(t) for t in (3, 4, 5)]
@@ -379,7 +390,8 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
     assert torch.isfinite(a).all()
     assert (a - b).abs().max().item() <= 1e-2 * b.abs().max().item() + 1e-4
     f = read_lmrs(path)
-    eng = Engine(f.cfg, params_from_lmrs(f, device="cuda"),
+    eng = Engine(f.cfg.replace(fuse_ffn=fuse_ffn),
+                 params_from_lmrs(f, device="cuda"),
                  cache_dtype=cache_dtype, w8a8=w8a8)
     reset_launches()
     toks = eng.generate(prompt, GenerationConfig(temperature=0.0,
@@ -391,6 +403,8 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
         expect.discard("q8_gemv_i8")    # the layers take kernel E too
     expect.add({"int8": "flash_attention_i8",
                 "int4": "flash_attention_i4"}.get(cache, "flash_attention"))
+    if fuse_ffn:
+        expect.add("ffn_fused_xe")      # the 77-row prompt: one B/F chunk
     assert {k for k, n in launches().items() if n > 0} == expect
 
 
@@ -584,3 +598,101 @@ def test_flash_batched_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         flash_attention_paged(case["q"], kp, vp, table.long(), 0,
                               case["pos"], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family,quant,cache", [
+    ("gemma", "Q4_0", "bfloat16"), ("llama", "Q8_0", "int8")])
+def test_small_fused_ffn_model_card_matches_cpu(cuda_device, tmp_path,
+                                                family, quant, cache):
+    _small_model_card_matches_cpu(tmp_path, family, quant, cache,
+                                  fuse_ffn=True)
+
+
+def _ffn_case(device, quant, t, d, h, gs, seed=0):
+    """x (T, D) and one FFN's weights (q, s of w13, then of w2) in the
+    runtime layout, from the export quantizers."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(0, 1, (t, d)).astype(np.float32))
+    out = [x.to(device)]
+    for o, k in ((2 * h, d), (d, h)):
+        w = rng.normal(0, 0.1, (o, k)).astype(np.float32)
+        if quant == "q4":
+            packed, s, _ = quantize_q40_np(w, gs)
+            q = q4_file_to_runtime_np(packed.reshape(o, k // 2), gs)
+        else:
+            q, s, _ = quantize_q80_np(w, gs)
+            q = q.reshape(o, k)
+        out += [torch.from_numpy(q).to(device),
+                torch.from_numpy(s.reshape(o, k // gs)).to(device)]
+    return out
+
+
+# small shapes at every weight type and activation; Gemma-2-9B's and
+# Llama-3.2-3B's FFN at their own
+FFN_SMALL = [(256, 512, 32), (512, 1536, 64)]
+FFN_CASES = ([(q, a, d, h, gs) for q in ("q4", "q8") for a in ("silu", "gelu")
+              for d, h, gs in FFN_SMALL]
+             + [("q4", "gelu", 3584, 14336, 128),
+                ("q8", "silu", 3072, 8192, 128)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 2, 5, 8])
+@pytest.mark.parametrize("quant,act,d,h,gs", FFN_CASES)
+def test_ffn_fused_xe_kernel_on_card(cuda_device, quant, act, d, h, gs, t):
+    x, *w = _ffn_case(cuda_device, quant, t, d, h, gs)
+    reset_launches()
+    got = ffn_fused_xe(x, *w, gs, act)
+    assert launches()["ffn_fused_xe"] == 1
+    want = ffn_fused_xe_plain(x, *w, gs, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (t, d)
+    assert _rel_err(got, want) <= 1e-3
+    # row independence: each row of the call bit for bit the row alone
+    rows = torch.cat([ffn_fused_xe(x[i:i + 1].contiguous(), *w, gs, act)
+                      for i in range(t)])
+    assert torch.equal(rows, got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [9, 12, 16])
+@pytest.mark.parametrize("quant,act,d,h,gs", FFN_CASES)
+def test_ffn_fused_kernel_on_card(cuda_device, quant, act, d, h, gs, t):
+    x, *w = _ffn_case(cuda_device, quant, t, d, h, gs)
+    reset_launches()
+    got = ffn_fused(x, *w, gs, act)
+    assert launches()["ffn_fused"] == 1
+    want = ffn_fused_plain(x, *w, gs, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (t, d)
+    assert _rel_err(got, want) <= 1e-3
+
+
+@pytest.mark.gpu
+def test_ffn_fused_rejects_what_it_cannot_take(cuda_device):
+    """Row counts out of range, mixed weight types, mismatched shapes, a
+    group size the kernel does not take, a non-contiguous or host weight
+    and an unknown activation raise instead of launching."""
+    x, q13, s13, q2, s2 = _ffn_case(cuda_device, "q4", 4, 256, 512, 32)
+    _, p13, t13, p2, t2 = _ffn_case(cuda_device, "q8", 4, 256, 512, 32)
+    reset_launches()
+    with pytest.raises(ValueError):
+        ffn_fused_xe(torch.zeros(9, 256, device=cuda_device), q13, s13, q2,
+                     s2, 32, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused(x, q13, s13, q2, s2, 32, "silu")           # 4 rows
+    with pytest.raises(TypeError):
+        ffn_fused_xe(x, q13, s13, p2, t2, 32, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused_xe(x, q13, s13, q2[:128].contiguous(), s2[:128].contiguous(),
+                     32, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused_xe(x, p13, t13, p2, t2, 16, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused_xe(x, q13.t().contiguous().t(), s13, q2, s2, 32, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused_xe(x, q13.cpu(), s13, q2, s2, 32, "silu")
+    with pytest.raises(ValueError):
+        ffn_fused_xe(x, q13, s13, q2, s2, 32, "relu")
+    assert launches()["ffn_fused_xe"] == launches()["ffn_fused"] == 0

@@ -11,6 +11,18 @@ unstacked (classifier) weight at those T picks them.
 
 Tolerance: 1e-5 of the output scale (the same bf16 operands and weight
 rounding on both sides, f32 sums in another order).
+
+Kernels E (q8_gemv, T <= 8) and F (T > 8) cover the third: the
+experimental group-loop `_q8_kernel_gl` (`dequant_matmul.py:220`, reached
+only through `qmatmul_pallas_gl` from `scripts/kbench.py`).  It computes
+bf16(q) . bf16(x) summed per group in f32, times the f32 row scale.  The
+port's classifier `qmatmul(x, w, classifier=True)` on an unstacked Q8_0
+weight against it at T 1 and 5 (E) and 16 (F).  Tolerance 5e-3 of the
+output scale: E keeps x in f32 where the group loop rounds it to bf16
+(up to 2^-9 of each product); F rounds x as the group loop does but
+rounds the weights to bf16(bf16(q) * bf16(s)) where the group loop
+scales the f32 sums (up to 2^-9 of each weight).  Measured here: 1.8e-3
+to 2.4e-3.
 """
 
 import jax.numpy as jnp
@@ -18,7 +30,7 @@ import numpy as np
 import pytest
 import torch
 
-from lmrs_tpu.kernels.dequant_matmul import qmatmul_pallas
+from lmrs_tpu.kernels.dequant_matmul import qmatmul_pallas, qmatmul_pallas_gl
 from lmrs_tpu.quant import QuantType as JQuantType
 from lmrs_tpu.quant import qtensor_from_float_np
 
@@ -26,6 +38,7 @@ from lmrs_tpu_torch.config import QuantType
 from lmrs_tpu_torch.kernels import launches, reset_launches
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm
+import lmrs_tpu_torch.ops.matmul as matmul_module
 from lmrs_tpu_torch.ops.matmul import qmatmul
 from lmrs_tpu_torch.quant import QTensor
 
@@ -59,3 +72,25 @@ def test_gemm_plain_matches_unstacked_pallas_kernel(quant, t):
     cls = QTensor(q, s, qtype, GS, o, k)
     via = qmatmul(torch.from_numpy(x), cls, classifier=True).numpy()
     np.testing.assert_array_equal(via, got)
+
+
+@pytest.mark.parametrize("t,kernel", [(1, "q8_gemv"), (5, "q8_gemv"),
+                                      (16, "q8_gemm")])
+def test_classifier_matches_group_loop_kernel(monkeypatch, t, kernel):
+    """Reference: qmatmul_pallas_gl -> _q8_kernel_gl (dequant_matmul.py:220)."""
+    rng = np.random.default_rng(100 + t)
+    o, k = 512, 1024
+    w = rng.normal(0, 0.1, (o, k)).astype(np.float32)
+    qt = qtensor_from_float_np(w, JQuantType.Q8_0, GS)
+    x = rng.normal(0, 1, (t, k)).astype(np.float32)
+    want = np.asarray(qmatmul_pallas_gl(jnp.asarray(x), qt, interpret=True))
+    cls = QTensor(torch.from_numpy(np.array(qt.q)),
+                  torch.from_numpy(np.array(qt.s)), QuantType.Q8_0, GS, o, k)
+    calls = []
+    orig = getattr(matmul_module, kernel)
+    monkeypatch.setattr(matmul_module, kernel,
+                        lambda *a: calls.append(kernel) or orig(*a))
+    got = qmatmul(torch.from_numpy(x), cls, classifier=True).numpy()
+    assert calls == [kernel]
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=5e-3 * np.abs(want).max())

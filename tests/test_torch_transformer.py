@@ -49,13 +49,15 @@ def build_pair(tmp_path, name, seed=1, scale=0.02, quant=JQuantType.Q4_0,
                **cfg_kw):
     """(JAX cfg, JAX params, port cfg, port params) of one random .lmrs
     file (weights of std `scale`); the port's params are carried across
-    from the JAX ones."""
+    from the JAX ones.  A config with fuse_ffn=True loads the JAX params
+    with fuse_ffn too (Q4 w13 rows in its fused kernel's order)."""
     jcfg = jax_config(name, quant)
     path = str(tmp_path / f"{name}.lmrs")
     jl.write_lmrs(path, jcfg, jax_random_weights(jcfg, seed, scale))
     jf = jl.read_lmrs(path)
     jcfg = jf.cfg.replace(matmul_impl="fast", **cfg_kw)
-    jp = jax_params_from_lmrs(jf, stack_layers=True, fuse_qkv=True)
+    jp = jax_params_from_lmrs(jf, stack_layers=True, fuse_qkv=True,
+                              fuse_ffn=cfg_kw.get("fuse_ffn", False))
     tcfg = tl.read_lmrs(path).cfg.replace(**cfg_kw)
     tp = params_from_jax(tcfg, jax_param_arrays(jp), device="cpu")
     return jcfg, jp, tcfg, tp
