@@ -31,16 +31,26 @@ Phases (any failure ends the run with a non-zero exit):
    fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0, tanh-GELU) and
    Llama-3.2-3B's (Q8_0, silu); library yardstick: the unfused chain in
    PyTorch calls (two torch.matmul on pre-dequantized bf16 W13 and W2,
-   the GLU between them).  Then, per kernel, whether a row of a T = 5 call
-   equals the same row computed alone (what makes speculative greedy
-   decoding exact).
+   the GLU between them).  A decode call of C, G, H, I or J (one query
+   block per kv head) is flash-decoding: the template's split pass and
+   kernel M (flash_merge), both in the timings; C, G and H are also held
+   at positions on split boundaries and at Gemma's window edge.  B1 (the
+   cp partials, flash_attention_batched(..., seq_base=, return_lse=True))
+   on 4 sequence shards of the Gemma per-slot cache: each shard against
+   the plain version, rows with no live key at m == _MASK_NEG, the shards
+   merged by M against I and the plain version.  M against its plain
+   version on the split pass's workspaces of C and I.  Then, per kernel,
+   whether a row of a T = 5 call equals the same row computed alone (what
+   makes speculative greedy decoding exact): a "no" fails the run for K
+   and the flash kernels, whose designs promise it.
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
    prompt (256-token chunks) for 64 new tokens twice across reset()
-   (identical tokens), then one top-p generation; A, B and C, and no other
-   kernel, must have launched.  The same with fuse_ffn on (K besides; the
-   launches of one decode step exactly K 42, A 85, C 42; greedy tokens
+   (identical tokens), then one top-p generation; A, B, C and M, and no
+   other kernel, must have launched.  The same with fuse_ffn on (K
+   besides; the launches of one decode step exactly K 42, A 85, C 42,
+   M 42; greedy tokens
    equal the unfused path's up to a near-tie), then speculative greedy
    decoding (k = 4, K at T = 5) on that engine and one BatchScheduler wave
    of 8 requests on the paged bf16 pool (K), all on the loaded params.
@@ -67,7 +77,7 @@ Phases (any failure ends the run with a non-zero exit):
    Engine and continued for 16 tokens as the uninterrupted engine
    continues.  One greedy run on an f32 cache, whose tokens are the bf16
    path's.  The int8 path with fuse_ffn on (the launches of one decode
-   step exactly K 28, D 56, E 1, G 28; greedy tokens equal the unfused
+   step exactly K 28, D 56, E 1, G 28, M 28; greedy tokens equal the unfused
    path's up to a near-tie) and one BatchScheduler wave of 16 requests on
    the int8 pool (L, 28 launches a step of 9..16 rows).  Then the chat
    CLI with --cache-dtype int8, and with --cache-dtype int4 --spec-k 4.
@@ -159,6 +169,15 @@ REPLACES = {
                     "ffn_fused_xe_stacked",
     "ffn_fused": "lmrs_tpu/kernels/fused_ffn.py:242 _ffn_kernel via "
                  "ffn_fused_pallas",
+    "flash_merge": "lmrs_tpu/kernels/flash_attention.py:140 _flash_kernel "
+                   "and :322 _flash_kernel_batched: the online-softmax carry "
+                   "across their sequential sequence-block grid steps; "
+                   "lmrs_tpu/models/transformer.py:1033 the cp merge of "
+                   "flash_decode_batched's partials",
+    "flash_attention_batched_lse": "lmrs_tpu/kernels/flash_attention.py:503 "
+                                   "_flash_kernel_batched with lse=True and "
+                                   "seq_base, via flash_decode_batched("
+                                   "seq_base=, return_lse=True)",
 }
 # B and F also compute the unstacked _q4_kernel / _q8_kernel that the JAX
 # package reaches through qmatmul_pallas (a batched step's classifier); E
@@ -173,39 +192,57 @@ SOURCES = {name: f"lmrs_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["ffn_fused_xe"] = SOURCES["ffn_fused"]              # one source
 for _name in ("flash_attention_i8", "flash_attention_i4",
               "flash_attention_f32", "flash_attention_batched",
-              "flash_attention_paged"):
+              "flash_attention_paged", "flash_merge",
+              "flash_attention_batched_lse"):
     SOURCES[_name] = SOURCES["flash_attention"]             # one template
 # kernel C's f32 instantiation shares C's wrapper and launch count: its
-# launches are those of the path that runs an f32 cache
-COUNTER = {"flash_attention_f32": "flash_attention"}
-Q4_PATH = {"q4_gemv", "q4_gemm", "flash_attention"}
-Q4_I4_PATH = {"q4_gemv", "q4_gemm", "flash_attention_i4"}
-Q8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention"}
-Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8"}
-Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4"}
+# launches are those of the path that runs an f32 cache.  No main path
+# calls the cp partials form (B1: seq_base, return_lse), which runs only in
+# phase 2's checks; its row in the kernels line reports kernel I's
+# launches on the main path, every one a decode call through the same
+# split pass, and says so (`launches_are`)
+COUNTER = {"flash_attention_f32": "flash_attention",
+           "flash_attention_batched_lse": "flash_attention_batched"}
+LAUNCHES_ARE = {"flash_attention_batched_lse": (
+    "kernel I's launches on the main path, each its split pass (the "
+    "__global__ function B1 launches); no main path calls B1's form "
+    "(seq_base, return_lse)")}
+# every path decodes: a decode call of C, G, H, I or J is the split pass
+# and kernel M's merge (flash_merge), one launch each
+Q4_PATH = {"q4_gemv", "q4_gemm", "flash_attention", "flash_merge"}
+Q4_I4_PATH = {"q4_gemv", "q4_gemm", "flash_attention_i4", "flash_merge"}
+Q8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention",
+           "flash_merge"}
+Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8",
+              "flash_merge"}
+Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4",
+              "flash_merge"}
 GEMV_T = (1, 4, 5)      # 5: a speculative verify window of k = 4
 # batched serving paths: (kernels that must launch, kernels that may).  A
 # prefill chunk's classifier runs on its one logits row (A or E); a prompt
 # tail of up to 8 rows takes the T <= 8 kernels
-GEMMA_PAGED = ({"q4_gemv", "q4_gemm", "flash_attention_paged"}, set())
+GEMMA_PAGED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
+                "flash_merge"}, set())
 GEMMA_CONTIG = ({"q4_gemv", "q4_gemm", "flash_attention",
-                 "flash_attention_batched"}, set())
-LLAMA_PAGED = ({"q8_gemm", "q8_gemv", "flash_attention_paged"},
-               {"q8_gemv_i8"})
+                 "flash_attention_batched", "flash_merge"}, set())
+LLAMA_PAGED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
+                "flash_merge"}, {"q8_gemv_i8"})
 # the fused-FFN paths: the main path's kernels and K; the launches of one
 # decode step after the prompt, exactly
 GEMMA_FUSED = Q4_PATH | {"ffn_fused_xe"}
 GEMMA_FUSED_TOKEN = {"q4_gemv": 85, "flash_attention": 42,
-                     "ffn_fused_xe": 42}
+                     "flash_merge": 42, "ffn_fused_xe": 42}
 LLAMA_I8_FUSED = Q8_I8_PATH | {"ffn_fused_xe"}
 LLAMA_I8_FUSED_TOKEN = {"q8_gemv_i8": 56, "q8_gemv": 1,
-                        "flash_attention_i8": 28, "ffn_fused_xe": 28}
+                        "flash_attention_i8": 28, "flash_merge": 28,
+                        "ffn_fused_xe": 28}
 # batched: a prefill tail of 9..16 rows takes L, of up to 8 rows K; a step
 # with fewer than 9 rows left takes K
 GEMMA_PAGED_FUSED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
-                      "ffn_fused_xe"}, {"ffn_fused"})
+                      "flash_merge", "ffn_fused_xe"}, {"ffn_fused"})
 LLAMA_PAGED_FUSED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
-                      "ffn_fused"}, {"q8_gemv_i8", "ffn_fused_xe"})
+                      "flash_merge", "ffn_fused"},
+                     {"q8_gemv_i8", "ffn_fused_xe"})
 FFN_T = {"ffn_fused_xe": (1, 5, 8), "ffn_fused": (9, 16)}
 # the slots' positions of the batched kernel checks: 0 to 6,000, some past
 # Gemma's 4,096-row window; pages of 512 rows and of 56 (a 64-row tile then
@@ -543,11 +580,23 @@ def flash_cache(torch, model, cache, S=8192):
             2 * KH * HD * (2 if cache == "bf16" else 4))
 
 
+def flash_split():
+    """(rows per split, the flash_merge module: the package's `flash_merge`
+    name is kernel M's wrapper)."""
+    import importlib
+
+    fm = importlib.import_module("lmrs_tpu_torch.kernels.flash_merge")
+    return fm.SPLIT, fm
+
+
 def check_flash_kernel(torch, timer, peak, model, cache):
     """Kernel C (bf16 or f32 cache), G (int8 cache) or H (int4 cache) at
     `model`'s attention geometry, S = 8,192, T 1, 5 and 256 at pos 1,100
     and 6,000, against its plain version with the per-element bound of its
-    bound function (flash_attention_tol and its int8 / int4 forms)."""
+    bound function (flash_attention_tol and its int8 / int4 forms); then,
+    untimed, T 1 and 5 with the last live row on and next to a split
+    boundary (pos = 3*SPLIT - 1, 3*SPLIT) and, under a window, with the
+    window's first row there (pos = window + 2*SPLIT - 1, + 2*SPLIT)."""
     import torch.nn.functional as F
 
     H, KH, HD = model["H"], model["KH"], model["HD"]
@@ -555,9 +604,30 @@ def check_flash_kernel(torch, timer, peak, model, cache):
     name, fns, tensors, k_lib, v_lib, row_bytes = flash_cache(torch, model,
                                                               cache)
     kernel_fn, plain_fn, tol_fn = fns
+    split, fm = flash_split()
+    S = tensors[0].shape[1]
     gen = torch.Generator(device="cuda").manual_seed(2)
     kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
     cases = []
+    edges = [3 * split - 1, 3 * split]
+    if window is not None:
+        edges += [window + 2 * split - 1, window + 2 * split]
+    for pos in edges:
+        for t_q in (1, 5):
+            q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
+            got = kernel_fn(q, *tensors, 0, pos, **kw)
+            diff = (got - plain_fn(q, *tensors, 0, pos, **kw)).abs()
+            ratio = (diff / tol_fn(q, *tensors, 0, pos, **kw)).max().item()
+            log(f"  {name:19s} pos={pos:5d} T={t_q}: split boundary "
+                f"({split} rows a split), worst err/tol {ratio:.3f}")
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{name} T={t_q} pos={pos} (split "
+                                   f"boundary): error {ratio} of the "
+                                   f"tolerance")
+            cases.append(dict(kernel=name, model=model["name"],
+                              shape=f"split edge pos{pos}", T=t_q,
+                              max_abs_err=diff.max().item(),
+                              err_over_tol=ratio))
     for t_q in (1, 5, 256):
         for pos in (1100, 6000):
             q = torch.randn(t_q, H, HD, device="cuda", generator=gen)
@@ -589,18 +659,22 @@ def check_flash_kernel(torch, timer, peak, model, cache):
             nbytes = rows_read * row_bytes + 2 * t_q * H * HD * 4
             flops = 4.0 * pairs * H * HD
             b_ms, b_by = bound_ms(nbytes, flops, peak["bf16"], peak["mem"])
+            # the grid: query blocks x kv heads x splits (1: unsplit)
+            splits = (fm.n_splits_host(pos, t_q, S, window, split)
+                      if split and H // KH * t_q <= fm.BQ else 1)
             case = dict(kernel=name, model=model["name"], shape=f"pos{pos}",
                         T=t_q, max_abs_err=err, tol_min=tol.min().item(),
                         err_over_tol=ratio, ms=timer(run),
                         plain_ms=timer(plain), library_ms=timer(lib),
                         bound_ms=b_ms, bound_by=b_by,
-                        blocks=((H // KH * t_q + 63) // 64) * KH)
+                        blocks=((H // KH * t_q + 63) // 64) * KH * splits,
+                        splits=splits)
             log(f"  {name:19s} pos={pos:5d} T={t_q:3d}: max_abs_err "
                 f"{err:.3e} (worst err/tol {ratio:.3f}, tol >= "
                 f"{case['tol_min']:.3e})  kernel {case['ms']:.4f} ms  "
                 f"plain {case['plain_ms']:.4f}  library "
                 f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})  "
-                f"blocks {case['blocks']}")
+                f"blocks {case['blocks']}, splits {splits}")
             if not ratio <= 1.0:
                 raise RuntimeError(f"{name} T={t_q} pos={pos}: error {ratio} "
                                    f"of the tolerance")
@@ -778,9 +852,16 @@ def check_batched_kernels(torch, timer, peak, model, cache):
     live = [p + 5 for p in BATCH_POS]           # rows of a T = 5 call
     pools = {psz: to_pool(torch, contig, psz, live)
              for psz in (512, SMALL_PAGE)}
+    split, fm = flash_split()
     gen = torch.Generator(device="cuda").manual_seed(6)
     cases = []
     for t_q in (1, 5):
+        # the split axis of each layout (sized from S: no host position)
+        splits = {"per-slot": fm.n_splits_device(k.shape[2], t_q, window,
+                                                 split)}
+        for psz, pool in pools.items():
+            splits[f"page{psz}"] = fm.n_splits_device(
+                pool[2].shape[1] * psz, t_q, window, split)
         q = torch.randn(b, t_q, H, HD, device="cuda", generator=gen)
         pos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
         runs = []
@@ -891,7 +972,7 @@ def check_batched_kernels(torch, timer, peak, model, cache):
                         same_as_single=same_single, same_as_i=same_i,
                         slot_independent=independent, bound_ms=b_ms,
                         bound_by=b_by, blocks=((H // KH * t_q + 63) // 64)
-                        * KH * b)
+                        * KH * b * splits[shape], splits=splits[shape])
             if shape != f"page{SMALL_PAGE}":
                 case.update(ms=timer(run), plain_ms=timer(plain),
                             library_ms=timer(lib))
@@ -903,7 +984,8 @@ def check_batched_kernels(torch, timer, peak, model, cache):
             log(f"  {name:23s} {model['name']} {cache:4s} {shape:8s} "
                 f"T={t_q}: err/tol {ratio:.3f}  same as C/G/H "
                 f"{same_single}  same as I {same_i}  slot-independent "
-                f"{independent}  {times}bound {b_ms:.4f} ({b_by})")
+                f"{independent}  {times}bound {b_ms:.4f} ({b_by})  "
+                f"blocks {case['blocks']}, splits {splits[shape]}")
             if not (ratio <= 1.0 and same_single and same_i and independent):
                 raise RuntimeError(f"{name} {model['name']} {cache} {shape} "
                                    f"T={t_q} failed its checks: {case}")
@@ -953,6 +1035,209 @@ def check_batched_row_independence(torch):
         log(f"  {name}: rows of a T=5 call {'equal' if ok else 'DIFFER from'}"
             f" the rows alone")
     return same
+
+
+MASK_NEG = -3.4028234663852886e38     # float32 min: the JAX _MASK_NEG
+N_SHARDS = 4
+
+
+def cut_shards(k, v, ks=None, vs=None, n_shards=N_SHARDS):
+    """The `n_shards` sequence shards of a per-slot cache (B, L, S, row),
+    scales (B, L, KH, S): (seq_base, k, v, k_scale, v_scale) of each, cut
+    once into contiguous tensors."""
+    shard = k.shape[2] // n_shards
+
+    def cut(a, axis, i):        # rows on axis 2, scales on 3
+        return None if a is None else \
+            a.narrow(axis, i * shard, shard).contiguous()
+    return [(i * shard, cut(k, 2, i), cut(v, 2, i), cut(ks, 3, i),
+             cut(vs, 3, i)) for i in range(n_shards)]
+
+
+def shard_calls(q, shards, pos, kw, plain=False):
+    """B1 on each shard of `cut_shards`: flash_attention_batched(...,
+    seq_base=, return_lse=True), or its plain version -> [(acc, m, l)]."""
+    from lmrs_tpu_torch.kernels.flash_attention_batched import (
+        flash_attention_batched, flash_attention_batched_plain)
+
+    fn = flash_attention_batched_plain if plain else flash_attention_batched
+    return [fn(q, k, v, 0, pos, k_scale=ks, v_scale=vs, seq_base=base,
+               return_lse=True, **kw) for base, k, v, ks, vs in shards]
+
+
+def sharded_lse(torch, q, shards, pos, kw, plain=False):
+    """The shards' (acc, m, l), stacked along a new axis 1 as kernel M
+    takes them."""
+    parts = shard_calls(q, shards, pos, kw, plain)
+    return tuple(torch.stack([p[j] for p in parts], dim=1) for j in range(3))
+
+
+def check_cp_partials(torch, timer, peak, model):
+    """B1, the cp partials form of kernel I, at `model`'s geometry: phase
+    2's per-slot bf16 cache (8 slots at BATCH_POS, S = 6,144) cut into 4
+    shards of 1,536 rows, T 1 and 5.  Each shard's raw pieces against the
+    plain version (acc within `flash_attention_batched_tol(...,
+    return_lse=True)` on rows with a live key, m within 1e-5, l within
+    1e-4 relative; m == _MASK_NEG exactly where the shard holds no live
+    key, which must happen: slot 0 at pos 0 never reaches shards 1-3), then
+    the shards merged by kernel M against kernel I on the whole cache and
+    against the plain version, within I's bound (two levels of merge round
+    differently: not bit for bit).  Timed at T = 1: the four shard calls,
+    on shards cut once before the timer."""
+    from lmrs_tpu_torch.kernels.flash_attention_batched import (
+        flash_attention_batched, flash_attention_batched_plain,
+        flash_attention_batched_tol)
+    from lmrs_tpu_torch.kernels.flash_merge import flash_merge
+
+    H, KH, HD = model["H"], model["KH"], model["HD"]
+    window = model["WINDOW"]
+    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=model["SOFTCAP"],
+              window=window)
+    b = len(BATCH_POS)
+    (k, v, _, _), _, row_bytes = batched_cache(torch, model, "bf16",
+                                               BATCH_POS)
+    pos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+    shards = cut_shards(k, v)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cases = []
+    for t_q in (1, 5):
+        q = torch.randn(b, t_q, H, HD, device="cuda", generator=gen)
+        acc, m, l = sharded_lse(torch, q, shards, pos, kw)
+        pacc, pm, pl = sharded_lse(torch, q, shards, pos, kw, plain=True)
+        tol = torch.stack([flash_attention_batched_tol(
+            q, ks, vs, 0, pos, seq_base=base, return_lse=True, **kw)
+            for base, ks, vs, _, _ in shards], dim=1)
+        torch.cuda.synchronize()
+        live = pm != MASK_NEG
+        ratio = ((acc - pacc).abs() / tol)[live].max().item()
+        ok = (torch.equal(m == MASK_NEG, ~live) and ratio <= 1.0
+              and ((m - pm).abs() <= 1e-5)[live].all().item()
+              and ((l - pl).abs() <= 1e-4 * pl)[live].all().item()
+              and (acc[~live] == 0).all().item()
+              and (l[~live] == 0).all().item()
+              and (m[0, 1:] == MASK_NEG).all().item())
+        merged = flash_merge(acc, m, l)
+        got_i = flash_attention_batched(q, k, v, 0, pos, **kw)
+        want = flash_attention_batched_plain(q, k, v, 0, pos, **kw)
+        tol_i = flash_attention_batched_tol(q, k, v, 0, pos, **kw)
+        torch.cuda.synchronize()
+        r_i = ((merged - got_i).abs() / tol_i).max().item()
+        r_plain = ((merged - want).abs() / tol_i).max().item()
+        dead = int((~live).sum())
+        log(f"  flash_attention_batched_lse {model['name']} bf16 "
+            f"{N_SHARDS} shards T={t_q}: shards vs plain: acc err/tol "
+            f"{ratio:.3f}, {dead} rows with no live key at m == _MASK_NEG "
+            f"{ok}; merged by M vs I err/tol {r_i:.3f}, vs plain "
+            f"{r_plain:.3f}")
+        if not (ok and r_i <= 1.0 and r_plain <= 1.0):
+            raise RuntimeError(f"B1 {model['name']} T={t_q}: shards ok "
+                               f"{ok}, merged vs I {r_i}, vs plain "
+                               f"{r_plain}")
+        case = dict(kernel="flash_attention_batched_lse",
+                    model=model["name"], shape=f"bf16 {N_SHARDS} shards",
+                    T=t_q, B=b, max_abs_err=(acc - pacc).abs()[live].max()
+                    .item(), err_over_tol=ratio,
+                    merged_vs_i_err_over_tol=r_i,
+                    merged_vs_plain_err_over_tol=r_plain,
+                    rows_without_live_key=dead)
+        if t_q == 1:
+            rows_read = pairs = 0
+            for p in BATCH_POS:
+                r, pr = attention_work(t_q, p, window)
+                rows_read, pairs = rows_read + r, pairs + pr
+            # live rows once, q once per shard, the shards' acc, m and l
+            nbytes = (rows_read * row_bytes
+                      + N_SHARDS * b * t_q * H * (2 * HD + 2) * 4)
+            b_ms, b_by = bound_ms(nbytes, 4.0 * pairs * H * HD,
+                                  peak["bf16"], peak["mem"])
+            case.update(
+                ms=timer(lambda: shard_calls(q, shards, pos, kw)),
+                plain_ms=timer(lambda: shard_calls(q, shards, pos, kw,
+                                                   plain=True)),
+                library_ms=None, bound_ms=b_ms, bound_by=b_by)
+            log(f"    timed: kernel {case['ms']:.4f} ms (4 shard calls)  "
+                f"plain {case['plain_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+        cases.append(case)
+    del k, v, shards
+    torch.cuda.empty_cache()
+    return cases
+
+
+def check_merge(torch, timer, peak, model):
+    """Kernel M against its plain version on the workspaces the main path
+    gives it: the split pass of C at `model`'s geometry (bf16 cache, S =
+    8,192, T = 1 at pos 6,000) and of I (8 slots at BATCH_POS), within
+    `flash_merge_tol`, raw and normalized.  Timed on C's workspace."""
+    from lmrs_tpu_torch.kernels.flash_merge import (flash_merge,
+                                                    flash_merge_plain,
+                                                    flash_merge_tol)
+
+    H, KH, HD = model["H"], model["KH"], model["HD"]
+    window, softcap = model["WINDOW"], model["SOFTCAP"]
+    split, fm = flash_split()
+    kw = dict(n_kv=KH, scale=HD ** -0.5, softcap=softcap, window=window)
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    _, _, tensors, _, _, _ = flash_cache(torch, model, "bf16")
+    S = tensors[0].shape[1]
+    (k, v, _, _), _, _ = batched_cache(torch, model, "bf16", BATCH_POS)
+    b = len(BATCH_POS)
+    pos_b = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+    common = dict(n_kv=KH, row=KH * HD, seq_base=0, table=None, maxp=0,
+                  psz=0, split=split, scale=kw["scale"], softcap=softcap,
+                  window=window, ctype=fm.BF16, what="split pass")
+    work = {
+        "pos6000": fm.split_pass(
+            torch.randn(1, 1, H, HD, device="cuda", generator=gen),
+            tensors[0][0], tensors[1][0], None, None, s_len=S, pos=6000,
+            slot_stride=0, scale_slot_stride=0,
+            n_split=fm.n_splits_host(6000, 1, S, window, split),
+            **common),
+        "8 slots": fm.split_pass(
+            torch.randn(b, 1, H, HD, device="cuda", generator=gen),
+            k[0, 0], v[0, 0], None, None, s_len=k.shape[2], pos=pos_b,
+            slot_stride=k.shape[2] * KH * HD, scale_slot_stride=0,
+            n_split=fm.n_splits_device(k.shape[2], 1, window, split),
+            **common)}
+    cases = []
+    for shape, (acc, m, l) in work.items():
+        ratios = []
+        for raw in (False, True):
+            got = flash_merge(acc, m, l, raw=raw)
+            want = flash_merge_plain(acc, m, l, raw=raw)
+            tol = flash_merge_tol(acc, m, l, raw=raw)
+            g0, w0 = (got[0], want[0]) if raw else (got, want)
+            torch.cuda.synchronize()
+            diff = (g0 - w0).abs()
+            ratios.append(torch.where(diff == 0, 0.0, diff / tol).max()
+                          .item())
+            if raw and not torch.equal(got[1], want[1]):
+                ratios.append(float("inf"))
+        ratio = max(ratios)
+        live = int((m != float("-inf")).sum())
+        n = m.shape[1]
+        case = dict(kernel="flash_merge", model=model["name"], shape=shape,
+                    T=1, splits=n, live_split_rows=live,
+                    max_abs_err=(flash_merge(acc, m, l)
+                                 - flash_merge_plain(acc, m, l)).abs().max()
+                    .item(), err_over_tol=ratio)
+        # live splits' acc and l, every split's m, the output
+        nbytes = 4 * (live * (HD + 1) + m.numel() + acc.shape[0] * H * HD)
+        b_ms, b_by = bound_ms(nbytes, 2.0 * live * HD, peak["f32"],
+                              peak["mem"])
+        case.update(ms=timer(lambda: flash_merge(acc, m, l)),
+                    plain_ms=timer(lambda: flash_merge_plain(acc, m, l)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        log(f"  flash_merge {model['name']} {shape} ({n} splits, {live} "
+            f"live split rows): worst err/tol {ratio:.3f}  kernel "
+            f"{case['ms']:.4f} ms  plain {case['plain_ms']:.4f}  bound "
+            f"{b_ms:.4f} ({b_by})")
+        if not ratio <= 1.0:
+            raise RuntimeError(f"flash_merge {shape}: {ratio} of the "
+                               f"tolerance")
+        cases.append(case)
+    del work, k, v, tensors
+    torch.cuda.empty_cache()
+    return cases
 
 
 def synthetic_tokenizer(path: Path, vocab_size: int):
@@ -1660,13 +1945,19 @@ def main() -> int:
     for model in (GEMMA, LLAMA):
         for cache in ("bf16", "f32", "int8", "int4"):
             cases += check_batched_kernels(torch, timer, peak, model, cache)
+    log("phase 2: the cp partials (B1) on 4 sequence shards, and kernel M "
+        "on the split pass's workspaces (Gemma-2-9B)")
+    cases += check_cp_partials(torch, timer, peak, GEMMA)
+    cases += check_merge(torch, timer, peak, GEMMA)
     log("phase 2: is a row of a T=5 call the row computed alone?")
     row_independent = check_row_independence(torch)
     row_independent.update(check_batched_row_independence(torch))
-    if not all(ok for name, ok in row_independent.items()
-               if name.startswith("ffn_fused_xe")):
-        raise RuntimeError(f"kernel K breaks row independence: "
-                           f"{row_independent}")
+    # K and the flash kernels promise it by design (fixed split rows, a
+    # merge in split order): a "no" there fails the run
+    promised = {name: ok for name, ok in row_independent.items()
+                if name.startswith(("ffn_fused_xe", "flash_attention"))}
+    if not all(promised.values()):
+        raise RuntimeError(f"a kernel breaks row independence: {promised}")
     del timer
     torch.cuda.empty_cache()
 
@@ -1833,6 +2124,14 @@ def main() -> int:
                          [(g, "ffn", 1, GEMMA["L"])]),
         "ffn_fused": ("llama3.2-3b batched decode step of 16 rows, its "
                       "FFNs: 28 x T=16", [(ll, "ffn", 16, LLAMA["L"])]),
+        "flash_merge": ("gemma2-9b decode token at pos 6000: 42 x the "
+                        "merge of kernel C's T=1 split pass",
+                        [(g, "pos6000", 1, GEMMA["L"])]),
+        "flash_attention_batched_lse": (
+            f"gemma2-9b batched decode step, {len(BATCH_POS)} slots at pos "
+            f"{BATCH_POS[0]}..{BATCH_POS[-1]}, bf16 per-slot cache cut into "
+            f"{N_SHARDS} sequence shards, return_lse on each: 42 x T=1",
+            [(g, f"bf16 {N_SHARDS} shards", 1, GEMMA["L"])]),
     }
 
     def path_launches(name):
@@ -1848,12 +2147,17 @@ def main() -> int:
         mine = [c for c in cases if c["kernel"] == name]
         what, plan = unit[name]
         pick = {(c["model"], c["shape"], c["T"]): c for c in mine}
-        tot = {key: sum(n * pick[(m, s, t)][key] for m, s, t, n in plan)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        tot = {}
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            vals = [n * pick[(m, s, t)][key] for m, s, t, n in plan
+                    if pick[(m, s, t)][key] is not None]
+            tot[key] = sum(vals) if len(vals) == len(plan) else None
         per_kernel.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name],
             launches=path_launches(name),
+            **({"launches_are": LAUNCHES_ARE[name]} if name in LAUNCHES_ARE
+               else {}),
             cli_launches=sum(c.get(name, 0) for c in cli_counts.values()),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             err_over_tol=max(c["err_over_tol"] for c in mine),

@@ -19,17 +19,18 @@
 // prefill chunks.  Design: the cache is read in its merged (S, KH*hd)
 // layout with the row stride passed in.  A block owns one KV head and 64
 // query rows (row r = token r / G, head r % G of the G = H/KH query heads
-// that share the KV head), so every K/V tile read from memory serves all G
-// query heads.  The block walks 64-row K/V tiles from the window start of
-// its first query, max(pos + t_lo - window, 0), to its last live row,
-// pos + t_hi: the window skip and the live clamp of the TPU kernel.  QK^T
-// and PV run as WMMA bf16 16x16x16 products with f32 accumulators; scores,
-// the bf16 p tile and the f32 output accumulator live in shared memory.
-// Each thread issues its K/V tile loads in batches of eight 16-byte loads
-// into registers before storing any, so a block keeps many loads in flight.
+// that share the KV head; 16 rows where G*T <= 16, see "Flash-decoding"),
+// so every K/V tile read from memory serves all G query heads.  The block
+// walks 64-row K/V tiles from the window start of its first query,
+// max(pos + t_lo - window, 0), to its last live row, pos + t_hi: the
+// window skip and the live clamp of the TPU kernel.  QK^T and PV run as
+// WMMA bf16 16x16x16 products with f32 accumulators; scores, the bf16 p
+// tile and the f32 output accumulator live in shared memory.  Each thread
+// issues its K/V tile loads in batches of eight 16-byte loads into
+// registers before storing any, so a block keeps many loads in flight.
 // The QK^T and PV fragment jobs of the 16-row groups that hold real query
-// rows are spread over all four warps: at decode (G*T = 2 of the 64 rows
-// are real) the block's one live group still keeps every warp busy.
+// rows are spread over all four warps, and the softmax gives every query
+// row 8 threads: at decode (G*T = 2 real rows) every warp stays busy.
 // Masked entries get p = 0 and take no part in the running max, so a tile
 // in which a row has no live key adds exactly nothing to that row (the
 // TPU kernel instead adds exp(MASK-MASK) = 1 and relies on a later rescale
@@ -100,12 +101,49 @@
 // written) are never read: they are zero-filled with zero scales in
 // shared memory.  Bound: bytes, the sum over slots of C's (G's, H's).
 //
-// Later: at T = 1 there are only KH blocks per sequence (8 for Gemma-2-9B
-// and Llama-3.2-3B) on 132 SMs; a split along the sequence (flash-
-// decoding) with a merge pass fills the card.
+// Flash-decoding (the split pass and kernel M).  Walked whole, a decode
+// call had only KH blocks per sequence (8 for Gemma-2-9B and Llama-3.2-3B)
+// on 132 SMs, each walking every live tile of its head in turn.  A call
+// with one query block per kv head (G*T <= 64: decode steps and verify
+// windows) now splits along the sequence: the grid gains a split axis, and
+// split s of a block owns the cache rows [(f + s) * SPLIT, (f + s + 1) *
+// SPLIT) of its live range, f the split of its first live row.  SPLIT is a
+// fixed number of rows, a multiple of the 64-row tile (the wrappers'
+// constant, measured on the card): the split boundaries fall on the same rows
+// whatever the position, T or B, and the tiles never cross them.  A split
+// walks its tiles with the arithmetic above unchanged and writes its raw
+// online-softmax pieces, acc (f32, unnormalized), m and l, for its query
+// rows to a workspace that the wrapper allocates; a split with no live row
+// writes m = -inf and l = 0 and exits.  Kernel M (flash_merge_kernel)
+// then merges each query row's splits in increasing split order: m_g =
+// max m_s, w_s = exp(m_s - m_g), out = sum acc_s w_s / sum l_s w_s, a split
+// at m_s = -inf skipped (so it adds exactly nothing).  The host makes one
+// call for both launches (lmrs_flash_decode) over a workspace of one
+// allocation: M called on its own from Python, with its own allocations
+// and checks, about doubled the host's time per decode call (PERF.md).  A
+// row therefore sees the same operations in the same order in any call
+// that holds it: a row of a T = 5 call equals the row alone, and slot b of
+// I or J equals C (G, H) on its rows, bit for bit.  One sequence (C, G, H) sizes its split
+// axis from its host position; I and J size it from S (or, under a window,
+// from window + T) and the splits past a slot's live range exit at once,
+// so no position is read on the host.  Prefill chunks (several query
+// blocks per kv head) fill the card already and are walked whole.  Where
+// G*T <= 16 a block holds 16 query rows instead of 64: a quarter of the q,
+// score, p and output tiles in shared memory, so two blocks share an SM at
+// hd 256 (four at hd 128) and one block's loads overlap another's products;
+// a row sees the same operations in either size of block.
+//
+// The cp partials (B1).  _flash_kernel_batched with lse=True and seq_base
+// (the batched cp step's shard of the sequence) is the split pass with a
+// row base: the operand's row 0 is the global row seq_base (struct Walk),
+// every mask compares global positions, and kernel M merges the shard's
+// splits without the division (raw), a row with no live key in the shard
+// at m = -FLT_MAX (the JAX kernel's _MASK_NEG), acc = l = 0.  Shards then
+// merge as splits do (lmrs_tpu/models/transformer.py:1033-1037).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <math.h>
 #include <mma.h>
 #include <stdint.h>
@@ -116,9 +154,11 @@ using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block
+constexpr int BQ = 64;          // query rows per block (prefill)
+constexpr int BQ_DECODE = 16;   // query rows per block where G*T <= 16
 constexpr int BKV = 64;         // K/V rows per tile
-constexpr int kWarps = 4;       // each warp owns 16 query rows
+constexpr int kWarps = 4;
+constexpr int kRowThreads = 8;  // threads of one query row's softmax
 constexpr int LDP = BKV + 8;    // bf16 stride of the p tile
 constexpr int LDS = BKV + 4;    // f32 stride of the score tile
 
@@ -130,20 +170,21 @@ __host__ __device__ constexpr bool quantized(Cache c) {
   return c == Cache::I8 || c == Cache::I4_HALF || c == Cache::I4_PAIR;
 }
 
-template <int HD, bool Q>
+// the shared memory of a block of QR query rows
+template <int HD, bool Q, int QR>
 struct Smem {
   static constexpr int LDH = HD + 8;   // bf16 stride of the q/k/v tiles
   static constexpr int LDO = HD + 4;   // f32 stride of the output tile
   static constexpr size_t q_off = 0;
-  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * BQ * LDH;
+  static constexpr size_t k_off = q_off + sizeof(__nv_bfloat16) * QR * LDH;
   static constexpr size_t v_off = k_off + sizeof(__nv_bfloat16) * BKV * LDH;
   static constexpr size_t s_off = v_off + sizeof(__nv_bfloat16) * BKV * LDH;
-  static constexpr size_t p_off = s_off + sizeof(float) * BQ * LDS;
-  static constexpr size_t o_off = p_off + sizeof(__nv_bfloat16) * BQ * LDP;
-  static constexpr size_t m_off = o_off + sizeof(float) * BQ * LDO;
-  static constexpr size_t l_off = m_off + sizeof(float) * BQ;
+  static constexpr size_t p_off = s_off + sizeof(float) * QR * LDS;
+  static constexpr size_t o_off = p_off + sizeof(__nv_bfloat16) * QR * LDP;
+  static constexpr size_t m_off = o_off + sizeof(float) * QR * LDO;
+  static constexpr size_t l_off = m_off + sizeof(float) * QR;
   // the tile's scales: quantized caches only
-  static constexpr size_t ks_off = l_off + sizeof(float) * BQ;
+  static constexpr size_t ks_off = l_off + sizeof(float) * QR;
   static constexpr size_t vs_off = ks_off + sizeof(float) * BKV;
   static constexpr size_t bytes = Q ? vs_off + sizeof(float) * BKV : ks_off;
 };
@@ -178,6 +219,20 @@ struct Walk {
   long long scale_slot_stride;  // f32 scales between slots' planes
   const int* table;             // (B, maxp) page table, or nullptr
   int maxp, psz;                // table columns, rows per page
+  int seq_base;                 // the global row of the operand's row 0
+};
+
+// The split pass (see the header note).  rows = 0: no split, the block
+// writes out = acc / l.  rows > 0: split s of a block owns the rows
+// [(f + s) * rows, (f + s + 1) * rows), f the split of its first live row,
+// and writes the raw (acc, m, l) of its query rows to the workspace: acc
+// (B, n, T, H, HD), m and l (B, n, T, H) f32.
+struct Split {
+  int rows;                     // rows per split, a multiple of BKV; or 0
+  int n;                        // splits per block (the grid's split axis)
+  float* acc;
+  float* m;
+  float* l;
 };
 
 // 16 int8 values -> 16 bf16 values (exact) at dst, 16-byte aligned
@@ -255,17 +310,18 @@ __device__ __forceinline__ void store_chunk(__nv_bfloat16* dst, int c,
 // per-slot cache, the layer's (P, psz, row_stride) pool for a paged one;
 // kscale, vscale: the layer's (KH, S) f32 scales of a quantized cache
 // ((P, KH, psz) for a pool), else unused.  q and out are (B, T, H, HD);
-// S is the rows a slot can hold (maxp * psz for a paged one).
-template <int HD, Cache C>
+// S is the rows a slot can hold (maxp * psz for a paged one).  A block
+// holds QR query rows (BQ, or BQ_DECODE where G*T <= 16).
+template <int HD, Cache C, int QR>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
              const void* __restrict__ vc_raw,
              const float* __restrict__ kscale,
              const float* __restrict__ vscale, float* __restrict__ out,
-             int T, int H, int KH, int S, int row_stride, Walk w,
+             int T, int H, int KH, int S, int row_stride, Walk w, Split sp,
              float scale, float softcap, int window) {
   constexpr bool Q = quantized(C);
-  using L = Smem<HD, Q>;
+  using L = Smem<HD, Q, QR>;
   using St = Stripe<HD, C>;
   constexpr int LDH = L::LDH, LDO = L::LDO;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -286,11 +342,12 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   __shared__ int tile_srow[BKV];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int kh = blockIdx.y;
   const int slot = blockIdx.z;
-  const int pos = w.pos ? __ldg(w.pos + slot) : w.pos0;
+  // query 0's position counted in the operand's rows: every mask below
+  // compares rows of the operand, global row = row + seq_base
+  const int pos = (w.pos ? __ldg(w.pos + slot) : w.pos0) - w.seq_base;
   const bool paged = w.table != nullptr;
   q += (size_t)slot * T * H * HD;
   out += (size_t)slot * T * H * HD;
@@ -304,11 +361,36 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   }
   const int G = H / KH;
   const int n_rows = G * T;
-  const int r_first = blockIdx.x * BQ;
-  const int r_last = min(r_first + BQ, n_rows) - 1;
+  const int n_qblk = (n_rows + QR - 1) / QR;
+  const int split = blockIdx.x / n_qblk;   // 0 without a split
+  const int r_first = (blockIdx.x % n_qblk) * QR;
+  const int r_last = min(r_first + QR, n_rows) - 1;
+
+  const int t_lo = r_first / G, t_hi = r_last / G;
+  int kv_lo = window >= 0 ? max(pos + t_lo - window, 0) : 0;
+  int kv_hi = min(pos + t_hi, S - 1);   // last live row (inclusive)
+  if (sp.rows > 0) {
+    // this split's rows of [kv_lo, kv_hi]; its bounds are multiples of
+    // BKV, so the tiles below never cross them
+    const int s0 = (kv_lo / sp.rows + split) * sp.rows;
+    kv_lo = max(kv_lo, s0);
+    kv_hi = min(kv_hi, s0 + sp.rows - 1);
+  }
+  // (slot, split) offset of this block's rows in the workspace
+  const size_t ws_row0 = ((size_t)slot * sp.n + split) * T * H;
+  if (sp.rows > 0 && kv_lo > kv_hi) {
+    // no live row in this split: m = -inf and l = 0 for every query row,
+    // which the merge skips without reading acc
+    for (int r = r_first + tid; r <= r_last; r += kWarps * 32) {
+      const size_t i = ws_row0 + (size_t)(r / G) * H + kh * G + r % G;
+      sp.m[i] = -INFINITY;
+      sp.l[i] = 0.f;
+    }
+    return;
+  }
 
   // q tile -> bf16; running max / sum / output accumulator
-  for (int i = tid; i < BQ * (HD / 4); i += kWarps * 32) {
+  for (int i = tid; i < QR * (HD / 4); i += kWarps * 32) {
     const int r = i / (HD / 4), d = (i % (HD / 4)) * 4;
     const int R = r_first + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -322,24 +404,15 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
     dst[2] = __float2bfloat16_rn(v.z);
     dst[3] = __float2bfloat16_rn(v.w);
   }
-  for (int i = tid; i < BQ * LDO; i += kWarps * 32) os[i] = 0.f;
-  for (int i = tid; i < BQ; i += kWarps * 32) {
+  for (int i = tid; i < QR * LDO; i += kWarps * 32) os[i] = 0.f;
+  for (int i = tid; i < QR; i += kWarps * 32) {
     ms[i] = -INFINITY;
     ls[i] = 0.f;
   }
 
-  const int t_lo = r_first / G, t_hi = r_last / G;
-  const int kv_lo = window >= 0 ? max(pos + t_lo - window, 0) : 0;
-  const int kv_hi = min(pos + t_hi, S - 1);   // last live row (inclusive)
 
   // 16-row groups of this block holding at least one real query row
   const int live_groups = (r_last - r_first) / 16 + 1;
-  // softmax ownership: two lanes per query row, 32 score columns each
-  const int my_row = warp * 16 + (lane >> 1);
-  const int my_col0 = (lane & 1) * (BKV / 2);
-  const int my_R = r_first + my_row;
-  const bool row_ok = my_R < n_rows;
-  const int q_pos = pos + (row_ok ? my_R / G : 0);
 
   for (int kv0 = (kv_lo / BKV) * BKV; kv0 <= kv_hi; kv0 += BKV) {
     __syncthreads();   // previous tile's readers are done with ks/vs
@@ -467,46 +540,61 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
     }
     __syncthreads();
 
-    // online softmax update of my half row (warp w owns rows 16w..16w+15)
-    if (warp < live_groups) {
-      float* srow = ss + my_row * LDS + my_col0;
+    // online softmax update: every thread takes part whatever T is.
+    // kRowThreads threads a query row (row g*16 + tid/8 of live group g),
+    // each with the score columns part, part + 8, ..., one fixed shuffle
+    // tree over the 8: every row sees the same operations in the same
+    // order in any call, so a row of a T = 5 call is the row alone
+    for (int g = 0; g < live_groups; ++g) {
+      const int row = g * 16 + tid / kRowThreads;
+      const int part = tid % kRowThreads;
+      const int R = r_first + row;
+      const bool row_ok = R < n_rows;
+      const int q_pos = pos + (row_ok ? R / G : 0);
+      float* srow = ss + row * LDS;
       float mx = -INFINITY;
-#pragma unroll 8
-      for (int c = 0; c < BKV / 2; ++c) {
-        const int key = kv0 + my_col0 + c;
-        float sv = srow[c] * scale;
-        if constexpr (Q) sv *= ksc[my_col0 + c];
+#pragma unroll
+      for (int col = part; col < BKV; col += kRowThreads) {
+        const int key = kv0 + col;
+        float sv = srow[col] * scale;
+        if constexpr (Q) sv *= ksc[col];
         if (softcap > 0.f) sv = tanhf(sv / softcap) * softcap;
         const bool live = row_ok && key <= q_pos && key >= kv_lo &&
                           (window < 0 || q_pos - key <= window);
         sv = live ? sv : -INFINITY;
-        srow[c] = sv;
+        srow[col] = sv;
         mx = fmaxf(mx, sv);
       }
-      const float m_old = ms[my_row];
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+#pragma unroll
+      for (int o = 1; o < kRowThreads; o *= 2)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = ms[row];
       const float m_new = fmaxf(m_old, mx);
       const float alpha = (m_new == -INFINITY) ? 1.f : expf(m_old - m_new);
       float sum = 0.f;
-      __nv_bfloat16* prow = ps + my_row * LDP + my_col0;
-#pragma unroll 8
-      for (int c = 0; c < BKV / 2; ++c) {
-        const float sv = srow[c];
+      __nv_bfloat16* prow = ps + row * LDP;
+#pragma unroll
+      for (int col = part; col < BKV; col += kRowThreads) {
+        const float sv = srow[col];
         const float p = (sv == -INFINITY) ? 0.f : expf(sv - m_new);
         sum += p;
         if constexpr (Q)   // in-range scales are finite, the others 0
-          prow[c] = __float2bfloat16_rn(p * vsc[my_col0 + c]);
+          prow[col] = __float2bfloat16_rn(p * vsc[col]);
         else
-          prow[c] = __float2bfloat16_rn(p);
+          prow[col] = __float2bfloat16_rn(p);
       }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      if ((lane & 1) == 0) {
-        ms[my_row] = m_new;
-        ls[my_row] = ls[my_row] * alpha + sum;
+      // every lane of the row ends with the same sum (m_old is read by
+      // all of them before these shuffles, written after them)
+#pragma unroll
+      for (int o = 1; o < kRowThreads; o *= 2)
+        sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (part == 0) {
+        ms[row] = m_new;
+        ls[row] = ls[row] * alpha + sum;
       }
-      float* orow = os + my_row * LDO + (lane & 1) * (HD / 2);
+      float* orow = os + row * LDO;
 #pragma unroll 8
-      for (int d = 0; d < HD / 2; ++d) orow[d] *= alpha;
+      for (int d = part; d < HD; d += kRowThreads) orow[d] *= alpha;
     }
     __syncthreads();
 
@@ -533,8 +621,23 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   }
   __syncthreads();
 
+  if (sp.rows > 0) {
+    // the split's raw pieces for the valid rows of this block
+    for (int i = tid; i < QR * HD; i += kWarps * 32) {
+      const int r = i / HD, d = i % HD;
+      const int R = r_first + r;
+      if (R >= n_rows) continue;
+      const size_t row = ws_row0 + (size_t)(R / G) * H + kh * G + R % G;
+      sp.acc[row * HD + d] = os[r * LDO + d];
+      if (d == 0) {
+        sp.m[row] = ms[r];
+        sp.l[row] = ls[r];
+      }
+    }
+    return;
+  }
   // out = o / l for the valid rows of this block
-  for (int i = tid; i < BQ * HD; i += kWarps * 32) {
+  for (int i = tid; i < QR * HD; i += kWarps * 32) {
     const int r = i / HD, d = i % HD;
     const int R = r_first + r;
     if (R >= n_rows) continue;
@@ -543,39 +646,134 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   }
 }
 
-template <int HD, Cache C>
-int launch(const float* q, const void* k, const void* v, const float* ks,
-           const float* vs, float* out, int B, int T, int H, int KH, int S,
-           int row_stride, const Walk& w, float scale, float softcap,
-           int window, cudaStream_t stream) {
-  constexpr size_t bytes = Smem<HD, quantized(C)>::bytes;
+// Kernel M: one query row (r = t*H + h = blockIdx.x, slot b =
+// blockIdx.y) of the split pass's workspace merged over its n splits, 64
+// of its hd values a block (blockIdx.z): m_g = max m_s, w_s = exp(m_s -
+// m_g), out = sum acc_s w_s / sum l_s w_s, the sums taken in increasing
+// split order.  A split with m_s = -inf holds no live key for the row: its
+// weight is 0, its acc (which may hold anything) is never read, and it
+// adds exactly nothing.  raw (out_m != nullptr): out = sum acc_s w_s,
+// out_m = m_g, out_l = sum l_s w_s, and a row with no live key anywhere
+// gets m = -FLT_MAX (the JAX kernel's _MASK_NEG), acc = l = 0.  The
+// weights are found by all threads at once and kept in shared memory, so
+// the sums' loads do not wait on m.
+constexpr int kMergeThreads = 64;
+
+__global__ void __launch_bounds__(kMergeThreads)
+flash_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
+                   const float* __restrict__ l, float* __restrict__ out,
+                   float* __restrict__ out_m, float* __restrict__ out_l,
+                   int n, int rows, int hd) {
+  extern __shared__ float wsplit[];   // n split weights
+  __shared__ float warp_m[kMergeThreads / 32];
+  __shared__ int warp_end[kMergeThreads / 32];
+  const int r = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
+  const size_t first = (size_t)b * n * rows + r;   // split s at s * rows
+  // the largest m, and the end of the live splits
+  float mg = -INFINITY;
+  int end = 0;
+  for (int s = tid; s < n; s += kMergeThreads) {
+    const float ms = __ldg(m + first + (size_t)s * rows);
+    if (ms != -INFINITY) {
+      mg = fmaxf(mg, ms);
+      end = s + 1;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) {
+    mg = fmaxf(mg, __shfl_xor_sync(0xffffffffu, mg, o));
+    end = max(end, __shfl_xor_sync(0xffffffffu, end, o));
+  }
+  if (tid % 32 == 0) {
+    warp_m[tid / 32] = mg;
+    warp_end[tid / 32] = end;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < kMergeThreads / 32; ++i) {
+    mg = fmaxf(mg, warp_m[i]);
+    end = max(end, warp_end[i]);
+  }
+  for (int s = tid; s < end; s += kMergeThreads) {
+    const float ms = __ldg(m + first + (size_t)s * rows);
+    wsplit[s] = ms == -INFINITY ? 0.f : expf(ms - mg);
+  }
+  __syncthreads();
+  const int d = blockIdx.z * kMergeThreads + tid;
+  float num = 0.f, den = 0.f;
+#pragma unroll 8
+  for (int s = 0; s < end; ++s) {
+    const float ws = wsplit[s];
+    const size_t i = first + (size_t)s * rows;
+    // a zero weight adds exactly nothing: fmaf(0, 0, x) = x
+    const float a = ws != 0.f && d < hd ? __ldg(acc + i * hd + d) : 0.f;
+    const float ls = ws != 0.f ? __ldg(l + i) : 0.f;
+    den = fmaf(ls, ws, den);
+    num = fmaf(a, ws, num);
+  }
+  const size_t o = (size_t)b * rows + r;
+  if (d < hd) out[o * hd + d] = out_m ? num : num / den;
+  if (out_m && blockIdx.z == 0 && tid == 0) {
+    out_m[o] = end ? mg : -FLT_MAX;
+    out_l[o] = den;
+  }
+}
+
+template <int HD, Cache C, int QR>
+int launch_rows(const float* q, const void* k, const void* v,
+                const float* ks, const float* vs, float* out, int B, int T,
+                int H, int KH, int S, int row_stride, const Walk& w,
+                const Split& sp, float scale, float softcap, int window,
+                cudaStream_t stream) {
+  constexpr size_t bytes = Smem<HD, quantized(C), QR>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<HD, C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_kernel<HD, C, QR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const int G = H / KH;
-  const dim3 grid((G * T + BQ - 1) / BQ, KH, B);
-  flash_kernel<HD, C><<<grid, kWarps * 32, bytes, stream>>>(
-      q, k, v, ks, vs, out, T, H, KH, S, row_stride, w, scale, softcap,
+  const long long blocks_x =
+      (long long)((G * T + QR - 1) / QR) * (sp.rows > 0 ? sp.n : 1);
+  if (blocks_x > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)blocks_x, KH, B);
+  flash_kernel<HD, C, QR><<<grid, kWarps * 32, bytes, stream>>>(
+      q, k, v, ks, vs, out, T, H, KH, S, row_stride, w, sp, scale, softcap,
       window);
   return (int)cudaGetLastError();
+}
+
+// a block of BQ_DECODE query rows where they hold all G*T: a quarter of
+// the q, score, p and output tiles, so two blocks share an SM at hd 256
+// (four at hd 128) and the loads of one overlap the other's products
+template <int HD, Cache C>
+int launch(const float* q, const void* k, const void* v, const float* ks,
+           const float* vs, float* out, int B, int T, int H, int KH, int S,
+           int row_stride, const Walk& w, const Split& sp, float scale,
+           float softcap, int window, cudaStream_t stream) {
+  if ((H / KH) * T <= BQ_DECODE)
+    return launch_rows<HD, C, BQ_DECODE>(q, k, v, ks, vs, out, B, T, H, KH,
+                                         S, row_stride, w, sp, scale,
+                                         softcap, window, stream);
+  return launch_rows<HD, C, BQ>(q, k, v, ks, vs, out, B, T, H, KH, S,
+                                row_stride, w, sp, scale, softcap, window,
+                                stream);
 }
 
 template <Cache C>
 int dispatch(const float* q, const void* k, const void* v, const float* ks,
              const float* vs, float* out, int B, int T, int H, int KH,
-             int hd, int S, int row_stride, const Walk& w, float scale,
-             float softcap, int window, cudaStream_t stream) {
+             int hd, int S, int row_stride, const Walk& w,
+             const Split& sp, float scale, float softcap, int window,
+             cudaStream_t stream) {
   switch (hd) {
     case 64:
       return launch<64, C>(q, k, v, ks, vs, out, B, T, H, KH, S, row_stride,
-                            w, scale, softcap, window, stream);
+                            w, sp, scale, softcap, window, stream);
     case 128:
       return launch<128, C>(q, k, v, ks, vs, out, B, T, H, KH, S,
-                             row_stride, w, scale, softcap, window, stream);
+                             row_stride, w, sp, scale, softcap, window, stream);
     case 256:
       return launch<256, C>(q, k, v, ks, vs, out, B, T, H, KH, S,
-                             row_stride, w, scale, softcap, window, stream);
+                             row_stride, w, sp, scale, softcap, window, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -585,28 +783,28 @@ int dispatch(const float* q, const void* k, const void* v, const float* ks,
 int dispatch_type(int cache, const float* q, const void* k, const void* v,
                   const float* ks, const float* vs, float* out, int B, int T,
                   int H, int KH, int hd, int S, int row_stride, const Walk& w,
-                  float scale, float softcap, int window,
+                  const Split& sp, float scale, float softcap, int window,
                   cudaStream_t stream) {
   switch (cache) {
     case 0:
       return dispatch<Cache::BF16>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
-                                   row_stride, w, scale, softcap, window,
+                                   row_stride, w, sp, scale, softcap, window,
                                    stream);
     case 1:
       return dispatch<Cache::F32>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
-                                  row_stride, w, scale, softcap, window,
+                                  row_stride, w, sp, scale, softcap, window,
                                   stream);
     case 2:
       return dispatch<Cache::I8>(q, k, v, ks, vs, out, B, T, H, KH, hd, S,
-                                 row_stride, w, scale, softcap, window,
+                                 row_stride, w, sp, scale, softcap, window,
                                  stream);
     case 3:
       return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, B, T, H, KH, hd,
-                                      S, row_stride, w, scale, softcap,
+                                      S, row_stride, w, sp, scale, softcap,
                                       window, stream);
     case 4:
       return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, B, T, H, KH, hd,
-                                      S, row_stride, w, scale, softcap,
+                                      S, row_stride, w, sp, scale, softcap,
                                       window, stream);
     default:
       return (int)cudaErrorInvalidValue;
@@ -614,7 +812,10 @@ int dispatch_type(int cache, const float* q, const void* k, const void* v,
 }
 
 // one sequence at `pos`
-Walk one(int pos) { return Walk{nullptr, pos, 0, 0, nullptr, 0, 0}; }
+Walk one(int pos) { return Walk{nullptr, pos, 0, 0, nullptr, 0, 0, 0}; }
+
+// no split: each block walks its whole range and writes out = acc / l
+constexpr Split kWhole{0, 1, nullptr, nullptr, nullptr};
 
 }  // namespace
 
@@ -630,8 +831,8 @@ extern "C" int lmrs_flash_attention(const float* q, const void* k,
                                     int pos, float scale, float softcap,
                                     int window, cudaStream_t stream) {
   return dispatch<Cache::BF16>(q, k, v, nullptr, nullptr, out, 1, T, H, KH,
-                               hd, S, row_stride, one(pos), scale, softcap,
-                               window, stream);
+                               hd, S, row_stride, one(pos), kWhole, scale,
+                               softcap, window, stream);
 }
 
 // Kernel C on an f32 cache: as above with (S, row_stride) f32 rows, each
@@ -643,8 +844,8 @@ extern "C" int lmrs_flash_attention_f32(const float* q, const void* k,
                                         float softcap, int window,
                                         cudaStream_t stream) {
   return dispatch<Cache::F32>(q, k, v, nullptr, nullptr, out, 1, T, H, KH,
-                              hd, S, row_stride, one(pos), scale, softcap,
-                              window, stream);
+                              hd, S, row_stride, one(pos), kWhole, scale,
+                              softcap, window, stream);
 }
 
 // Kernel G: as above with k, v pointing at one layer of an int8 cache,
@@ -657,8 +858,8 @@ extern "C" int lmrs_flash_attention_i8(const float* q, const void* k,
                                        float softcap, int window,
                                        cudaStream_t stream) {
   return dispatch<Cache::I8>(q, k, v, ks, vs, out, 1, T, H, KH, hd, S,
-                             row_stride, one(pos), scale, softcap, window,
-                             stream);
+                             row_stride, one(pos), kWhole, scale, softcap,
+                             window, stream);
 }
 
 // Kernel H: k, v point at one layer of an int4 cache, (S, row_stride) bytes
@@ -673,11 +874,11 @@ extern "C" int lmrs_flash_attention_i4(const float* q, const void* k,
                                        cudaStream_t stream) {
   if (pair)
     return dispatch<Cache::I4_PAIR>(q, k, v, ks, vs, out, 1, T, H, KH, hd,
-                                    S, row_stride, one(pos), scale, softcap,
-                                    window, stream);
+                                    S, row_stride, one(pos), kWhole, scale,
+                                    softcap, window, stream);
   return dispatch<Cache::I4_HALF>(q, k, v, ks, vs, out, 1, T, H, KH, hd, S,
-                                  row_stride, one(pos), scale, softcap,
-                                  window, stream);
+                                  row_stride, one(pos), kWhole, scale,
+                                  softcap, window, stream);
 }
 
 // Kernels I and J: B sequences at once.  q (B, T, H, hd) f32 -> out (B, T,
@@ -698,7 +899,74 @@ extern "C" int lmrs_flash_attention_batched(
     float scale, float softcap, int window, int cache, cudaStream_t stream) {
   if (B < 1 || B > 65535 || (table && (psz < 8 || maxp * psz != S)))
     return (int)cudaErrorInvalidValue;
-  const Walk w{pos, 0, slot_stride, scale_slot_stride, table, maxp, psz};
+  const Walk w{pos, 0, slot_stride, scale_slot_stride, table, maxp, psz, 0};
   return dispatch_type(cache, q, k, v, ks, vs, out, B, T, H, KH, hd, S,
-                       row_stride, w, scale, softcap, window, stream);
+                       row_stride, w, kWhole, scale, softcap, window, stream);
+}
+
+// The split pass of C, G, H, I and J, and the cp partials (B1): the
+// batched entry's arguments (pos may be nullptr for one sequence at pos0,
+// B = 1), the operand's row base seq_base (its row 0 is the global row
+// seq_base; masks compare global positions), `split` rows per split (a
+// positive multiple of 64) and n_split splits per block, counted from the
+// split of the block's first live row.  Writes acc (B, n_split, T, H, hd),
+// m and l (B, n_split, T, H) f32: the raw online-softmax pieces of each
+// split (m = -inf, l = 0 and acc unwritten where a split holds no live
+// key for a row).
+extern "C" int lmrs_flash_partials(
+    const float* q, const void* k, const void* v, const float* ks,
+    const float* vs, float* acc, float* m, float* l, int B, int T, int H,
+    int KH, int hd, int S, int row_stride, const int* pos, int pos0,
+    int seq_base, long long slot_stride, long long scale_slot_stride,
+    const int* table, int maxp, int psz, int split, int n_split, float scale,
+    float softcap, int window, int cache, cudaStream_t stream) {
+  if (B < 1 || B > 65535 || (table && (psz < 8 || maxp * psz != S)) ||
+      split <= 0 || split % BKV || n_split < 1)
+    return (int)cudaErrorInvalidValue;
+  const Walk w{pos, pos0, slot_stride, scale_slot_stride, table, maxp, psz,
+               seq_base};
+  const Split sp{split, n_split, acc, m, l};
+  return dispatch_type(cache, q, k, v, ks, vs, nullptr, B, T, H, KH, hd, S,
+                       row_stride, w, sp, scale, softcap, window, stream);
+}
+
+// Kernel M: the workspace of lmrs_flash_partials, acc (B, n, rows, hd) and
+// m, l (B, n, rows) with rows = T*H, merged over its n splits -> out (B,
+// rows, hd) = sum acc w / sum l w; raw (out_m != nullptr): out = sum acc
+// w, out_m and out_l (B, rows) = m_g and sum l w.  hd <= 256, n <= 12,288.
+extern "C" int lmrs_flash_merge(const float* acc, const float* m,
+                                const float* l, float* out, float* out_m,
+                                float* out_l, int B, int n, int rows, int hd,
+                                cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)n;
+  if (B < 1 || B > 65535 || n < 1 || rows < 1 || hd < 1 || hd > 256 ||
+      smem > 48 * 1024 || (out_m == nullptr) != (out_l == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid(rows, B, (hd + kMergeThreads - 1) / kMergeThreads);
+  flash_merge_kernel<<<grid, kMergeThreads, smem, stream>>>(
+      acc, m, l, out, out_m, out_l, n, rows, hd);
+  return (int)cudaGetLastError();
+}
+
+// A decode call of C, G, H, I or J: lmrs_flash_partials into the workspace
+// ws of B * n_split * T * H * (hd + 2) floats (acc, then m, then l), then
+// kernel M into out (B, T, H, hd): two launches, one call from the host.
+extern "C" int lmrs_flash_decode(
+    const float* q, const void* k, const void* v, const float* ks,
+    const float* vs, float* ws, float* out, int B, int T, int H, int KH,
+    int hd, int S, int row_stride, const int* pos, int pos0, int seq_base,
+    long long slot_stride, long long scale_slot_stride, const int* table,
+    int maxp, int psz, int split, int n_split, float scale, float softcap,
+    int window, int cache, cudaStream_t stream) {
+  const size_t rows = (size_t)B * n_split * T * H;
+  float* acc = ws;
+  float* m = ws + rows * hd;
+  float* l = m + rows;
+  const int err = lmrs_flash_partials(
+      q, k, v, ks, vs, acc, m, l, B, T, H, KH, hd, S, row_stride, pos, pos0,
+      seq_base, slot_stride, scale_slot_stride, table, maxp, psz, split,
+      n_split, scale, softcap, window, cache, stream);
+  if (err != 0) return err;
+  return lmrs_flash_merge(acc, m, l, out, nullptr, nullptr, B, n_split,
+                          T * H, hd, stream);
 }

@@ -16,6 +16,7 @@ from lmrs_tpu_torch.kernels.flash_attention_batched import \
 from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
 from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
 from lmrs_tpu_torch.kernels.flash_attention_paged import flash_attention_paged
+from lmrs_tpu_torch.kernels.flash_merge import flash_merge
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm
@@ -29,7 +30,8 @@ WRAPPERS = {"q4_gemv": q4_gemv, "q4_gemm": q4_gemm,
             "flash_attention_i4": flash_attention_i4,
             "flash_attention_batched": flash_attention_batched,
             "flash_attention_paged": flash_attention_paged,
-            "ffn_fused_xe": ffn_fused_xe, "ffn_fused": ffn_fused}
+            "ffn_fused_xe": ffn_fused_xe, "ffn_fused": ffn_fused,
+            "flash_merge": flash_merge}
 
 
 def reset_launches() -> None:

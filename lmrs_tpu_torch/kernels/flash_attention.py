@@ -6,9 +6,14 @@ Computes `ops.attention.attention(q, k[l, :pos+T], v[l, :pos+T], pos,
 precision="fast")` with the cache in its merged (L, S, KH*hd) layout.  An
 f32 cache's values are rounded to bf16 as they are read (the kernel's f32
 instantiation does so on the tile's way into shared memory), so it gives
-the bf16 cache's result bit for bit.  The wrapper launches the kernel for
-CUDA tensors (or raises) and runs the plain version for CPU tensors;
-`flash_attention.launches` counts kernel launches of both cache types.
+the bf16 cache's result bit for bit.  A decode call (one query block per
+kv head, G*T <= 64) is flash-decoding: the template's split pass over the
+sequence, its grid sized from the host position, then kernel M's merge
+(`kernels.flash_merge`, which counts its own launches); longer calls walk
+whole in one launch.  The wrapper launches the kernel for CUDA tensors (or
+raises) and runs the plain version for CPU tensors;
+`flash_attention.launches` counts kernel launches of both cache types (a
+split pass is one).
 """
 
 from __future__ import annotations
@@ -19,6 +24,8 @@ from typing import Optional
 import torch
 
 from lmrs_tpu_torch.kernels import cuda
+from lmrs_tpu_torch.kernels.flash_merge import (BF16, F32, decode_single,
+                                                decode_split)
 from lmrs_tpu_torch.ops.attention import attention
 
 MAX_T = 256
@@ -120,6 +127,16 @@ def flash_attention(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention needs a 16-byte aligned q")
+    ctype = F32 if dtype == torch.float32 else BF16
+    split = decode_split(n_heads, n_kv, t_q)
+    if split:
+        out = decode_single(qf, k_cache[layer], v_cache[layer], None, None,
+                            n_kv=n_kv, s_len=s_len, row=row, pos=pos,
+                            split=split, scale=scale, softcap=softcap,
+                            window=window, ctype=ctype,
+                            what="flash_attention")
+        flash_attention.launches += 1
+        return out
     out = torch.empty_like(qf)
     err = _entry(dtype)(
         qf.data_ptr(), k_cache[layer].data_ptr(), v_cache[layer].data_ptr(),

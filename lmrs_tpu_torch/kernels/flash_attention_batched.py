@@ -9,7 +9,12 @@ S) f32 scales; slot b's rows are what kernel C (G) reads for one sequence,
 so slot b of a call equals C (G) on the slot's (L, S, row) view.  The
 positions are a (B,) int32 tensor on the device: the wrapper never reads
 them on the host, and the kernel clamps each slot's walk to [window start,
-min(pos + T, S) - 1].  The wrapper launches the kernel for CUDA tensors (or
+min(pos + T, S) - 1].  A decode call is flash-decoding, as for kernel C
+(the split pass, its split axis sized from S, then kernel M:
+`kernels.flash_merge`).  With `seq_base` and `return_lse` it is the cp
+partials form (the JAX `flash_decode_batched(..., seq_base=,
+return_lse=True)`): the split pass on one sequence shard, merged without
+the division.  The wrapper launches the kernel for CUDA tensors (or
 raises) and runs the plain version for CPU tensors;
 `flash_attention_batched.launches` counts kernel launches.  Shared with
 kernel J (`kernels.flash_attention_paged`): the geometry checks, the cache
@@ -25,10 +30,12 @@ import torch
 
 from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.kernels.flash_attention import HEAD_DIMS, MAX_T
-from lmrs_tpu_torch.ops.attention import attention_batched_multi
-
-# the C entry point's cache type numbers
-BF16, F32, I8, I4_HALF, I4_PAIR = range(5)
+from lmrs_tpu_torch.kernels.flash_merge import (BF16, BKV, F32, I4_HALF,
+                                                I4_PAIR, I8, decode_split,
+                                                flash_merge, n_splits_device,
+                                                split_pass)
+from lmrs_tpu_torch.ops.attention import (attention_batched_multi,
+                                          attention_batched_partials)
 
 
 def _scales_view(k_scale, v_scale, layer):
@@ -44,10 +51,13 @@ def flash_attention_batched_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                   softcap: Optional[float] = None,
                                   window: Optional[int] = None,
                                   k_scale: Optional[torch.Tensor] = None,
-                                  v_scale: Optional[torch.Tensor] = None
-                                  ) -> torch.Tensor:
+                                  v_scale: Optional[torch.Tensor] = None,
+                                  seq_base: int = 0,
+                                  return_lse: bool = False):
     """Plain PyTorch version: the per-slot masked einsum attention over the
-    slots' rows of the layer, scales folded as the kernel folds them."""
+    slots' rows of the layer, scales folded as the kernel folds them; with
+    `return_lse` its raw pieces
+    (`ops.attention.attention_batched_partials`)."""
     if q.is_cuda:
         cuda.plain_numerics()
     b, _, _, hd = q.shape
@@ -55,9 +65,9 @@ def flash_attention_batched_plain(q: torch.Tensor, k_cache: torch.Tensor,
     k = k_cache[:, layer].reshape(b, s_len, n_kv, hd)
     v = v_cache[:, layer].reshape(b, s_len, n_kv, hd)
     ks, vs = _scales_view(k_scale, v_scale, layer)
-    return attention_batched_multi(q, k, v, pos, scale=scale, softcap=softcap,
-                                   window=window, precision="fast",
-                                   k_scale=ks, v_scale=vs)
+    fn = attention_batched_partials if return_lse else attention_batched_multi
+    return fn(q, k, v, pos, scale=scale, softcap=softcap, window=window,
+              precision="fast", k_scale=ks, v_scale=vs, seq_base=seq_base)
 
 
 def flash_attention_batched_tol(q: torch.Tensor, k_cache: torch.Tensor,
@@ -66,10 +76,17 @@ def flash_attention_batched_tol(q: torch.Tensor, k_cache: torch.Tensor,
     """Per-element bound on |kernel - plain version|, (B, T, H, hd) f32: as
     `flash_attention.flash_attention_tol` (and its int8 form), slot by
     slot — (2^-7 + 2^-9) times the plain version run on |v| (|v_int|, the
-    quantizer never writing -128, for an int8 cache)."""
+    quantizer never writing -128, for an int8 cache).  With `return_lse`
+    the bound on the raw acc: each side rounds its unnormalized weights
+    exp(s - m) to bf16 (the kernel per split, against the split's running
+    max, then scaled by exp(m_s - m_g) in f32), so the same argument holds
+    term by term with the plain raw acc on |v| in the place of the
+    output."""
     v_abs = v_cache.clamp(min=-127).abs() if v_cache.dtype == torch.int8 \
         else v_cache.abs()
     a = flash_attention_batched_plain(q, k_cache, v_abs, layer, pos, **kw)
+    if kw.get("return_lse"):
+        a = a[0]
     return (2.0 ** -7 + 2.0 ** -9) * a
 
 
@@ -134,16 +151,26 @@ def flash_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
                             softcap: Optional[float] = None,
                             window: Optional[int] = None,
                             k_scale: Optional[torch.Tensor] = None,
-                            v_scale: Optional[torch.Tensor] = None
-                            ) -> torch.Tensor:
+                            v_scale: Optional[torch.Tensor] = None,
+                            seq_base: int = 0, return_lse: bool = False):
     """q (B, T, H, hd) float32 with RoPE applied; k_cache/v_cache (B, L, S,
     KH*hd) bf16, f32 or int8 (with k_scale/v_scale (B, L, KH, S) f32)
     holding rows [0, pos[b] + T) of `layer` for each slot b; pos (B,)
-    int32 -> (B, T, H, hd) f32."""
+    int32 -> (B, T, H, hd) f32.
+
+    The cp partials form (the JAX `flash_decode_batched(..., seq_base=,
+    return_lse=True)`): with `seq_base` the cache is one sequence shard
+    whose row 0 is the global row seq_base, and the masks compare global
+    positions; with `return_lse` the result is the raw online-softmax
+    pieces (acc (B, T, H, hd), m (B, T, H), l (B, T, H)) f32 of the shard's
+    rows, which shards merge as m_g = max m; w = exp(m - m_g); out =
+    sum acc w / sum l w.  A row with no live key in the shard gets
+    m = _MASK_NEG (float32 min) and acc = l = 0."""
     if not q.is_cuda:
         return flash_attention_batched_plain(
             q, k_cache, v_cache, layer, pos, n_kv=n_kv, scale=scale,
-            softcap=softcap, window=window, k_scale=k_scale, v_scale=v_scale)
+            softcap=softcap, window=window, k_scale=k_scale, v_scale=v_scale,
+            seq_base=seq_base, return_lse=return_lse)
     b, t_q, n_heads, hd = q.shape
     if k_cache.dim() != 4 or k_cache.shape[0] != b:
         raise ValueError(f"flash_attention_batched needs a (B, L, S, row) "
@@ -159,8 +186,30 @@ def flash_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention_batched needs a 16-byte aligned q")
-    out = torch.empty_like(qf)
     quant = k_scale is not None
+    ctype = cache_type(k_cache.dtype, False, False)
+    split = decode_split(n_heads, n_kv, t_q)
+    if (return_lse or seq_base) and not split:
+        # the cp partials always take the split pass: one split of the
+        # shard's rows where the call would not split
+        split = -(-s_len // BKV) * BKV
+    if split:
+        # the split pass (seq_base: the shard's row base), then kernel M
+        res = split_pass(
+            qf, k_cache[0, layer], v_cache[0, layer],
+            k_scale[0, layer] if quant else None,
+            v_scale[0, layer] if quant else None, n_kv=n_kv, s_len=s_len,
+            row=row, pos=pos, seq_base=seq_base,
+            slot_stride=n_layers * s_len * row,
+            scale_slot_stride=n_layers * n_kv * s_len if quant else 0,
+            table=None, maxp=0, psz=0, split=split,
+            n_split=n_splits_device(s_len, t_q, window, split), scale=scale,
+            softcap=softcap, window=window, ctype=ctype,
+            what="flash_attention_batched",
+            out=None if return_lse else torch.empty_like(qf))
+        flash_attention_batched.launches += 1
+        return flash_merge(*res, raw=True) if return_lse else res
+    out = torch.empty_like(qf)
     err = entry()(
         qf.data_ptr(), k_cache[0, layer].data_ptr(),
         v_cache[0, layer].data_ptr(),
@@ -170,8 +219,7 @@ def flash_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
         pos.data_ptr(), n_layers * s_len * row,
         n_layers * n_kv * s_len if quant else 0, None, 0, 0, scale,
         0.0 if softcap is None else float(softcap),
-        -1 if window is None else int(window),
-        cache_type(k_cache.dtype, False, False),
+        -1 if window is None else int(window), ctype,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda.check(err, "flash_attention_batched")
     flash_attention_batched.launches += 1

@@ -8,9 +8,11 @@ scales (L, KH, S), one per (kv head, row), as `quant.quantize_kv_rows_q4`
 writes them; `quant.q4_cache_pair_mode` says which two values share a byte.
 The kernel unpacks the bytes on their way into shared memory and then
 computes what kernel G computes on the integer values: no float or int8
-K/V is formed in device memory.  The wrapper launches the kernel for CUDA
-tensors (or raises) and runs the plain version for CPU tensors;
-`flash_attention_i4.launches` counts kernel launches.
+K/V is formed in device memory.  A decode call is flash-decoding, as for
+kernel C (the split pass, then kernel M: `kernels.flash_merge`).  The
+wrapper launches the kernel for CUDA tensors (or raises) and runs the
+plain version for CPU tensors; `flash_attention_i4.launches` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import torch
 
 from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.kernels.flash_attention import check_geometry
+from lmrs_tpu_torch.kernels.flash_merge import (I4_HALF, I4_PAIR,
+                                                decode_single, decode_split)
 from lmrs_tpu_torch.ops.attention import attention
 from lmrs_tpu_torch.quant import q4_cache_pair_mode, unpack_kv_q4
 
@@ -113,6 +117,17 @@ def flash_attention_i4(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention_i4 needs a 16-byte aligned q")
+    pair = q4_cache_pair_mode(n_kv, hd)
+    ctype = I4_PAIR if pair else I4_HALF
+    split = decode_split(n_heads, n_kv, t_q)
+    if split:
+        out = decode_single(qf, k_cache[layer], v_cache[layer],
+                            k_scale[layer], v_scale[layer], n_kv=n_kv,
+                            s_len=s_len, row=row, pos=pos, split=split,
+                            scale=scale, softcap=softcap, window=window,
+                            ctype=ctype, what="flash_attention_i4")
+        flash_attention_i4.launches += 1
+        return out
     out = torch.empty_like(qf)
     err = _entry()(qf.data_ptr(), k_cache[layer].data_ptr(),
                    v_cache[layer].data_ptr(), k_scale[layer].data_ptr(),
@@ -120,7 +135,7 @@ def flash_attention_i4(q: torch.Tensor, k_cache: torch.Tensor,
                    n_kv, hd, s_len, row, pos, scale,
                    0.0 if softcap is None else float(softcap),
                    -1 if window is None else int(window),
-                   int(q4_cache_pair_mode(n_kv, hd)),
+                   int(pair),
                    torch.cuda.current_stream(q.device).cuda_stream)
     cuda.check(err, "flash_attention_i4")
     flash_attention_i4.launches += 1

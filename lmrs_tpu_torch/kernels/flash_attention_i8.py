@@ -7,9 +7,11 @@ The cache holds int8 rows (L, S, KH*hd) and f32 scales (L, KH, S), one per
 (kv head, row), as `models.transformer.quantize_kv_rows` writes them.  The
 key scale multiplies the score column, the value scale folds into the
 softmax weight before its bf16 rounding, and both products run on the
-integer values: no float K/V is formed.  The wrapper launches the kernel
-for CUDA tensors (or raises) and runs the plain version for CPU tensors;
-`flash_attention_i8.launches` counts kernel launches.
+integer values: no float K/V is formed.  A decode call is flash-decoding,
+as for kernel C (the split pass, then kernel M: `kernels.flash_merge`).
+The wrapper launches the kernel for CUDA tensors (or raises) and runs the
+plain version for CPU tensors; `flash_attention_i8.launches` counts kernel
+launches.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 
 from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.kernels.flash_attention import check_geometry
+from lmrs_tpu_torch.kernels.flash_merge import (I8, decode_single,
+                                                decode_split)
 from lmrs_tpu_torch.ops.attention import attention
 
 
@@ -97,6 +101,16 @@ def flash_attention_i8(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention_i8 needs a 16-byte aligned q")
+    split = decode_split(n_heads, n_kv, t_q)
+    if split:
+        out = decode_single(qf, k_cache[layer], v_cache[layer],
+                            k_scale[layer], v_scale[layer], n_kv=n_kv,
+                            s_len=s_len, row=row, pos=pos, split=split,
+                            scale=scale,
+                            softcap=softcap, window=window, ctype=I8,
+                            what="flash_attention_i8")
+        flash_attention_i8.launches += 1
+        return out
     out = torch.empty_like(qf)
     err = _entry()(qf.data_ptr(), k_cache[layer].data_ptr(),
                    v_cache[layer].data_ptr(), k_scale[layer].data_ptr(),

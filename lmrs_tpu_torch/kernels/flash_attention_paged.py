@@ -12,8 +12,10 @@ past a slot's pages and window-freed pages point at.  Slot b attends to its
 virtual rows [window start, pos[b] + T - 1], as kernel C (G, H) does for
 one sequence: a pool whose pages hold a per-slot cache's rows gives kernel
 I's result bit for bit.  Positions and the table are device tensors that
-the wrapper never reads on the host.  The wrapper launches the kernel for
-CUDA tensors (or raises) and runs the plain version for CPU tensors;
+the wrapper never reads on the host.  A decode call is flash-decoding, as
+for kernel I (the split pass over each slot's virtual rows, then kernel
+M: `kernels.flash_merge`).  The wrapper launches the kernel for CUDA
+tensors (or raises) and runs the plain version for CPU tensors;
 `flash_attention_paged.launches` counts kernel launches.
 """
 
@@ -27,6 +29,8 @@ from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.kernels.flash_attention_batched import (cache_type,
                                                             check_batched,
                                                             entry)
+from lmrs_tpu_torch.kernels.flash_merge import (decode_split,
+                                                n_splits_device, split_pass)
 from lmrs_tpu_torch.ops.attention import attention_batched_multi
 from lmrs_tpu_torch.quant import q4_cache_pair_mode, unpack_kv_q4
 
@@ -141,8 +145,24 @@ def flash_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention_paged needs a 16-byte aligned q")
-    out = torch.empty_like(qf)
     quant = k_scale is not None
+    ctype = cache_type(k_pool.dtype, packed4, q4_cache_pair_mode(n_kv, hd))
+    split = decode_split(n_heads, n_kv, t_q)
+    if split:
+        # the split pass over each slot's virtual rows, then kernel M
+        out = split_pass(
+            qf, k_pool[layer], v_pool[layer],
+            k_scale[layer] if quant else None,
+            v_scale[layer] if quant else None, n_kv=n_kv,
+            s_len=maxp * psz, row=row, pos=pos, seq_base=0, slot_stride=0,
+            scale_slot_stride=0, table=table, maxp=maxp, psz=psz,
+            split=split,
+            n_split=n_splits_device(maxp * psz, t_q, window, split),
+            scale=scale, softcap=softcap, window=window, ctype=ctype,
+            what="flash_attention_paged", out=torch.empty_like(qf))
+        flash_attention_paged.launches += 1
+        return out
+    out = torch.empty_like(qf)
     err = entry()(
         qf.data_ptr(), k_pool[layer].data_ptr(), v_pool[layer].data_ptr(),
         k_scale[layer].data_ptr() if quant else None,
@@ -150,8 +170,7 @@ def flash_attention_paged(q: torch.Tensor, k_pool: torch.Tensor,
         out.data_ptr(), b, t_q, n_heads, n_kv, hd, maxp * psz, row,
         pos.data_ptr(), 0, 0, table.data_ptr(), maxp, psz, scale,
         0.0 if softcap is None else float(softcap),
-        -1 if window is None else int(window),
-        cache_type(k_pool.dtype, packed4, q4_cache_pair_mode(n_kv, hd)),
+        -1 if window is None else int(window), ctype,
         torch.cuda.current_stream(q.device).cuda_stream)
     cuda.check(err, "flash_attention_paged")
     flash_attention_paged.launches += 1

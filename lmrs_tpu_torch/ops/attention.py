@@ -101,10 +101,13 @@ def attention_batched_multi(
     precision: str = "fast",
     k_scale: Optional[torch.Tensor] = None,   # (B, KH, S) f32: int caches
     v_scale: Optional[torch.Tensor] = None,
+    seq_base: int = 0,
 ) -> torch.Tensor:
     """`attention` for B slots at once, each slot masked at its own
     positions q_pos = pos[b] + t; returns (B, T, H, head_dim) float32.
-    `pos` is a tensor and is never read on the host.
+    `pos` is a tensor and is never read on the host.  The caches' row 0 is
+    the global row `seq_base` (one sequence shard; the masks compare
+    global positions).
 
     Rows outside a slot's live range [max(pos - window, 0), pos + T - 1]
     are zeroed (values and scales) before the products, as the kernels
@@ -121,7 +124,7 @@ def attention_batched_multi(
 
     dev = q.device
     pos = pos.to(device=dev, dtype=torch.long)
-    t_idx = torch.arange(s_len, device=dev)                        # (S,)
+    t_idx = seq_base + torch.arange(s_len, device=dev)             # (S,)
     first = (pos - window).clamp(min=0) if window is not None \
         else torch.zeros_like(pos)
     live = (t_idx[None] >= first[:, None]) & \
@@ -153,6 +156,72 @@ def attention_batched_multi(
         att = att * vs[:, None, :, None, :]
     out = torch.einsum("btkgs,bskd->btkgd", rnd(att), rnd(v_cache))
     return out.reshape(b, t_q, n_heads, head_dim).float()
+
+
+def attention_batched_partials(
+    q: torch.Tensor,         # (B, T, H, head_dim) float32, RoPE applied
+    k_cache: torch.Tensor,   # (B, S, KH, head_dim): one sequence shard
+    v_cache: torch.Tensor,
+    pos: torch.Tensor,       # (B,) global positions of each slot's q[:, 0]
+    *,
+    seq_base: int = 0,       # the global row of the shard's row 0
+    scale: float,
+    softcap: Optional[float] = None,
+    window: Optional[int] = None,
+    precision: str = "fast",
+    k_scale: Optional[torch.Tensor] = None,   # (B, KH, S) f32: int caches
+    v_scale: Optional[torch.Tensor] = None,
+):
+    """The raw online-softmax pieces of `attention_batched_multi` over one
+    sequence shard, whose partials merge across shards as
+    m_g = max m; w = exp(m - m_g); out = sum acc w / sum l w.
+
+    Returns acc (B, T, H, head_dim) = sum_j e_j v_j with e_j = exp(s_j - m)
+    (times the value scale, rounded to bf16 under "fast"), m (B, T, H) the
+    row's largest live score and l (B, T, H) = sum_j e_j, all float32.  A
+    key outside the causal mask or the window carries no weight and takes
+    no part in m, as in the kernels; a row with no live key in the shard
+    gets m = _MASK_NEG and acc = l = 0, so that its merge weight is 0."""
+    b, t_q, n_heads, head_dim = q.shape
+    _, s_len, n_kv, _ = k_cache.shape
+    kv_group = n_heads // n_kv
+    if precision == "fast":
+        rnd = lambda a: a.to(torch.bfloat16).float()  # noqa: E731
+    else:
+        rnd = lambda a: a.float()  # noqa: E731
+
+    dev = q.device
+    pos = pos.to(device=dev, dtype=torch.long)
+    t_idx = seq_base + torch.arange(s_len, device=dev)             # (S,)
+    q_pos = pos[:, None] + torch.arange(t_q, device=dev)[None]     # (B, T)
+    key_live = t_idx[None, None] <= q_pos[..., None]               # (B,T,S)
+    if window is not None:
+        key_live = key_live & (q_pos[..., None] - t_idx <= window)
+    # rows no query of the slot reads may hold anything (NaN included)
+    row_live = key_live.any(dim=1)                                 # (B, S)
+    k_cache = torch.where(row_live[..., None, None], k_cache.float(), 0.0)
+    v_cache = torch.where(row_live[..., None, None], v_cache.float(), 0.0)
+
+    qg = rnd(q).reshape(b, t_q, n_kv, kv_group, head_dim)
+    scores = torch.einsum("btkgd,bskd->btkgs", qg, rnd(k_cache)) * scale
+    if k_scale is not None:
+        ks = torch.where(row_live[:, None], k_scale, 0.0)
+        scores = scores * ks[:, None, :, None, :]
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = scores.masked_fill(~key_live[:, :, None, None, :],
+                                float("-inf"))
+    m = scores.amax(dim=-1)
+    has = m != float("-inf")
+    e = torch.exp(scores - torch.where(has, m, 0.0)[..., None])
+    den = e.sum(dim=-1)
+    if v_scale is not None:
+        vs = torch.where(row_live[:, None], v_scale, 0.0)
+        e = e * vs[:, None, :, None, :]
+    acc = torch.einsum("btkgs,bskd->btkgd", rnd(e), rnd(v_cache))
+    m = torch.where(has, m, _MASK_NEG)
+    return (acc.reshape(b, t_q, n_heads, head_dim),
+            m.reshape(b, t_q, n_heads), den.reshape(b, t_q, n_heads))
 
 
 def attention_batched(q: torch.Tensor, k_cache: torch.Tensor,

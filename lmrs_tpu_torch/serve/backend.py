@@ -1,7 +1,7 @@
 """WebSocket serving backend, text only (counterpart of
 `lmrs_tpu/serve/backend.py`, which speaks lm.rs's backend protocol).
 
-  client -> server: {"text": "..."}
+  client -> server: {"text": "..."}   (an "image" field is ignored)
   server -> client: {"category": "STATUS" | "OUTPUT", "text": "..."}
     STATUS  "Server at capacity — try again later" (batch mode, no slot)
     STATUS  "Context window full — start a new session"
@@ -32,6 +32,7 @@ import argparse
 import asyncio
 import datetime
 import json
+import os
 from typing import List, Optional
 
 from lmrs_tpu_torch.cli.chat import LLAMA_SYSTEM_PREFIX, LLAMA_SYSTEM_SUFFIX
@@ -81,6 +82,9 @@ class BackendServer:
         self.top_p = top_p
         self.seed = seed
         self.spec_k = spec_k
+        # Q8_0 layer numerics: the JAX package's switch, as the chat CLI
+        # reads it (LMRS_W8A8=0 sends the layers through W8A16)
+        self.w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"
         self.max_new_tokens = max_new_tokens or self.cfg.seq_len
         # one generation at a time in engine mode
         self.gpu_lock = asyncio.Lock()
@@ -103,7 +107,7 @@ class BackendServer:
                 top_p=top_p, seed=seed if seed is not None else 0,
                 speculative_k=spec_k, pool_tokens=pool_tokens,
                 page_size=page_size, device=self.device,
-                prefill_chunk=min(PREFILL_CHUNK, page_size))
+                prefill_chunk=min(PREFILL_CHUNK, page_size), w8a8=self.w8a8)
             self.scheduler = SchedulerThread(sched)
 
     def warmup(self):
@@ -139,15 +143,15 @@ class BackendServer:
     @staticmethod
     def _text(raw):
         """The message's text, or None for a frame to skip (malformed JSON,
-        a binary frame, no "text"), as lm.rs skips them."""
+        a binary frame, no "text"), as lm.rs skips them.  An "image" field
+        is dropped: the server is text-only (`multimodal=True` raises, A13),
+        and the JAX backend reads the image only when it is multimodal."""
         try:
             msg = json.loads(raw)
             text = msg["text"]
         except (ValueError, KeyError, TypeError) as e:
             print(f"Error parsing message: {e}")
             return None
-        if msg.get("image"):
-            raise unsupported("an image message", "A13 multimodal")
         return text
 
     async def _stream(self, ws, queue: asyncio.Queue, finished) -> None:
@@ -175,7 +179,7 @@ class BackendServer:
             return await self.handle_batched(ws)
         engine = Engine(self.cfg, self.params, device=self.device,
                         cache_dtype=self.cache_dtype,
-                        prefill_chunk=PREFILL_CHUNK)
+                        prefill_chunk=PREFILL_CHUNK, w8a8=self.w8a8)
         gen = GenerationConfig(temperature=self.temperature,
                                top_p=self.top_p, seed=self.seed,
                                max_new_tokens=self.max_new_tokens,

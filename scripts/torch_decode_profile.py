@@ -56,6 +56,8 @@ FLASH_CACHES = ("bf16", "int8", "f32", "int4 half", "int4 pair")
 def _kernel_group(name: str) -> str:
     if "ffn_kernel" in name:        # kernels K and L
         return "ffn_fused (K, L)"
+    if "flash_merge_kernel" in name:  # kernel M: the split pass's merge
+        return "flash_merge (M)"
     if "flash_kernel" in name:      # kernels C, G and H: one template
         m = re.search(r"Cache\)\s*(\d)", name)
         return (f"flash_kernel ({FLASH_CACHES[int(m.group(1))]} cache)"

@@ -1,32 +1,44 @@
 #!/usr/bin/env python3
 """Two versions of `flash_attention.cu` side by side on one card: did a
-change to the kernel template move kernels C, G and H?
+change to the kernel template move kernels C, G, H, I and J?
 
     python3 scripts/torch_flash_ab.py --parent path/to/old/flash_attention.cu
+        [--splits 0,128,256,512]
 
 Builds the given source and the tree's `lmrs_tpu_torch/csrc/
 flash_attention.cu` with the package's nvcc flags, then times kernel C
 (bf16 cache), kernel G (int8 cache) and kernel H (int4 cache: pair packing
 at Llama's geometry, half at Gemma's) of each at Llama-3.2-3B's and
-Gemma-2-9B's attention geometry, S = 8,192, T = 1 at pos 1,100 and 6,000:
-median of 50 launches with the L2 flushed before each (as `chip_smoke.py`
-times them), in the order parent, change, change, parent, so that drift
-within the call shows as a difference between the two runs of one version.
-Each version's result is held against the plain version first.  Prints the
-card's name and power limit, one line per case and one JSON line.  Needs
-one CUDA device and nvcc; the entry points C, G and H must exist in both
-sources.
+Gemma-2-9B's attention geometry, S = 8,192, T = 1 at pos 1,100 and 6,000,
+and kernels I (per-slot cache) and J (pool of 512-row pages) at Gemma's, 8
+slots at `chip_smoke.BATCH_POS`, bf16, T = 1: median of 50 calls with the
+L2 flushed before each (128 MB, `chip_smoke.Timer`), in the order parent,
+change, change, parent, so that drift within the call shows as a
+difference between the two runs of one version.  Beside each time, the
+host's time per call: the wall time of 200 calls enqueued back to back
+(no synchronization among them) over 200, median of 5 such runs, which
+shows what a call of two launches (the split pass and kernel M) costs the
+host against one.  The parent runs the wrappers with the split off
+(`flash_merge.SPLIT` 0: one launch through the entry points of every
+version), the change with the package's split.  Then the change alone at
+each split of `--splits` (0: the change's template unsplit), which is how
+SPLIT is chosen; the splits run in turns too (each once forward, once
+backward).  Each result is held against the plain version first.  Prints
+the card's name and power limit, one line per case and one JSON line.
+Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib
 import json
 import statistics
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -40,6 +52,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
                     help="the other version of flash_attention.cu")
+    ap.add_argument("--splits", default="0,128,256,512",
+                    help="rows per split to time the change at, after the "
+                         "turns (0: unsplit)")
     args = ap.parse_args()
 
     import torch
@@ -48,37 +63,32 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from chip_smoke import BATCH_POS, GEMMA, Timer, batched_cache, to_pool
     from lmrs_tpu_torch.kernels import cuda
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
                                                         flash_attention_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_batched import (
+        flash_attention_batched, flash_attention_batched_plain,
+        flash_attention_batched_tol)
     from lmrs_tpu_torch.kernels.flash_attention_i4 import (
         flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
     from lmrs_tpu_torch.kernels.flash_attention_i8 import (
         flash_attention_i8, flash_attention_i8_plain, flash_attention_i8_tol)
+    from lmrs_tpu_torch.kernels.flash_attention_paged import (
+        flash_attention_paged, flash_attention_paged_plain,
+        flash_attention_paged_tol)
     from lmrs_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_q4
 
+    # the module (the package's `flash_merge` is kernel M's wrapper)
+    flash_merge = importlib.import_module(
+        "lmrs_tpu_torch.kernels.flash_merge")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     cuda.plain_numerics()
-    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
-
-    def timed(fn) -> float:
-        for _ in range(5):
-            fn()
-        pairs = []
-        for _ in range(50):
-            flush.zero_()
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            pairs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+    timed = Timer(torch)
 
     cases = []      # (label, kernel, plain, bound function, arguments, kw)
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -106,11 +116,50 @@ def main() -> int:
             cases.append((f"H {name} pos {pos}", flash_attention_i4,
                           flash_attention_i4_plain, flash_attention_i4_tol,
                           (q, *int4, 0, pos), kw))
+    (k, v, _, _), _, _ = batched_cache(torch, GEMMA, "bf16", BATCH_POS)
+    kp, vp, table, _, _ = to_pool(torch, (k, v, None, None), 512,
+                                  [p + 1 for p in BATCH_POS])
+    bpos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
+    kw = dict(n_kv=GEMMA["KH"], scale=GEMMA["HD"] ** -0.5,
+              softcap=GEMMA["SOFTCAP"], window=GEMMA["WINDOW"])
+    qb = torch.randn(len(BATCH_POS), 1, GEMMA["H"], GEMMA["HD"],
+                     device="cuda", generator=gen)
+    cases.append(("I gemma2-9b 8 slots", flash_attention_batched,
+                  flash_attention_batched_plain, flash_attention_batched_tol,
+                  (qb, k, v, 0, bpos), kw))
+    cases.append(("J gemma2-9b 8 slots", flash_attention_paged,
+                  flash_attention_paged_plain, flash_attention_paged_tol,
+                  (qb, kp, vp, table, 0, bpos), kw))
+
+    def run_all(results, column):
+        for label, kernel, plain, tol_fn, a, kw in cases:
+            got, want = kernel(*a, **kw), plain(*a, **kw)
+            diff = (got - want).abs()
+            ratio = torch.where(diff == 0, 0.0,
+                                diff / tol_fn(*a, **kw)).max().item()
+            if not ratio <= 1.0:
+                raise RuntimeError(f"{column} {label}: {ratio} of the "
+                                   f"tolerance")
+            results[label][column] = timed(lambda: kernel(*a, **kw))
+            hosts[label][column] = host_us(lambda: kernel(*a, **kw))
+
+    def host_us(fn, calls=200, runs=5) -> float:
+        per_call = []
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            per_call.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+        return statistics.median(per_call)
 
     sources = {"parent": Path(args.parent),
                "change": cuda.CSRC / "flash_attention.cu"}
     (ROOT / "build").mkdir(exist_ok=True)
     results = {label: {} for label, *_ in cases}
+    hosts = {label: {} for label, *_ in cases}
+    package_split = flash_merge.SPLIT
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
         libs = {}
         for version, src in sources.items():
@@ -121,21 +170,25 @@ def main() -> int:
         for turn, version in enumerate(("parent", "change", "change",
                                         "parent")):
             cuda._libs["flash_attention"] = libs[version]
-            for label, kernel, plain, tol_fn, a, kw in cases:
-                got, want = kernel(*a, **kw), plain(*a, **kw)
-                ratio = ((got - want).abs() / tol_fn(*a, **kw)).max().item()
-                if not ratio <= 1.0:
-                    raise RuntimeError(f"{version} {label}: {ratio} of the "
-                                       f"tolerance")
-                results[label][f"{version}_{turn}"] = timed(
-                    lambda: kernel(*a, **kw))
+            flash_merge.SPLIT = 0 if version == "parent" else package_split
+            run_all(results, f"{version}_{turn}")
+        cuda._libs["flash_attention"] = libs["change"]
+        splits = [int(x) for x in args.splits.split(",")]
+        for i, rows in enumerate(splits + splits[::-1]):
+            flash_merge.SPLIT = rows
+            run_all(results, f"split{rows}_{i}")
+        flash_merge.SPLIT = package_split
         cuda._libs.pop("flash_attention")
 
     print(card)
     for label, row in results.items():
-        print(f"{label:24s}" + "  ".join(f"{k} {v:.4f} ms"
-                                         for k, v in row.items()))
-    print(json.dumps(dict(card=card, ms=results)))
+        print(f"{label:24s}" + "  ".join(f"{k} {v:.4f}"
+                                         for k, v in row.items()) + "  (ms)")
+        print(f"{'':24s}" + "  ".join(f"{k} {v:.1f}"
+                                      for k, v in hosts[label].items())
+              + "  (host us a call)")
+    print(json.dumps(dict(card=card, split=package_split, ms=results,
+                          host_us=hosts)))
     return 0
 
 

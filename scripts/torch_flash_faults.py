@@ -13,7 +13,8 @@ against the plain version with the per-element bound.  Without `--int8`:
 kernel C on a bf16 cache at Gemma-2-9B's attention (hd 256, 8 KV heads, 2
 query heads each, window 4096, softcap 50), `flash_attention_tol`, the
 three tile-walk faults (one K/V tile skipped, the window start one tile
-late, the causal diagonal dropped).  With `--int8`: kernel G on an int8
+late, the causal diagonal dropped; the two flash-decoding faults below).
+With `--int8`: kernel G on an int8
 cache at Llama-3.2-3B's attention (hd 128, 8 KV heads, 3 query heads each,
 no window: the window fault does not apply), `flash_attention_i8_tol`, the
 skipped tile and the dropped diagonal, and two faults of its own (the
@@ -28,7 +29,14 @@ slots at `chip_smoke.BATCH_POS`, T 1 and 5, `flash_attention_batched_tol`
 / `flash_attention_paged_tol`, and four faults of the batched addressing:
 a row read from the slot's previous page (wrong page), the slot stride
 one row short, rows past the last live one let through to the trash page
-(NaN), and each slot walking its neighbour's position.  Prints the
+(NaN), and each slot walking its neighbour's position; with the cp
+partials (B1: the per-slot cache cut into 4 sequence shards, `return_lse`
+on each, merged by kernel M, held with I's bound against the plain version
+on the whole cache), two faults of flash-decoding: the shard's row base
+`seq_base` left out of the masks, and kernel M dropping each row's last
+live split.  Kernel C's set has that merge fault too, and the split
+boundaries one tile late (each split's rows shifted by 64: the first
+live tile of a call is lost).  Prints the
 card's name and power limit, the worst error / bound of every (kernel,
 case) and one JSON line.  Exits non-zero if the unchanged kernel fails a
 case or a faulty one passes every case.  The repository's sources are
@@ -56,11 +64,19 @@ FAULTS = {
     "window_start": ("window >= 0 ? max(pos + t_lo - window, 0)",
                      "window >= 0 ? max(pos + t_lo - window + BKV, 0)"),
     "causal": ("key <= q_pos &&", "key < q_pos &&"),
+    # flash-decoding: every split's rows one tile late (the first live
+    # tile of each call's range is lost), and kernel M dropping the last
+    # live split of a row
+    "split_boundary": ("const int s0 = (kv_lo / sp.rows + split) * sp.rows;",
+                       "const int s0 = (kv_lo / sp.rows + split) * sp.rows "
+                       "+ BKV;"),
+    "merge_skip_last": ("for (int s = 0; s < end; ++s) {",
+                        "for (int s = 0; s < end - 1; ++s) {"),
 }
 FAULTS_I8 = {
     "skip_tile": FAULTS["skip_tile"],
     "causal": FAULTS["causal"],
-    "value_scale": ("__float2bfloat16_rn(p * vsc[my_col0 + c])",
+    "value_scale": ("__float2bfloat16_rn(p * vsc[col])",
                     "__float2bfloat16_rn(p)"),
     "stale_scale": ("const bool in = row >= kv_lo && row <= kv_hi;",
                     "const bool in = true;"),
@@ -88,6 +104,9 @@ FAULTS_BATCHED = {
          "          kr[b] = vr[b] = make_uint4(0u, 0u, 0u, 0u);\n"
          "          if (row >= kv_lo && row <= kv_hi + BKV) {")],
     "pos_swapped": ("__ldg(w.pos + slot)", "__ldg(w.pos + (slot ^ 1))"),
+    "merge_skip_last": FAULTS["merge_skip_last"],
+    # the cp partials (B1): the shard's row base left out of the masks
+    "seq_base_ignored": (": w.pos0) - w.seq_base;", ": w.pos0);"),
 }
 S = 8192
 # heads, kv heads, head_dim, window, softcap
@@ -152,9 +171,13 @@ def make_inputs(torch, geometry, quantize, plain, tol_fn, tag=""):
 def batched_inputs(torch):
     """Kernel I's and J's cases at Gemma-2-9B's attention (bf16): per-slot
     cache and pools of 512- and 56-row pages holding the same rows, 8
-    slots at chip_smoke.BATCH_POS, T 1 and 5.  Returns (cases as
-    make_inputs gives them, kernel of each case prefix)."""
-    from chip_smoke import BATCH_POS, GEMMA as G, batched_cache, to_pool
+    slots at chip_smoke.BATCH_POS, T 1 and 5; and B1's: the per-slot cache
+    cut into 4 sequence shards, `return_lse` on each, merged by kernel M,
+    against the plain version on the whole cache with I's bound.  Returns
+    (cases as make_inputs gives them, kernel of each case prefix)."""
+    from chip_smoke import (BATCH_POS, GEMMA as G, batched_cache,
+                            cut_shards, sharded_lse, to_pool)
+    from lmrs_tpu_torch.kernels.flash_merge import flash_merge
     from lmrs_tpu_torch.kernels.flash_attention_batched import (
         flash_attention_batched, flash_attention_batched_plain,
         flash_attention_batched_tol)
@@ -167,6 +190,8 @@ def batched_inputs(torch):
     kw = dict(n_kv=G["KH"], scale=G["HD"] ** -0.5, softcap=G["SOFTCAP"],
               window=G["WINDOW"])
     layouts = [("I", (k, v), flash_attention_batched_plain,
+                flash_attention_batched_tol),
+               ("B1", (k, v), flash_attention_batched_plain,
                 flash_attention_batched_tol)]
     for psz in (512, 56):
         kp, vp, table, _, _ = to_pool(torch, (k, v, None, None), psz,
@@ -183,7 +208,12 @@ def batched_inputs(torch):
             inputs.append((f"{tag}_T{t_q}", q, cache, kw,
                            plain(q, *cache, 0, pos, **kw),
                            tol_fn(q, *cache, 0, pos, **kw), pos))
-    return inputs, {"I": flash_attention_batched,
+
+    def b1_merged(q, k, v, layer, pos, **kw):
+        return flash_merge(*sharded_lse(torch, q, cut_shards(k, v), pos,
+                                        kw))
+
+    return inputs, {"I": flash_attention_batched, "B1": b1_merged,
                     "J512": flash_attention_paged,
                     "J56": flash_attention_paged}
 

@@ -183,12 +183,68 @@ def test_unsupported_options_raise(artifacts):
             BackendServer(model_path, tok_path, device="cpu", **kw)
     with pytest.raises(ValueError, match="requires --batch"):
         BackendServer(model_path, tok_path, device="cpu", pool_tokens=512)
-    srv = server(artifacts)
-    with pytest.raises(NotImplementedError, match="A13"):
-        talk(srv, Conn([json.dumps({"text": "hi", "image": "AAAA"})]))
+    # a text-only server answers the text of a message with an image, as
+    # the JAX BackendServer does on the same model (greedy, text for text)
+    image_msg = json.dumps({"text": "Hello there", "image": "AAAA"})
+    (turns, status), = talk(server(artifacts), Conn([image_msg]))
+    assert not status and turns == [jax_reply(artifacts, image_msg)]
     with pytest.raises(NotImplementedError, match="A15"):
         main(["--model", model_path, "--tokenizer", tok_path, "--device",
               "cpu", "--tp", "2"])
+
+
+def jax_reply(artifacts, msg):
+    """The JAX BackendServer's greedy reply to one message on the same
+    .lmrs file and tokenizer (12 new tokens, as `server` gives)."""
+    from lmrs_tpu.serve.backend import BackendServer as JaxBackendServer
+
+    model_path, tok_path = artifacts
+    jsrv = JaxBackendServer(model_path, tok_path, temperature=0.0,
+                            max_new_tokens=12)
+    (turns, status), = talk(jsrv, Conn([msg]))
+    assert not status
+    return turns[0]
+
+
+@pytest.mark.parametrize("batch", [0, 2])
+def test_lmrs_w8a8_off_reaches_engine_and_scheduler(artifacts, monkeypatch,
+                                                    batch):
+    """LMRS_W8A8=0, the switch the chat CLI reads, sends the backend's Q8_0
+    layers through W8A16 too: the scheduler and every connection's Engine
+    hold w8a8=False, and the greedy reply is Engine(w8a8=False)'s, text
+    for text."""
+    from lmrs_tpu_torch.runtime import engine as engine_mod
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+    from lmrs_tpu_torch.tokenizer import StreamDecoder
+
+    made = []
+
+    class Recording(Engine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    monkeypatch.setenv("LMRS_W8A8", "0")
+    monkeypatch.setattr(engine_mod, "Engine", Recording)
+    srv = server(artifacts, batch=batch)
+    try:
+        assert srv.w8a8 is False
+        (turns, _), = talk(srv, Conn(MSGS[:1]))
+        if batch:
+            assert srv.scheduler.sched.w8a8 is False
+        else:
+            assert made and all(e.w8a8 is False for e in made)
+    finally:
+        srv.shutdown()
+    eng = Engine(srv.cfg, srv.params, device="cpu", w8a8=False,
+                 prefill_chunk=256)
+    stop = srv._stop_tokens()
+    toks = eng.generate(srv._prompt("Hello there", True),
+                        GenerationConfig(temperature=0.0, max_new_tokens=12),
+                        stop_tokens=stop)
+    dec = StreamDecoder(srv.tokenizer)
+    want = "".join(dec.push(t) or "" for t in toks if t not in stop)
+    assert turns == [want + (dec.flush() or "")]
 
 
 def test_live_websocket_server(artifacts, single_replies):

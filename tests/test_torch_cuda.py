@@ -32,7 +32,17 @@ fused FFN) 1e-3 of the output scale (the same bf16 operands and exact
 products, f32 sums in another order; a last-bit difference of the f32
 gate or up flips a g value's bf16 rounding by one step, 2^-8 of it, and
 moves the outputs by ~2e-4 of their scale at most), and a row of a K call
-bit for bit the row computed alone.
+bit for bit the row computed alone.  Flash-decoding (the split pass and
+kernel M): C, G, H, I and J at positions on and next to split boundaries
+and the window's edge within their plain versions' bounds, and a row of a
+T = 5 call bit for bit the row alone; M within `flash_merge_tol` of its
+plain version (the same f32 weights and sums in another order); the cp
+partials (B1) of each of four sequence shards within the plain raw acc's
+bound (`flash_attention_batched_tol(..., return_lse=True)`), m within
+1e-5 and l within 1e-4 relative of the plain version's (f32 scores in
+another order), m == _MASK_NEG exactly where a shard holds no live key,
+and the shards merged by M within I's bound of I's result and of the plain
+version (two levels of merge round differently: not bit for bit).
 """
 
 import numpy as np
@@ -57,6 +67,9 @@ from lmrs_tpu_torch.kernels.flash_attention_i8 import (
 from lmrs_tpu_torch.kernels.flash_attention_paged import (
     flash_attention_paged, flash_attention_paged_plain,
     flash_attention_paged_tol)
+from lmrs_tpu_torch.kernels.flash_merge import (SPLIT, flash_merge,
+                                                flash_merge_plain,
+                                                flash_merge_tol)
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv, q4_gemv_plain
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm, q8_gemm_plain
 from lmrs_tpu_torch.kernels.q8_gemv import q8_gemv, q8_gemv_plain
@@ -403,6 +416,7 @@ def _small_model_card_matches_cpu(tmp_path, family, quant, cache,
         expect.discard("q8_gemv_i8")    # the layers take kernel E too
     expect.add({"int8": "flash_attention_i8",
                 "int4": "flash_attention_i4"}.get(cache, "flash_attention"))
+    expect.add("flash_merge")           # a decode step: split pass, merge
     if fuse_ffn:
         expect.add("ffn_fused_xe")      # the 77-row prompt: one B/F chunk
     assert {k for k, n in launches().items() if n > 0} == expect
@@ -696,3 +710,190 @@ def test_ffn_fused_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         ffn_fused_xe(x, q13, s13, q2, s2, 32, "relu")
     assert launches()["ffn_fused_xe"] == launches()["ffn_fused"] == 0
+
+
+MASK_NEG = torch.finfo(torch.float32).min
+
+
+def _split_cache(cache, kh, hd, s_len, gen):
+    """A two-layer `cache` KV cache of random rows, as the single-sequence
+    kernels take it: (k, v, k_scale, v_scale), the scales None for bf16."""
+    kv = torch.randn(2, 2, s_len, kh, hd, device="cuda", generator=gen)
+    if cache == "bf16":
+        rows = kv.reshape(2, 2, s_len, kh * hd).to(torch.bfloat16)
+        return rows[0], rows[1], None, None
+    quantize = quantize_kv_rows if cache == "int8" else quantize_kv_rows_q4
+    rows, sc = quantize(kv)                  # (2, L, S, row), (2, L, S, KH)
+    return (rows[0].contiguous(), rows[1].contiguous(),
+            sc[0].transpose(1, 2).contiguous(),
+            sc[1].transpose(1, 2).contiguous())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache,hd,kh,g,window", [
+    ("bf16", 256, 8, 2, 4096), ("int8", 128, 8, 3, None),
+    ("int4", 128, 8, 3, None), ("int4", 256, 8, 2, 4096)])
+def test_flash_split_boundaries_on_card(cuda_device, cache, hd, kh, g,
+                                        window):
+    """C, G and H (both packings) at T 1 and 5 with the last live row on
+    and next to a split boundary (pos = k*SPLIT - 1, k*SPLIT) and with the
+    window's first row there: within the plain version's bound, and each
+    row of the T = 5 call bit for bit the row alone."""
+    split = SPLIT
+    s_len = 8192
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + len(cache))
+    k, v, ks, vs = _split_cache(cache, kh, hd, s_len, gen)
+    kw = dict(n_kv=kh, scale=hd ** -0.5,
+              softcap=50.0 if window else None, window=window)
+    plist = [3 * split - 1, 3 * split, 5 * split - 5]
+    if window:
+        plist += [window + 2 * split - 1, window + 2 * split,
+                  window + 2 * split + 1]
+    for pos in plist:
+        for t_q in (1, 5):
+            q = torch.randn(t_q, kh * g, hd, device=cuda_device,
+                            generator=gen)
+            got = _single(cache, q, k, v, ks, vs, pos, **kw)
+            if cache == "bf16":
+                want = flash_attention_plain(q, k, v, 1, pos, **kw)
+                tol = flash_attention_tol(q, k, v, 1, pos, **kw)
+            elif cache == "int8":
+                want = flash_attention_i8_plain(q, k, v, ks, vs, 1, pos,
+                                                **kw)
+                tol = flash_attention_i8_tol(q, k, v, ks, vs, 1, pos, **kw)
+            else:
+                want = flash_attention_i4_plain(q, k, v, ks, vs, 1, pos,
+                                                **kw)
+                tol = flash_attention_i4_tol(q, k, v, ks, vs, 1, pos, **kw)
+            torch.cuda.synchronize()
+            assert ((got - want).abs() <= tol).all(), (pos, t_q)
+            if t_q == 5:
+                rows = torch.cat([_single(cache, q[i:i + 1].contiguous(), k,
+                                          v, ks, vs, pos + i, **kw)
+                                  for i in range(5)])
+                assert torch.equal(got, rows), pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8"])
+@pytest.mark.parametrize("t_q", [1, 5])
+def test_flash_cp_partials_on_card(cuda_device, cache, t_q):
+    """B1: the per-slot cache cut into 4 shards along S, each shard's raw
+    pieces (`return_lse=True`, `seq_base`) against the plain version, a
+    shard that slot 0 never reaches at m == _MASK_NEG, and the shards
+    merged by kernel M against kernel I on the whole cache and the plain
+    version, within I's bound."""
+    hd, kh, g, s_len, n_shards = 256, 8, 2, 2048, 4
+    pos = [100, 700, 1530 - t_q, 1600, 2040 - t_q]
+    case = make_case(cuda_device, b=5, n_layers=2, s_len=s_len, kh=kh, hd=hd,
+                     cache=cache, psz=64, pos=pos, t_q=t_q, seed=t_q, g=g)
+    q, p = case["q"], case["pos"]
+    k, v, ks, vs = case["contig"]
+    kw = dict(n_kv=kh, scale=hd ** -0.5, softcap=50.0, window=1024)
+    shard = s_len // n_shards
+    parts = []
+    reset_launches()
+    for i in range(n_shards):
+        cut = [None if a is None else
+               a.narrow(2 if a is k or a is v else 3, i * shard,
+                        shard).contiguous() for a in (k, v, ks, vs)]
+        sk = dict(k_scale=cut[2], v_scale=cut[3], seq_base=i * shard,
+                  return_lse=True, **kw)
+        acc, m, l = flash_attention_batched(q, cut[0], cut[1], 1, p, **sk)
+        pacc, pm, pl = flash_attention_batched_plain(q, cut[0], cut[1], 1, p,
+                                                     **sk)
+        tol = flash_attention_batched_tol(q, cut[0], cut[1], 1, p, **sk)
+        torch.cuda.synchronize()
+        live = pm != MASK_NEG
+        assert torch.equal(m == MASK_NEG, ~live)
+        assert ((acc - pacc).abs() <= tol)[live].all()
+        torch.testing.assert_close(m[live], pm[live], rtol=0, atol=1e-5)
+        torch.testing.assert_close(l[live], pl[live], rtol=1e-4, atol=0)
+        assert (acc[~live] == 0).all() and (l[~live] == 0).all()
+        parts.append((acc, m, l))
+    assert launches()["flash_attention_batched"] == n_shards
+    # slot 0 (pos 100) never reaches shards 1..3
+    assert (parts[3][1][0] == MASK_NEG).all()
+    merged = flash_merge(*(torch.stack([pt[j] for pt in parts], dim=1)
+                           for j in range(3)))
+    got_i = flash_attention_batched(q, k, v, 1, p, k_scale=ks, v_scale=vs,
+                                    **kw)
+    want = flash_attention_batched_plain(q, k, v, 1, p, k_scale=ks,
+                                         v_scale=vs, **kw)
+    tol = flash_attention_batched_tol(q, k, v, 1, p, k_scale=ks, v_scale=vs,
+                                      **kw)
+    torch.cuda.synchronize()
+    assert ((merged - got_i).abs() <= tol).all()
+    assert ((merged - want).abs() <= tol).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,t_q,h,hd", [(1, 17, 1, 16, 256),
+                                          (8, 18, 5, 16, 256),
+                                          (16, 32, 5, 24, 128),
+                                          (3, 2, 2, 4, 64)])
+def test_flash_merge_on_card(cuda_device, b, n, t_q, h, hd):
+    """Kernel M against its plain version, raw and normalized, with dead
+    splits (m = -inf, acc NaN: never read) and a row with no live split."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    acc = torch.randn(b, n, t_q, h, hd, device=cuda_device, generator=gen)
+    m = 3 * torch.randn(b, n, t_q, h, device=cuda_device, generator=gen)
+    l = 1 + torch.rand(b, n, t_q, h, device=cuda_device, generator=gen)
+    dead = torch.rand(b, n, t_q, h, device=cuda_device, generator=gen) < 0.3
+    dead[..., 0, 0] = True                 # row (., 0, 0): no live split
+    dead[:, 0, 0, 1] = False
+    m[dead] = float("-inf")
+    l[dead] = 0.0
+    acc[dead] = float("nan")
+    reset_launches()
+    got = flash_merge(acc, m, l)
+    num, mg, den = flash_merge(acc, m, l, raw=True)
+    assert launches()["flash_merge"] == 2
+    want = flash_merge_plain(acc, m, l)
+    wnum, wmg, wden = flash_merge_plain(acc, m, l, raw=True)
+    torch.cuda.synchronize()
+    ok = ~dead.all(dim=1)
+    tol = flash_merge_tol(acc, m, l)
+    assert ((got - want).abs() <= tol)[ok].all()
+    assert ((num - wnum).abs() <= flash_merge_tol(acc, m, l, raw=True)).all()
+    assert torch.equal(mg, wmg)
+    torch.testing.assert_close(den, wden, rtol=2 ** -16, atol=0)
+    assert (mg[~ok] == MASK_NEG).all() and (num[~ok] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["bf16", "f32", "int8", "int4"])
+@pytest.mark.parametrize("hd,kh,g", [(256, 8, 2), (128, 8, 3)])
+@pytest.mark.parametrize("t_q", [5, 8])
+def test_flash_rows_independent_of_t_on_card(cuda_device, cache, hd, kh, g,
+                                             t_q):
+    """A row of a T = 5 or 8 call of C (bf16, f32), G or H, and of I and J
+    (not int4 for I), equals the row computed alone, bit for bit:
+    speculative greedy decoding is exact because of it.  At hd 128, G = 3,
+    T = 8 holds 24 query rows: a block of 64 rows, where a row alone takes
+    a block of 16."""
+    pos = [0, 700, 1030, 1300, 37]
+    case = make_case(cuda_device, b=5, n_layers=2, s_len=1344, kh=kh, hd=hd,
+                     cache=cache, psz=56, pos=pos, t_q=t_q, seed=hd, g=g)
+    q, p = case["q"], case["pos"]
+    kw = dict(n_kv=kh, scale=hd ** -0.5, softcap=50.0, window=1024)
+    k, v, ks, vs = case["contig"]
+    kp, vp, table, pks, pvs = case["paged"]
+    fns = {"J": lambda qq, pp: flash_attention_paged(
+        qq, kp, vp, table, 1, pp, k_scale=pks, v_scale=pvs, **kw)}
+    if cache != "int4":
+        fns["I"] = lambda qq, pp: flash_attention_batched(
+            qq, k, v, 1, pp, k_scale=ks, v_scale=vs, **kw)
+    for name, fn in fns.items():
+        whole = fn(q, p)
+        rows = torch.cat([fn(q[:, i:i + 1].contiguous(), p + i)
+                          for i in range(t_q)], dim=1)
+        assert torch.equal(whole, rows), name
+    for i, pi in enumerate(pos):
+        sq = q[i]
+        one = (k[i], v[i], None if ks is None else ks[i],
+               None if vs is None else vs[i])
+        whole = _single(cache, sq, *one, pi, **kw)
+        rows = torch.cat([_single(cache, sq[t:t + 1].contiguous(), *one,
+                                  pi + t, **kw) for t in range(t_q)])
+        assert torch.equal(whole, rows), (cache, pi)

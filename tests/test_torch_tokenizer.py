@@ -91,7 +91,7 @@ def test_chat_cli_answers_on_cpu(tmp_path):
                            "q8_gemv_i8", "q8_gemv", "q8_gemm",
                            "flash_attention_i8", "flash_attention_i4",
                            "flash_attention_batched", "flash_attention_paged",
-                           "ffn_fused_xe", "ffn_fused"}
+                           "ffn_fused_xe", "ffn_fused", "flash_merge"}
     assert not any(counts.values())
     assert "jax" not in out.stderr.lower()
     # --spec-k: the same greedy reply, and the acceptance rate is printed
