@@ -19,30 +19,32 @@ Phases (any failure ends the run with a non-zero exit):
    on an f32 cache, G (flash_attention_i8) and H (pair packing) at the
    Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 and
    the flash kernels at T 1, 5 and 256: T = 5 is a speculative verify
-   window of k = 4.  I (flash_attention_batched, per-slot cache: bf16,
-   f32, int8) and J (flash_attention_paged, pools of 512- and 56-row
-   pages: bf16, f32, int8, int4) at both models' geometry, 8 slots at
-   positions 0..6,000 (some past Gemma's window), T 1 and 5: within the
-   plain version's bound, each slot bit for bit C / G / H on its own rows,
-   J bit for bit I, and a slot unchanged when every other slot, page and
-   the trash page hold NaN; timed at the per-slot cache and 512-row pages
-   (library yardstick: SDPA over each slot's live rows, padded, with a
-   mask).  K (ffn_fused_xe, T 1, 5, 8) and L (ffn_fused, T 9, 16), the
-   fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0, tanh-GELU) and
-   Llama-3.2-3B's (Q8_0, silu); library yardstick: the unfused chain in
-   PyTorch calls (two torch.matmul on pre-dequantized bf16 W13 and W2,
-   the GLU between them).  A decode call of C, G, H, I or J (one query
-   block per kv head) is flash-decoding: the template's split pass and
-   kernel M (flash_merge), both in the timings; C, G and H are also held
-   at positions on split boundaries and at Gemma's window edge.  B1 (the
-   cp partials, flash_attention_batched(..., seq_base=, return_lse=True))
-   on 4 sequence shards of the Gemma per-slot cache: each shard against
-   the plain version, rows with no live key at m == _MASK_NEG, the shards
-   merged by M against I and the plain version.  M against its plain
-   version on the split pass's workspaces of C and I.  Then, per kernel,
-   whether a row of a T = 5 call equals the same row computed alone (what
-   makes speculative greedy decoding exact): a "no" fails the run for K
-   and the flash kernels, whose designs promise it.
+   window of k = 4.  B and F run at T 9, 16, 64, 256 and 512, and are held
+   bit for bit on rows of x that are unit vectors (W_deq's columns) and
+   across two calls on the same inputs.  I (flash_attention_batched,
+   per-slot cache: bf16, f32, int8) and J (flash_attention_paged, pools of
+   512- and 56-row pages: bf16, f32, int8, int4) at both models' geometry,
+   8 slots at positions 0..6,000 (some past Gemma's window), T 1 and 5:
+   within the plain version's bound, each slot bit for bit C / G / H on its
+   own rows, J bit for bit I, and a slot unchanged when every other slot,
+   page and the trash page hold NaN; timed at the per-slot cache and
+   512-row pages (library yardstick: SDPA over each slot's live rows,
+   padded, with a mask).  K (ffn_fused_xe, T 1, 5, 8) and L (ffn_fused, T
+   9, 16), the fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0,
+   tanh-GELU) and Llama-3.2-3B's (Q8_0, silu); library yardstick: the
+   unfused chain in PyTorch calls (two torch.matmul on pre-dequantized bf16
+   W13 and W2, the GLU between them).  A decode call of C, G, H, I or J
+   (one query block per kv head) is flash-decoding: the template's split
+   pass and kernel M (flash_merge), both in the timings; C, G and H are
+   also held at positions on split boundaries and at Gemma's window edge.
+   B1 (the cp partials, flash_attention_batched(..., seq_base=,
+   return_lse=True)) on 4 sequence shards of the Gemma per-slot cache: each
+   shard against the plain version, rows with no live key at m ==
+   _MASK_NEG, the shards merged by M against I and the plain version.  M
+   against its plain version on the split pass's workspaces of C and I.
+   Then, per kernel, whether a row of a T = 5 call equals the same row
+   computed alone (what makes speculative greedy decoding exact): a "no"
+   fails the run for K and the flash kernels, whose designs promise it.
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
@@ -218,6 +220,9 @@ Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8",
 Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4",
               "flash_merge"}
 GEMV_T = (1, 4, 5)      # 5: a speculative verify window of k = 4
+# B and F: a batched step of 9-16 rows, a scheduler prefill chunk (64), a
+# single-stream prefill chunk (256) and the kernels' widest call (512)
+GEMM_T = (9, 16, 64, 256, 512)
 # batched serving paths: (kernels that must launch, kernels that may).  A
 # prefill chunk's classifier runs on its one logits row (A or E); a prompt
 # tail of up to 8 rows takes the T <= 8 kernels
@@ -348,12 +353,39 @@ def check_act_quant(torch, gen):
                                    f"quant.quantize_q8_act")
 
 
+def check_gemm_exact(torch, kern, fn, q, s, shape, t, gen):
+    """Kernel B or F bit for bit where the 1e-3 output tolerance cannot
+    look: rows of x that are unit vectors e_k give W_deq[:, k] exactly
+    (the packed dequant is dequant_bf16's rounding element for element),
+    and a second call on the same inputs gives the same bits (split-K sums
+    in a fixed order; greedy decoding across reset() relies on it).  Raises
+    if either fails."""
+    from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as dequant_q4
+    from lmrs_tpu_torch.kernels.q8_gemm import dequant_bf16 as dequant_q8
+
+    dequant = dequant_q4 if kern == "q4_gemm" else dequant_q8
+    o, k = q.shape[0], s.shape[1] * GS
+    cols = torch.randint(0, k, (t,), device="cuda", generator=gen)
+    x = torch.zeros(t, k, device="cuda")
+    x[torch.arange(t, device="cuda"), cols] = 1.0
+    got = fn(x, q, s, GS)
+    want = dequant(q, s, GS)[:, cols].t().float()
+    xr = torch.randn(t, k, device="cuda", generator=gen)
+    first, second = fn(xr, q, s, GS), fn(xr, q, s, GS)
+    torch.cuda.synchronize()
+    one_hot, same = torch.equal(got, want), torch.equal(first, second)
+    if not (one_hot and same):
+        raise RuntimeError(f"{kern} {shape} T={t}: one-hot rows give W_deq "
+                           f"bit for bit {one_hot}, two calls equal {same}")
+
+
 def check_matmul_kernels(torch, timer, peak, model, quant):
     """The matmul kernels of one weight type against their plain versions
     at every shape of `model`'s main path; returns per-case results.
-    "q4": A (all five shapes, T 1, 4 and 5) and B (layer shapes, T 9 and
-    256).  "q8": D (layer shapes, T 1, 4 and 5), E (all five, the same T)
-    and F (layer shapes, T 9 and 256)."""
+    "q4": A (all five shapes, T 1, 4 and 5) and B (layer shapes, GEMM_T).
+    "q8": D (layer shapes, T 1, 4 and 5), E (all five, the same T) and F
+    (layer shapes, GEMM_T).  B and F are also held bit for bit on one-hot
+    rows and across two calls (`check_gemm_exact`)."""
     from lmrs_tpu_torch.kernels import q4_gemm, q4_gemv, q8_gemm, q8_gemv
     from lmrs_tpu_torch.kernels import q8_gemv_i8
     from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as dequant_q4
@@ -385,13 +417,13 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             q, s = random_q4(torch, gen, o, k)
             w_lib = dequant_q4(q, s, GS)        # library yardstick only
             plan = [("q4_gemv", t) for t in GEMV_T]
-            plan += [("q4_gemm", t) for t in (9, 256)] if layer else []
+            plan += [("q4_gemm", t) for t in GEMM_T] if layer else []
         else:
             q, s = random_q8(torch, gen, o, k)
             w_lib = dequant_q8(q, s, GS)
             plan = [("q8_gemv_i8", t) for t in GEMV_T] if layer else []
             plan += [("q8_gemv", t) for t in GEMV_T]
-            plan += [("q8_gemm", t) for t in (9, 256)] if layer else []
+            plan += [("q8_gemm", t) for t in GEMM_T] if layer else []
         for kern, t in plan:
             fn, plain_fn, tol_rel, xbytes, rate = kernels[kern]
             x = torch.randn(t, k, device="cuda", generator=gen)
@@ -430,6 +462,8 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
                 except RuntimeError:
                     case["int_mm_ms"] = None
                     extra = "  _int_mm n/a"
+            if kern in ("q4_gemm", "q8_gemm"):
+                check_gemm_exact(torch, kern, fn, q, s, name, t, gen)
             log(f"  {kern:10s} {name:10s} T={t:3d}: max_abs_err {err:.3e} "
                 f"(tol {tol:.3e})  kernel {case['ms']:.4f} ms  plain "
                 f"{case['plain_ms']:.4f}  library {case['library_ms']:.4f}"

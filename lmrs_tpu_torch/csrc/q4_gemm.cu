@@ -7,184 +7,36 @@
 // function on K-major tiles); the unstacked dequant_matmul.py:_q4_kernel
 // computes it too but is not on the serving path.
 //
-// Bound on an H100: tensor-core operations at T = 256 (2*T*O*K FLOP against
-// 0.5*O*K weight bytes: ~512 FLOP per byte, above the card's ~295 bf16
-// FLOP/byte balance point); bytes at the small-T end of the range.
-// Design: a 64x64 output tile per block of four warps (each warp 32x32 =
-// 2x2 WMMA 16x16x16 bf16 fragments with f32 accumulators).  Each K step of
-// 128 elements stores the x tile into shared memory and dequantizes the
-// packed weight tile straight into a bf16 tile in shared memory — one
-// group scale per (row, group) — so dequantized weights never touch
-// device memory.  The next step's global loads are issued into registers
-// before the current step's products (one stage of software pipelining).
-// The output tile is staged through shared memory for a bounds-masked
-// store.
+// Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): bytes at T = 9 — a
+// Gemma-2-9B layer's four matrices are 105.3 MB of packed weights and
+// scales, 31.4 us; tensor-core operations at T = 256 — 2*T*O*K = 101.5
+// GFLOP a layer, 102.6 us (~512 FLOP per weight byte, above the card's
+// ~295 FLOP/byte balance point).
 //
-// Later: a wgmma/TMA pipeline with a ring of stages and a producer warp.
+// Design (qgemm_sm90.cuh, shared with kernel F): y^T = W_deq . x^T with
+// wgmma m64nNk16, the weights dequantized once per call in registers
+// straight into wgmma's A fragment (two packed bf16x2 operations per pair
+// of values), x the B operand from a ring of shared-memory stages that one
+// producer warp fills with TMA (128 K elements, 64 weight bytes a row, a
+// stage), two consumer warpgroups of 64 features each, split-K over a
+// cluster with a fixed-order reduction through distributed shared memory.
+// Grid: ceil(O/128) tiles x S blocks x ceil(T/256) halves, S the largest
+// (<= 8) for which the card holds every tile's cluster at once.  N = 16 for
+// T = 9..16, 64 for the scheduler's 64-row chunks, 128 for 80-row verify
+// steps, 256 for 256-row prefill chunks.  Gemma-2-9B's wqkv, wo, w13, w2 on
+// an H100 80GB HBM3 at 700 W (scripts/torch_gemm_split.py): T = 9, 16
+// 64 x 3, 28 x 8, 224 x 1, 28 x 8 blocks; T = 64 and 256 64 x 2, 28 x 4,
+// 224 x 1, 28 x 4.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-
-namespace {
-
-constexpr int BM = 64;          // token rows per block
-constexpr int BN = 64;          // output features per block
-constexpr int BK = 128;         // K elements per step (64 packed bytes)
-constexpr int LDT = BK + 8;     // bf16 row stride of the smem tiles
-constexpr int LDC = BN + 4;     // f32 row stride of the staged output
-constexpr int kThreads = 128;   // 4 warps, 2x2 of 32x32 warp tiles
-
-__global__ void __launch_bounds__(kThreads)
-q4_gemm_kernel(const __nv_bfloat16* __restrict__ x,
-               const uint8_t* __restrict__ q, const float* __restrict__ s,
-               float* __restrict__ y, int T, int O, int K, int gs) {
-  __shared__ __align__(128) __nv_bfloat16 xs[BM * LDT];
-  __shared__ __align__(128) __nv_bfloat16 ws[BN * LDT];
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int kb = K / 2;
-  const int half = gs / 2;
-  const int n_groups = K / gs;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // The next K step's x chunks, packed weight chunks and scales are
-  // loaded into registers while the tensor cores work on the current one,
-  // then dequantized into shared memory after the step's barrier.
-  constexpr int kXLoads = BM * (BK / 8) / kThreads;    // 16-byte x chunks
-  constexpr int kWLoads = BN * (BK / 32) / kThreads;   // 16-byte q chunks
-  static_assert(BM * (BK / 8) % kThreads == 0 && BN * (BK / 32) % kThreads == 0,
-                "tile chunks must split evenly over the threads");
-  uint4 xr[kXLoads], wr[kWLoads];
-  float sr[kWLoads];
-
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      xr[j] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < T)
-        xr[j] = __ldg(reinterpret_cast<const uint4*>(
-            x + (size_t)(m0 + r) * K + k0 + c));
-    }
-#pragma unroll
-    for (int j = 0; j < kWLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (BK / 32), cb = (i % (BK / 32)) * 16;
-      const int n = n0 + r;
-      const int gb = k0 / 2 + cb;
-      wr[j] = make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
-      sr[j] = 0.f;
-      if (n < O) {
-        wr[j] = __ldg(reinterpret_cast<const uint4*>(q + (size_t)n * kb + gb));
-        sr[j] = __ldg(s + (size_t)n * n_groups + gb / half);
-      }
-    }
-  };
-
-  auto store = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < kXLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-      *reinterpret_cast<uint4*>(xs + r * LDT + c) = xr[j];
-    }
-    // packed bytes -> bf16 in natural element order
-#pragma unroll
-    for (int j = 0; j < kWLoads; ++j) {
-      const int i = tid + j * kThreads;
-      const int r = i / (BK / 32), cb = (i % (BK / 32)) * 16;
-      const int gb = k0 / 2 + cb;             // byte within the matrix row
-      const int g = gb / half;
-      const int local = g * gs + (gb - g * half) - k0;  // low-nibble element
-      const float sb = __bfloat162float(__float2bfloat16_rn(sr[j]));
-      const uint32_t words[4] = {wr[j].x ^ 0x80808080u, wr[j].y ^ 0x80808080u,
-                                 wr[j].z ^ 0x80808080u, wr[j].w ^ 0x80808080u};
-      __nv_bfloat16* lo_dst = ws + r * LDT + local;
-      __nv_bfloat16* hi_dst = lo_dst + half;
-#pragma unroll
-      for (int w = 0; w < 4; ++w) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int lo = (int)((words[w] >> (8 * b)) & 0xFu) - 8;
-          const int hi = (int)((words[w] >> (8 * b + 4)) & 0xFu) - 8;
-          // bf16(w) is exact for |w| <= 8; the f32 product of two bf16
-          // values is exact, then rounds once to bf16
-          lo_dst[4 * w + b] = __float2bfloat16_rn((float)lo * sb);
-          hi_dst[4 * w + b] = __float2bfloat16_rn((float)hi * sb);
-        }
-      }
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    store(k0);
-    __syncthreads();
-    if (k0 + BK < K) load(k0 + BK);   // in flight during the products
-
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], xs + (wm * 32 + i * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], ws + (wn * 32 + j * 16) * LDT + kk, LDT);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  // stage the 64x64 f32 tile in the (now free) x tile and store masked
-  float* cs = reinterpret_cast<float*>(xs);
-  static_assert(BM * LDC * sizeof(float) <= BM * LDT * sizeof(__nv_bfloat16),
-                "output staging must fit the x tile");
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(cs + (wm * 32 + i * 16) * LDC + wn * 32 + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += kThreads) {
-    const int r = i / BN, c = i % BN;
-    if (m0 + r < T && n0 + c < O)
-      y[(size_t)(m0 + r) * O + n0 + c] = cs[r * LDC + c];
-  }
-}
-
-}  // namespace
+#include "qgemm_sm90.cuh"
 
 // x (T, K) bf16, q (O, K/2) u8 runtime layout, s (O, K/gs) f32 -> y (T, O)
-// f32.  Needs K % 128 == 0, 128 % gs == 0 and gs % 32 == 0 (the Python
-// wrapper checks).  Returns cudaGetLastError().
+// f32.  Needs 9 <= T <= 512, K % 128 == 0, gs in (32, 64, 128) and 16-byte
+// aligned x and q (the Python wrapper checks).  Returns a CUDA error code
+// (0 on success).
 extern "C" int lmrs_q4_gemm(const void* x, const uint8_t* q, const float* s,
                             float* y, int T, int O, int K, int gs,
                             cudaStream_t stream) {
-  const dim3 grid((O + BN - 1) / BN, (T + BM - 1) / BM);
-  q4_gemm_kernel<<<grid, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), q, s, y, T, O, K, gs);
-  return (int)cudaGetLastError();
+  return lmrs_sm90::launch<lmrs_sm90::Quant::Q4>(x, q, s, y, T, O, K, gs,
+                                                  stream);
 }

@@ -23,7 +23,7 @@ MIN_T, MAX_T = 9, 512
 def dequant_bf16(q: torch.Tensor, s: torch.Tensor,
                  group_size: int) -> torch.Tensor:
     """W_deq = bf16(bf16(w) * bf16(s)) as a dense (O, K) bf16 matrix — the
-    rounding the kernel applies inside shared memory."""
+    rounding the kernel applies in registers."""
     o, g = s.shape
     w = unpack_q4(q, group_size).to(torch.bfloat16).float()
     sb = s.to(torch.bfloat16).float()

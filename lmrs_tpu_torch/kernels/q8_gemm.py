@@ -22,7 +22,7 @@ MIN_T, MAX_T = 9, 512
 def dequant_bf16(q: torch.Tensor, s: torch.Tensor,
                  group_size: int) -> torch.Tensor:
     """W_deq = bf16(bf16(wq) * bf16(s)) as a dense (O, K) bf16 matrix — the
-    rounding the kernel applies inside shared memory (an int8 value is exact
+    rounding the kernel applies in registers (an int8 value is exact
     in bf16)."""
     o, g = s.shape
     sb = s.to(torch.bfloat16).float()

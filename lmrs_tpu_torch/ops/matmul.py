@@ -3,7 +3,7 @@ number of rows T.
 
     Q4_0  T <= 8        -> kernel A, q4_gemv (f32 activations)
           9 <= T <= 512 -> kernel B, q4_gemm (bf16 activations, bf16
-                           dequantized weights in shared memory)
+                           dequantized weights in registers)
     Q8_0  T <= 8        -> kernel D, q8_gemv_i8 (W8A8: activations quantized
                            to int8 per group, integer dots) for layer
                            weights while `w8a8` is on; kernel E, q8_gemv

@@ -7,12 +7,13 @@
     LMRS_W8A8=0 python3 scripts/torch_decode_profile.py ...  # Q8_0 layers W8A16
     python3 scripts/torch_decode_profile.py --batch 8 [--no-paged] ...
     python3 scripts/torch_decode_profile.py --fuse-ffn on|off|ab ...
+    python3 scripts/torch_decode_profile.py --prefill [--pos 1024] ...
 
 Writes a synthetic .lmrs of the chosen preset (default Gemma-2-9B Q4_0,
-seed 0) under build/, loads it onto the GPU with the chosen KV cache type,
-prefills `--pos` tokens, then runs `--steps` decode steps twice: once
-timed with the host clock after torch.cuda.synchronize(), once under
-torch.profiler.  With `--spec-k K` a step is a greedy speculative verify
+seed 0) under build/ (or uses and keeps `--lmrs PATH`), loads it onto the
+GPU with the chosen KV cache type, prefills `--pos` tokens, then runs
+`--steps` decode steps twice: once timed with the host clock after
+torch.cuda.synchronize(), once under torch.profiler.  With `--spec-k K` a step is a greedy speculative verify
 step of K drafted tokens (random weights give a greedy stream that
 repeats one token, so the tokens per step say nothing of real text: the
 figures show a verify step by kernel).  Prints the card's name and power
@@ -29,7 +30,13 @@ more with speculation).  `--fuse-ffn on` runs each layer's FFN through
 the fused kernels (K, or L at 9..16 rows: `ModelConfig.fuse_ffn`); `ab`
 measures off, on, on, off in turns on the one loaded model, each turn on
 a fresh engine (or scheduler), and prints one JSON line of the turns.
-Needs one CUDA device.
+With `--prefill` the unit is prefill instead: the TTFT of a `--pos`-token
+prompt (host clock around `Engine.generate` of one token, median of
+`--steps` runs after one warm-up, each on a reset engine), and device time
+by kernel per 256-row prefill chunk from one profiled prefill of the same
+prompt (its device time over its chunks; later chunks attend to more
+rows), the busy share over that prefill's host-clock time.  Needs one
+CUDA device.
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ def _kernel_group(name: str) -> str:
         m = re.search(r"Cache\)\s*(\d)", name)
         return (f"flash_kernel ({FLASH_CACHES[int(m.group(1))]} cache)"
                 if m else "flash_kernel")
+    if "qgemm_kernel" in name:      # kernels B and F: one template
+        return "q8_gemm" if "Quant)1" in name else "q4_gemm"
     for key in ("q4_gemv", "q4_gemm", "q8_act_quant", "q8_gemv_i8",
                 "q8_gemv", "q8_gemm"):
         if key in name:
@@ -83,6 +92,11 @@ def main() -> int:
                     help="profile the batched scheduler's step at B slots")
     ap.add_argument("--no-paged", dest="no_paged", action="store_true",
                     help="with --batch: the contiguous per-slot cache")
+    ap.add_argument("--lmrs", default=None,
+                    help="the synthetic .lmrs to use: written there first "
+                         "if missing, and kept (runs in turns share it)")
+    ap.add_argument("--prefill", action="store_true",
+                    help="profile prefill: TTFT and device time a chunk")
     ap.add_argument("--fuse-ffn", dest="fuse_ffn", default="off",
                     choices=["off", "on", "ab"],
                     help="the fused FFN kernels; ab: off, on, on, off")
@@ -106,9 +120,10 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="profile_", dir=str(ROOT / "build")))
     try:
-        path = work / "model.lmrs"
-        write_synthetic_lmrs(str(path), PRESETS[args.model](
-            quant=QuantType[args.quant]))
+        path = Path(args.lmrs) if args.lmrs else work / "model.lmrs"
+        if not path.exists():
+            write_synthetic_lmrs(str(path), PRESETS[args.model](
+                quant=QuantType[args.quant]))
         f = read_lmrs(str(path))
         w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"   # as the chat CLI
         params = params_from_lmrs(f, device="cuda")
@@ -118,7 +133,8 @@ def main() -> int:
         results = []
         for fuse in turns:
             cfg = f.cfg.replace(fuse_ffn=fuse)
-            profile = profile_batched if args.batch else profile_decode
+            profile = (profile_prefill if args.prefill else
+                       profile_batched if args.batch else profile_decode)
             results.append(profile(torch, args, card, cfg, params, w8a8))
             torch.cuda.empty_cache()
         print(json.dumps(results[0] if len(results) == 1
@@ -128,15 +144,17 @@ def main() -> int:
     return 0
 
 
-def report(result: dict, per_step: dict, wall_ms: float) -> dict:
-    """Print device time per step by kernel group and the busy share."""
+def report(result: dict, per_step: dict, wall_ms: float,
+           unit: str = "step") -> dict:
+    """Print device time per step (or chunk) by kernel group and the busy
+    share."""
     if per_step:
         busy = sum(per_step.values()) / wall_ms
         result.update(device_ms_per_step=per_step, device_busy_share=busy,
                       device_idle_share=1.0 - busy)
         for g, v in sorted(per_step.items(), key=lambda kv: -kv[1]):
-            print(f"  {g:30s} {v:8.3f} ms of device time per step")
-        print(f"  device busy {100 * busy:.1f}% of a step")
+            print(f"  {g:30s} {v:8.3f} ms of device time per {unit}")
+        print(f"  device busy {100 * busy:.1f}% of a {unit}")
     else:
         result["device_ms_per_step"] = "not measured"
         print("  the profiler recorded no device activity: device time not "
@@ -207,6 +225,53 @@ def profile_decode(torch, args, card, cfg, params, w8a8) -> dict:
           f"step ({1e3 * n_tokens / args.steps / wall_ms:.2f} tok/s)")
     del engine
     return report(result, device_time(torch, prof, args.steps), wall_ms)
+
+
+def profile_prefill(torch, args, card, cfg, params, w8a8) -> dict:
+    """TTFT of a `--pos`-token prompt and device time by kernel per
+    prefill chunk (see the module note)."""
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    engine = Engine(cfg, params, cache_dtype=args.cache_dtype, w8a8=w8a8)
+    prompt = torch.randint(0, cfg.vocab_size, (args.pos,),
+                           generator=torch.Generator().manual_seed(0))
+    prompt = prompt.tolist()
+    one = GenerationConfig(temperature=0.0, max_new_tokens=1)
+    ttft = []
+    for i in range(args.steps + 1):            # the first run warms up
+        engine.reset()
+        engine.generate(prompt, one)
+        if i:
+            ttft.append(1e3 * engine.metrics.ttft_seconds)
+    ttft_ms = sorted(ttft)[len(ttft) // 2]
+    n_chunks = -(-args.pos // engine.prefill_chunk)
+    engine.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.prefill(prompt)
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / n_chunks
+    engine.reset()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.prefill(prompt)
+        torch.cuda.synchronize()
+    result = dict(card=card, model=args.model, quant=args.quant,
+                  cache_dtype=args.cache_dtype, w8a8=w8a8,
+                  fuse_ffn=cfg.fuse_ffn, prompt=args.pos,
+                  chunk_rows=engine.prefill_chunk, chunks=n_chunks,
+                  ttft_ms=ttft_ms, ttft_runs_ms=ttft,
+                  wall_ms_per_chunk=wall_ms,
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"{args.model} {args.quant}, {args.cache_dtype} cache, fuse_ffn "
+          f"{cfg.fuse_ffn}, a {args.pos}-token prompt: TTFT {ttft_ms:.2f} ms "
+          f"(median of {len(ttft)}: {', '.join(f'{t:.1f}' for t in ttft)}), "
+          f"{wall_ms:.3f} ms per {engine.prefill_chunk}-row chunk on the "
+          f"host clock")
+    del engine
+    return report(result, device_time(torch, prof, n_chunks), wall_ms,
+                  "chunk")
 
 
 def device_time(torch, prof, steps: int):

@@ -56,6 +56,7 @@ from lmrs_tpu_torch.kernels.ffn_fused import (ffn_fused, ffn_fused_plain,
 from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                     flash_attention_plain,
                                                     flash_attention_tol)
+from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as q4_dequant
 from lmrs_tpu_torch.kernels.q4_gemm import q4_gemm, q4_gemm_plain
 from lmrs_tpu_torch.kernels.flash_attention_i4 import (
     flash_attention_i4, flash_attention_i4_plain, flash_attention_i4_tol)
@@ -71,6 +72,7 @@ from lmrs_tpu_torch.kernels.flash_merge import (SPLIT, flash_merge,
                                                 flash_merge_plain,
                                                 flash_merge_tol)
 from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv, q4_gemv_plain
+from lmrs_tpu_torch.kernels.q8_gemm import dequant_bf16 as q8_dequant
 from lmrs_tpu_torch.kernels.q8_gemm import q8_gemm, q8_gemm_plain
 from lmrs_tpu_torch.kernels.q8_gemv import q8_gemv, q8_gemv_plain
 from lmrs_tpu_torch.kernels.q8_gemv_i8 import (q8_act_quant, q8_gemv_i8,
@@ -236,6 +238,108 @@ def test_q8_gemm_kernel_on_card(cuda_device, t, o, k, gs):
     want = q8_gemm_plain(x, q, s, gs)
     torch.cuda.synchronize()
     assert _rel_err(got, want) <= 1e-3
+
+
+# kernels B and F at each model's layer shapes (O, K): the split-K cluster
+# reduction (wo, w2), tails of O (136, 1000 above) and T (16 and 80 rows:
+# a decode step of 16 slots, a verify step of 16 x (4 + 1))
+GEMM_LAYER_SHAPES = {
+    "q4": [(8192, 3584), (3584, 4096), (28672, 3584), (3584, 14336)],
+    "q8": [(5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192)],
+}
+GEMM_KERNELS = {"q4": (q4_gemm, q4_gemm_plain, _weights, q4_dequant),
+                "q8": (q8_gemm, q8_gemm_plain, _q8_weights, q8_dequant)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["q4", "q8"])
+@pytest.mark.parametrize("t", [16, 80])
+@pytest.mark.parametrize("o,k,gs", [(1024, 3072, 128), (1000, 256, 32),
+                                    (136, 640, 64)])
+def test_gemm_small_t_on_card(cuda_device, quant, t, o, k, gs):
+    fn, plain, weights, _ = GEMM_KERNELS[quant]
+    q, s = weights(o, k, cuda_device, gs)
+    x = torch.randn(t, k, device=cuda_device)
+    got = fn(x, q, s, gs)
+    want = plain(x, q, s, gs)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["q4", "q8"])
+@pytest.mark.parametrize("layer", range(4))
+def test_gemm_layer_shapes_on_card(cuda_device, quant, layer):
+    """Each model's four layer matrices at T = 256 (a prefill chunk)."""
+    fn, plain, weights, _ = GEMM_KERNELS[quant]
+    o, k = GEMM_LAYER_SHAPES[quant][layer]
+    q, s = weights(o, k, cuda_device)
+    x = torch.randn(256, k, device=cuda_device)
+    got = fn(x, q, s, 128)
+    want = plain(x, q, s, 128)
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["q4", "q8"])
+@pytest.mark.parametrize("t", [9, 16, 64, 256, 512])
+@pytest.mark.parametrize("o,k,gs", [(3584, 4096, 128), (1000, 256, 32),
+                                    (136, 640, 64)])
+def test_gemm_one_hot_rows_on_card(cuda_device, quant, t, o, k, gs):
+    """Rows of x that are unit vectors e_k give W_deq[:, k] bit for bit:
+    the kernel's packed dequant is dequant_bf16's rounding, element for
+    element, where the 1e-3 output tolerance could not tell."""
+    if quant == "q4" and k == 640:
+        k = 512                     # Q4 takes K % 128 == 0
+    fn, _, weights, dequant = GEMM_KERNELS[quant]
+    q, s = weights(o, k, cuda_device, gs)
+    cols = torch.from_numpy(np.random.default_rng(t).integers(0, k, t))
+    x = torch.zeros(t, k, device=cuda_device)
+    x[torch.arange(t, device=cuda_device), cols.to(cuda_device)] = 1.0
+    got = fn(x, q, s, gs)
+    want = dequant(q, s, gs)[:, cols.to(cuda_device)].t().float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["q4", "q8"])
+@pytest.mark.parametrize("t", [9, 64, 256, 300])
+def test_gemm_deterministic_on_card(cuda_device, quant, t):
+    """Two calls on the same inputs give the same bits (the split-K sums
+    run in a fixed order, no atomics): greedy decoding across reset() and
+    the scheduler's prefill chunks depend on it."""
+    fn, _, weights, _ = GEMM_KERNELS[quant]
+    o, k = GEMM_LAYER_SHAPES[quant][1]          # wo: split over K
+    q, s = weights(o, k, cuda_device)
+    x = torch.randn(t, k, device=cuda_device)
+    first = fn(x, q, s, 128)
+    second = fn(x, q, s, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["q4", "q8"])
+@pytest.mark.parametrize("t,k,gs", [(8, 512, 128), (513, 512, 128),
+                                    (16, 320, 64), (16, 512, 48)])
+def test_gemm_rejects_unsupported_shapes_on_card(cuda_device, quant, t, k,
+                                                 gs):
+    """8 or 513 rows, K not a multiple of 128, a group size the kernel does
+    not take: the wrapper raises rather than launching."""
+    fn, _, _, _ = GEMM_KERNELS[quant]
+    o = 256
+    if quant == "q4":
+        q = torch.zeros(o, k // 2, dtype=torch.uint8, device=cuda_device)
+    else:
+        q = torch.zeros(o, k, dtype=torch.int8, device=cuda_device)
+    s = torch.ones(o, max(1, k // gs), device=cuda_device)
+    x = torch.randn(t, k, device=cuda_device)
+    reset_launches()
+    with pytest.raises(ValueError):
+        fn(x, q, s, gs)
+    assert launches()[fn.__name__] == 0
 
 
 @pytest.mark.gpu
