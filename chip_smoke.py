@@ -17,9 +17,9 @@ Phases (any failure ends the run with a non-zero exit):
    half packing) at the Gemma-2-9B shapes; D (q8_gemv_i8, its quantizer
    pre-pass bit for bit first), E (q8_gemv), F (q8_gemm), C on a bf16 and
    on an f32 cache, G (flash_attention_i8) and H (pair packing) at the
-   Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 and
-   the flash kernels at T 1, 5 and 256: T = 5 is a speculative verify
-   window of k = 4.  B and F run at T 9, 16, 64, 256 and 512, and are held
+   Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 (A
+   also at 8, a batched step of 8 slots) and the flash kernels at T 1, 5
+   and 256: T = 5 is a speculative verify window of k = 4.  B and F run at T 9, 16, 64, 256 and 512, and are held
    bit for bit on rows of x that are unit vectors (W_deq's columns) and
    across two calls on the same inputs.  I (flash_attention_batched,
    per-slot cache: bf16, f32, int8) and J (flash_attention_paged, pools of
@@ -30,7 +30,7 @@ Phases (any failure ends the run with a non-zero exit):
    page and the trash page hold NaN; timed at the per-slot cache and
    512-row pages (library yardstick: SDPA over each slot's live rows,
    padded, with a mask).  K (ffn_fused_xe, T 1, 5, 8) and L (ffn_fused, T
-   9, 16), the fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0,
+   9, 12, 16), the fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0,
    tanh-GELU) and Llama-3.2-3B's (Q8_0, silu); library yardstick: the
    unfused chain in PyTorch calls (two torch.matmul on pre-dequantized bf16
    W13 and W2, the GLU between them).  A decode call of C, G, H, I or J
@@ -43,8 +43,9 @@ Phases (any failure ends the run with a non-zero exit):
    _MASK_NEG, the shards merged by M against I and the plain version.  M
    against its plain version on the split pass's workspaces of C and I.
    Then, per kernel, whether a row of a T = 5 call equals the same row
-   computed alone (what makes speculative greedy decoding exact): a "no"
-   fails the run for K and the flash kernels, whose designs promise it.
+   computed alone (what makes speculative greedy decoding exact; A also at
+   T = 8): a "no" fails the run for A, K and the flash kernels, whose
+   designs promise it.
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
@@ -141,6 +142,9 @@ REPLACES = {
                "lmrs_tpu/kernels/vpu_matvec.py:284 _xe_q4_km_kernel; "
                "lmrs_tpu/kernels/dequant_matmul.py:478 _q4_xe_stacked_kernel; "
                "lmrs_tpu/kernels/dequant_matmul.py:279 _q4_xe_kernel",
+    "q4_gemv_t8": "lmrs_tpu/kernels/vpu_matvec.py:284 _xe_q4_km_kernel; "
+                  "lmrs_tpu/kernels/dequant_matmul.py:478 "
+                  "_q4_xe_stacked_kernel (at T = 8)",
     "q4_gemm": "lmrs_tpu/kernels/dequant_matmul.py:542 _q4_se_stacked_kernel; "
                "lmrs_tpu/kernels/vpu_matvec.py:318 _se_q4_km_kernel",
     "flash_attention": "lmrs_tpu/kernels/flash_attention.py:140 "
@@ -192,6 +196,7 @@ REPLACES["q8_gemm"] += ("; lmrs_tpu/kernels/dequant_matmul.py:220 "
                         "_q8_kernel_gl (T > 8)")
 SOURCES = {name: f"lmrs_tpu_torch/csrc/{name}.cu" for name in REPLACES}
 SOURCES["ffn_fused_xe"] = SOURCES["ffn_fused"]              # one source
+SOURCES["q4_gemv_t8"] = SOURCES["q4_gemv"]
 for _name in ("flash_attention_i8", "flash_attention_i4",
               "flash_attention_f32", "flash_attention_batched",
               "flash_attention_paged", "flash_merge",
@@ -203,12 +208,16 @@ for _name in ("flash_attention_i8", "flash_attention_i4",
 # phase 2's checks; its row in the kernels line reports kernel I's
 # launches on the main path, every one a decode call through the same
 # split pass, and says so (`launches_are`)
+# kernel A at T = 8 (a batched step of 8 slots) is a row of its own in the
+# kernels line, sharing A's source and launch count
 COUNTER = {"flash_attention_f32": "flash_attention",
-           "flash_attention_batched_lse": "flash_attention_batched"}
+           "flash_attention_batched_lse": "flash_attention_batched",
+           "q4_gemv_t8": "q4_gemv"}
 LAUNCHES_ARE = {"flash_attention_batched_lse": (
     "kernel I's launches on the main path, each its split pass (the "
     "__global__ function B1 launches); no main path calls B1's form "
-    "(seq_base, return_lse)")}
+    "(seq_base, return_lse)"),
+    "q4_gemv_t8": "kernel A's launches on the main paths, at every T"}
 # every path decodes: a decode call of C, G, H, I or J is the split pass
 # and kernel M's merge (flash_merge), one launch each
 Q4_PATH = {"q4_gemv", "q4_gemm", "flash_attention", "flash_merge"}
@@ -220,6 +229,7 @@ Q8_I8_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i8",
 Q8_I4_PATH = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_i4",
               "flash_merge"}
 GEMV_T = (1, 4, 5)      # 5: a speculative verify window of k = 4
+GEMV_T_A = GEMV_T + (8,)   # A also at a batched step of 8 slots
 # B and F: a batched step of 9-16 rows, a scheduler prefill chunk (64), a
 # single-stream prefill chunk (256) and the kernels' widest call (512)
 GEMM_T = (9, 16, 64, 256, 512)
@@ -248,7 +258,7 @@ GEMMA_PAGED_FUSED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
 LLAMA_PAGED_FUSED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
                       "flash_merge", "ffn_fused"},
                      {"q8_gemv_i8", "ffn_fused_xe"})
-FFN_T = {"ffn_fused_xe": (1, 5, 8), "ffn_fused": (9, 16)}
+FFN_T = {"ffn_fused_xe": (1, 5, 8), "ffn_fused": (9, 12, 16)}
 # the slots' positions of the batched kernel checks: 0 to 6,000, some past
 # Gemma's 4,096-row window; pages of 512 rows and of 56 (a 64-row tile then
 # spans two or three pages)
@@ -382,7 +392,8 @@ def check_gemm_exact(torch, kern, fn, q, s, shape, t, gen):
 def check_matmul_kernels(torch, timer, peak, model, quant):
     """The matmul kernels of one weight type against their plain versions
     at every shape of `model`'s main path; returns per-case results.
-    "q4": A (all five shapes, T 1, 4 and 5) and B (layer shapes, GEMM_T).
+    "q4": A (all five shapes, T 1, 4, 5 and 8) and B (layer shapes,
+    GEMM_T).
     "q8": D (layer shapes, T 1, 4 and 5), E (all five, the same T) and F
     (layer shapes, GEMM_T).  B and F are also held bit for bit on one-hot
     rows and across two calls (`check_gemm_exact`)."""
@@ -397,16 +408,19 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
     from lmrs_tpu_torch.kernels.q8_gemv_i8 import q8_gemv_i8_plain
 
     # kernel -> (wrapper, plain version, tolerance relative to the output
-    # scale, bytes per activation value, peak rate of its operations).
-    # GEMVs: f32 both sides (D's integer dots are exact), sums in another
-    # order: 1e-4.  GEMMs: the same bf16 operands, tensor-core f32
-    # accumulation in another order over K up to 14336: 1e-3.
+    # scale, bytes per activation value, peak rate of its operations,
+    # products it does per multiply-add of the function).  GEMVs: f32 both
+    # sides (A's three bf16 slices of x and D's integer dots are exact),
+    # sums in another order: 1e-4.  GEMMs: the same bf16 operands,
+    # tensor-core f32 accumulation in another order over K up to 14336:
+    # 1e-3.  A multiplies each weight by the three slices of x on the
+    # tensor cores.
     kernels = {
-        "q4_gemv": (q4_gemv, q4_gemv_plain, 1e-4, 4, "f32"),
-        "q4_gemm": (q4_gemm, q4_gemm_plain, 1e-3, 2, "bf16"),
-        "q8_gemv_i8": (q8_gemv_i8, q8_gemv_i8_plain, 1e-4, 4, "int8"),
-        "q8_gemv": (q8_gemv, q8_gemv_plain, 1e-4, 4, "f32"),
-        "q8_gemm": (q8_gemm, q8_gemm_plain, 1e-3, 2, "bf16"),
+        "q4_gemv": (q4_gemv, q4_gemv_plain, 1e-4, 4, "bf16", 3),
+        "q4_gemm": (q4_gemm, q4_gemm_plain, 1e-3, 2, "bf16", 1),
+        "q8_gemv_i8": (q8_gemv_i8, q8_gemv_i8_plain, 1e-4, 4, "int8", 1),
+        "q8_gemv": (q8_gemv, q8_gemv_plain, 1e-4, 4, "f32", 1),
+        "q8_gemm": (q8_gemm, q8_gemm_plain, 1e-3, 2, "bf16", 1),
     }
     wbytes = 0.5 if quant == "q4" else 1.0
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -416,7 +430,7 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
         if quant == "q4":
             q, s = random_q4(torch, gen, o, k)
             w_lib = dequant_q4(q, s, GS)        # library yardstick only
-            plan = [("q4_gemv", t) for t in GEMV_T]
+            plan = [("q4_gemv", t) for t in GEMV_T_A]
             plan += [("q4_gemm", t) for t in GEMM_T] if layer else []
         else:
             q, s = random_q8(torch, gen, o, k)
@@ -425,7 +439,7 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             plan += [("q8_gemv", t) for t in GEMV_T]
             plan += [("q8_gemm", t) for t in GEMM_T] if layer else []
         for kern, t in plan:
-            fn, plain_fn, tol_rel, xbytes, rate = kernels[kern]
+            fn, plain_fn, tol_rel, xbytes, rate, per_mac = kernels[kern]
             x = torch.randn(t, k, device="cuda", generator=gen)
             if xbytes == 2:
                 x = x.to(torch.bfloat16)
@@ -441,9 +455,11 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             lib = lambda: torch.matmul(xl, w_lib.t())   # noqa: E731
             nbytes = (wbytes * o * k + 4 * o * k / GS + xbytes * t * k
                       + 4 * t * o)
-            b_ms, b_by = bound_ms(nbytes, 2.0 * t * o * k, peak[rate],
-                                  peak["mem"])
-            case = dict(kernel=kern, model=model["name"], shape=name, T=t,
+            b_ms, b_by = bound_ms(nbytes, 2.0 * per_mac * t * o * k,
+                                  peak[rate], peak["mem"])
+            # A at T = 8 is a row of its own in the kernels line
+            row = "q4_gemv_t8" if kern == "q4_gemv" and t == 8 else kern
+            case = dict(kernel=row, model=model["name"], shape=name, T=t,
                         O=o, K=k, max_abs_err=err, tol=tol,
                         err_over_tol=err / tol, ms=timer(run),
                         plain_ms=timer(plain), library_ms=timer(lib),
@@ -478,7 +494,7 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
 
 
 def check_ffn_kernels(torch, timer, peak, model, quant):
-    """K (T 1, 5, 8) and L (T 9, 16) against their plain versions at one
+    """K (T 1, 5, 8) and L (T 9, 12, 16) against their plain versions at one
     layer's FFN of `model` ("q4": Gemma-2-9B, tanh-GELU; "q8":
     Llama-3.2-3B, silu); returns per-case results.  Tolerance 1e-3 of the
     output scale: the same bf16 operands and exact products, f32 sums in
@@ -720,10 +736,11 @@ def check_row_independence(torch):
     """Does a row of a T = 5 call equal, bit for bit, the same row computed
     alone (T = 1)?  Speculative greedy decoding is exact where every
     kernel of the verify forward says yes.  K at both models' FFN, the
-    T <= 8 matmul kernels on Llama-3.2-3B's wqkv shape (A on Gemma-2-9B's),
-    the flash kernels at their models' geometry, pos 1,100.  Returns
-    kernel -> bool; a "no" is a finding to record, not a failure, but for
-    K, whose design promises it (main() fails on it)."""
+    T <= 8 matmul kernels on Llama-3.2-3B's wqkv shape (A on Gemma-2-9B's
+    wqkv and w2, at T = 5 and 8), the flash kernels at their models'
+    geometry, pos 1,100.  Returns kernel -> bool; a "no" is a finding to
+    record, not a failure, but for A and K, whose designs promise it
+    (main() fails on it)."""
     from lmrs_tpu_torch.kernels import ffn_fused_xe, q4_gemv, q8_gemv
     from lmrs_tpu_torch.kernels import q8_gemv_i8
 
@@ -739,16 +756,21 @@ def check_row_independence(torch):
                           for i in range(5)])
         same[f"ffn_fused_xe ({model['name']})"] = torch.equal(whole, rows)
         del w
-    for name, fn, make, model in (("q4_gemv", q4_gemv, random_q4, GEMMA),
-                                  ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA),
-                                  ("q8_gemv", q8_gemv, random_q8, LLAMA)):
-        o, k = matmul_shapes(model)["wqkv"]
+    for name, fn, make, model, shape, t in (
+            ("q4_gemv", q4_gemv, random_q4, GEMMA, "wqkv", 5),
+            ("q4_gemv", q4_gemv, random_q4, GEMMA, "wqkv", 8),
+            ("q4_gemv", q4_gemv, random_q4, GEMMA, "w2", 5),
+            ("q4_gemv", q4_gemv, random_q4, GEMMA, "w2", 8),
+            ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA, "wqkv", 5),
+            ("q8_gemv", q8_gemv, random_q8, LLAMA, "wqkv", 5)):
+        o, k = matmul_shapes(model)[shape]
         q, s = make(torch, gen, o, k)
-        x = torch.randn(5, k, device="cuda", generator=gen)
+        x = torch.randn(t, k, device="cuda", generator=gen)
         whole = fn(x, q, s, GS)
         rows = torch.cat([fn(x[i:i + 1].contiguous(), q, s, GS)
-                          for i in range(5)])
-        same[name] = torch.equal(whole, rows)
+                          for i in range(t)])
+        key = f"{name} ({shape}, T={t})" if name == "q4_gemv" else name
+        same[key] = torch.equal(whole, rows)
     pos = 1100
     for model, cache in ((GEMMA, "bf16"), (LLAMA, "f32"), (LLAMA, "int8"),
                          (GEMMA, "int4"), (LLAMA, "int4")):
@@ -764,8 +786,8 @@ def check_row_independence(torch):
         same[f"{name} ({model['name']})"] = torch.equal(whole, rows)
     torch.cuda.synchronize()
     for name, ok in same.items():
-        log(f"  {name}: row of T=5 {'equals' if ok else 'DIFFERS from'} "
-            f"the row alone")
+        log(f"  {name}: a row of the call "
+            f"{'equals' if ok else 'DIFFERS from'} the row alone")
     return same
 
 
@@ -1983,13 +2005,16 @@ def main() -> int:
         "on the split pass's workspaces (Gemma-2-9B)")
     cases += check_cp_partials(torch, timer, peak, GEMMA)
     cases += check_merge(torch, timer, peak, GEMMA)
-    log("phase 2: is a row of a T=5 call the row computed alone?")
+    log("phase 2: is a row of a T=5 call (A: and T=8) the row computed "
+        "alone?")
     row_independent = check_row_independence(torch)
     row_independent.update(check_batched_row_independence(torch))
-    # K and the flash kernels promise it by design (fixed split rows, a
-    # merge in split order): a "no" there fails the run
+    # A, K and the flash kernels promise it by design (one arithmetic path
+    # for every T; fixed split rows, a merge in split order): a "no" there
+    # fails the run
     promised = {name: ok for name, ok in row_independent.items()
-                if name.startswith(("ffn_fused_xe", "flash_attention"))}
+                if name.startswith(("q4_gemv", "ffn_fused_xe",
+                                    "flash_attention"))}
     if not all(promised.values()):
         raise RuntimeError(f"a kernel breaks row independence: {promised}")
     del timer
@@ -2129,6 +2154,10 @@ def main() -> int:
                     "classifier at T=1",
                     [(g, s, 1, GEMMA["L"]) for s in LAYER_SHAPES]
                     + [(g, "classifier", 1, 1)]),
+        "q4_gemv_t8": ("gemma2-9b batched decode step of 8 rows: 42 x "
+                       "(wqkv, wo, w13, w2) + classifier at T=8",
+                       [(g, s, 8, GEMMA["L"]) for s in LAYER_SHAPES]
+                       + [(g, "classifier", 8, 1)]),
         "q4_gemm": ("gemma2-9b prefill chunk: 42 x (wqkv, wo, w13, w2) at "
                     "T=256", [(g, s, 256, GEMMA["L"]) for s in LAYER_SHAPES]),
         "flash_attention": ("gemma2-9b decode token at pos 6000: 42 x T=1",
@@ -2199,7 +2228,7 @@ def main() -> int:
             bound_ms=tot["bound_ms"],
             bound_by=pick[plan[0][:3]]["bound_by"],
             library_ms=tot["library_ms"], unit=what, cases=mine))
-    log("rows of a T=5 call equal the rows alone: "
+    log("rows of a T=5 call (A: and T=8) equal the rows alone: "
         + json.dumps(row_independent))
     log("main paths: " + json.dumps(paths))
     log(f"chip_smoke ran {time.perf_counter() - t_run:.1f} s")

@@ -1,4 +1,4 @@
-// Kernels K and L — one layer's whole GLU FFN in one launch:
+// Kernels K and L — one layer's whole GLU FFN from one C call:
 //
 //   [gate; up] = W13 . bf16(x),  g = bf16(act(gate) * up),  y = W2 . g
 //
@@ -19,8 +19,9 @@
 // Bound on an H100: device-memory bytes.  Every weight byte and scale is
 // read once per call for all T rows (Gemma-2-9B Q4_0: 81.9 MB a layer,
 // Llama-3.2-3B Q8_0: 77.9 MB); x, g and y are a few hundred KB at most.
-// Design: ONE cooperative launch per layer (cudaLaunchCooperativeKernel,
-// a persistent grid of as many blocks as fit on the card at once, one
+//
+// K: ONE cooperative launch per layer (cudaLaunchCooperativeKernel, a
+// persistent grid of as many blocks as fit on the card at once, one
 // grid-wide barrier between the stages), so the layer's FFN costs one
 // launch and no intermediate but g reaches device memory.
 // - Stage A: a warp owns gate row j and up row H + j of W13, so the GLU is
@@ -39,17 +40,29 @@
 //   explicit fmaf in one fixed order whatever T is, so a row of a call of
 //   T rows equals the row computed alone, bit for bit (speculative greedy
 //   decoding stays exact).
-// - L runs its 9..16 rows as 16, the rows past T reading zeros.
 //
-// Later: L keeps 16 rows of sums, weights and activations in registers,
-// so few warps fit on an SM to hide its latency: tensor cores (mma.sync)
-// for its 9..16 rows; stage B split along H so that every warp has work
-// when D / 2 < the warps in flight; more rows per warp at T > 1.
+// L: its function is kernels B's and F's followed by the GLU, so it runs on
+// their Hopper template (qgemm_sm90.cuh: wgmma m64n16k16 over TMA-fed
+// tiles, the weights dequantized once per call in registers), two launches
+// from one C call on the caller's stream.  What held the CUDA-core L back:
+// 16 rows of sums, weights and activations in registers (152-176 a thread)
+// left one block an SM and a latency-bound loop of 16 f32 FMAs a weight.
+// Stage A (Epi::Glu): a tile's 128 rows are 64 gate rows of W13 and their
+// 64 up rows, read through two TMA maps of H rows each; after the split-K
+// sum in cluster rank order the block forms g in f32 and writes it as bf16
+// (T, H), so [gate; up] never reaches device memory.  Stage B (Epi::Down):
+// g . W2^T into y.  9..16 rows take the N = 16 width, the rows past T read
+// as zeros.  g is the only intermediate in device memory.
+//
+// Later: K's stage B split along H so that every warp has work when D / 2
+// < the warps in flight; more rows per warp at T > 1.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "qgemm_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -61,7 +74,6 @@ constexpr int kMaxDevices = 16;
 
 enum Quant { kQ4 = 0, kQ8 = 1 };
 enum Numerics { kXe = 0, kDeq = 1 };
-enum Act { kSilu = 0, kGelu = 1 };
 
 struct Args {
   const __nv_bfloat16* x;  // (T, D) bf16
@@ -91,9 +103,6 @@ __device__ __forceinline__ float bf_lo(uint32_t v) {
 __device__ __forceinline__ float bf_hi(uint32_t v) {
   return __uint_as_float(v & 0xFFFF0000u);
 }
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // Eight bf16 activations.  x is read-only for the whole call (__ldg); g is
 // written in stage A of this call, so it is read with an ordinary caching
@@ -104,29 +113,14 @@ __device__ __forceinline__ uint4 ld_act(const __nv_bfloat16* p) {
   return kScratch ? __ldca(q) : __ldg(q);
 }
 
-// The GLU of fused_ffn.py:105-110 in f32, in its order of operations
-// (no contraction into fma), rounded to bf16 once.
-__device__ __forceinline__ __nv_bfloat16 glu(float gate, float up, int act) {
-  float a;
-  if (act == kSilu) {
-    a = __fmul_rn(gate, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gate))));
-  } else {
-    const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, gate), gate),
-                                 gate);
-    const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(gate, cube));
-    a = __fmul_rn(__fmul_rn(0.5f, gate), __fadd_rn(1.0f, tanhf(inner)));
-  }
-  return __float2bfloat16_rn(__fmul_rn(a, up));
-}
-
 // Per-lane partial sums of two weight rows r0, r1 (K values each) against
-// the T activation rows a (T, K) bf16.  Rows t >= t_live read zeros (L).
-template <int Q, int NUM, int T, bool kScratch>
+// the T activation rows a (T, K) bf16.
+template <int Q, int T, bool kScratch>
 __device__ __forceinline__ void dot_pair(const uint8_t* __restrict__ w,
                                          const float* __restrict__ s,
                                          int r0, int r1, int K, int gs,
-                                         const __nv_bfloat16* a, int t_live,
-                                         int lane, float (&acc)[2][T]) {
+                                         const __nv_bfloat16* a, int lane,
+                                         float (&acc)[2][T]) {
   const int kb = Q == kQ4 ? K / 2 : K;   // bytes per row
   const int n_chunks = kb / 16;
   const int n_groups = K / gs;
@@ -167,9 +161,6 @@ __device__ __forceinline__ void dot_pair(const uint8_t* __restrict__ w,
         e_lo = c * 16;
       }
       const int e_hi = e_lo + half;   // Q4: element of the high nibbles
-      float sb[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) sb[r] = round_bf16(sc[u][r]);
       float part[2][T];
 #pragma unroll
       for (int r = 0; r < 2; ++r)
@@ -196,20 +187,13 @@ __device__ __forceinline__ void dot_pair(const uint8_t* __restrict__ w,
               wv[r][i] = sbyte(word, sh);
             }
           }
-          if (NUM == kDeq) {
-#pragma unroll
-            for (int i = 0; i < kVals; ++i)
-              wv[r][i] = round_bf16(wv[r][i] * sb[r]);  // exact product
-          }
         }
 #pragma unroll
         for (int t = 0; t < T; ++t) {
-          const bool live = NUM == kXe || t < t_live;
           const __nv_bfloat16* at = a + (size_t)t * K;
-          const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-          const uint4 al = live ? ld_act<kScratch>(at + e_lo + 8 * h) : zero;
-          uint4 ah = zero;
-          if (Q == kQ4 && live) ah = ld_act<kScratch>(at + e_hi + 8 * h);
+          const uint4 al = ld_act<kScratch>(at + e_lo + 8 * h);
+          uint4 ah = make_uint4(0u, 0u, 0u, 0u);
+          if (Q == kQ4) ah = ld_act<kScratch>(at + e_hi + 8 * h);
           float av[kVals];
           av[0] = bf_lo(al.x); av[1] = bf_hi(al.x);
           av[2] = bf_lo(al.y); av[3] = bf_hi(al.y);
@@ -223,22 +207,19 @@ __device__ __forceinline__ void dot_pair(const uint8_t* __restrict__ w,
           }
 #pragma unroll
           for (int r = 0; r < 2; ++r) {
-            float p = NUM == kXe ? part[r][t] : acc[r][t];
+            float p = part[r][t];
 #pragma unroll
             for (int i = 0; i < kVals; ++i) p = fmaf(wv[r][i], av[i], p);
-            if (NUM == kXe) part[r][t] = p;
-            else acc[r][t] = p;
+            part[r][t] = p;
           }
         }
       }
-      if (NUM == kXe) {
-        // the chunk's exact-product sum times its group's f32 scale
+      // the chunk's exact-product sum times its group's f32 scale
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
+      for (int r = 0; r < 2; ++r)
 #pragma unroll
-          for (int t = 0; t < T; ++t)
-            acc[r][t] = fmaf(sc[u][r], part[r][t], acc[r][t]);
-      }
+        for (int t = 0; t < T; ++t)
+          acc[r][t] = fmaf(sc[u][r], part[r][t], acc[r][t]);
     }
   }
 }
@@ -257,7 +238,7 @@ __device__ __forceinline__ void warp_sum(float (&acc)[2][T]) {
     }
 }
 
-template <int Q, int NUM, int T>
+template <int Q, int T>
 __global__ void __launch_bounds__(kThreads) ffn_kernel(const Args p) {
   const int lane = threadIdx.x & 31;
   const int warp = blockIdx.x * kWarps + (threadIdx.x >> 5);
@@ -270,13 +251,14 @@ __global__ void __launch_bounds__(kThreads) ffn_kernel(const Args p) {
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int t = 0; t < T; ++t) acc[r][t] = 0.f;
-    dot_pair<Q, NUM, T, false>(p.w13, p.s13, j, p.H + j, p.D, p.gs, p.x,
-                               p.T, lane, acc);
+    dot_pair<Q, T, false>(p.w13, p.s13, j, p.H + j, p.D, p.gs, p.x, lane,
+                          acc);
     warp_sum<T>(acc);
 #pragma unroll
     for (int t = 0; t < T; ++t)
-      if (lane == t && t < p.T)
-        p.g[(size_t)t * p.H + j] = glu(acc[0][t], acc[1][t], p.act);
+      if (lane == t)
+        p.g[(size_t)t * p.H + j] = lmrs_sm90::glu(acc[0][t], acc[1][t],
+                                                  p.act);
   }
 
   cg::this_grid().sync();     // all of g is written
@@ -288,19 +270,19 @@ __global__ void __launch_bounds__(kThreads) ffn_kernel(const Args p) {
     for (int r = 0; r < 2; ++r)
 #pragma unroll
       for (int t = 0; t < T; ++t) acc[r][t] = 0.f;
-    dot_pair<Q, NUM, T, true>(p.w2, p.s2, 2 * i, 2 * i + 1, p.H, p.gs, p.g,
-                              p.T, lane, acc);
+    dot_pair<Q, T, true>(p.w2, p.s2, 2 * i, 2 * i + 1, p.H, p.gs, p.g, lane,
+                         acc);
     warp_sum<T>(acc);
 #pragma unroll
     for (int t = 0; t < T; ++t)
-      if (lane == t && t < p.T) {
+      if (lane == t) {
         p.y[(size_t)t * p.D + 2 * i] = acc[0][t];
         p.y[(size_t)t * p.D + 2 * i + 1] = acc[1][t];
       }
   }
 }
 
-template <int Q, int NUM, int T>
+template <int Q, int T>
 int launch(const Args& args, cudaStream_t stream) {
   // the persistent grid: every block resident at once, which a grid-wide
   // barrier needs; computed once per device
@@ -314,14 +296,14 @@ int launch(const Args& args, cudaStream_t stream) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, ffn_kernel<Q, NUM, T>, kThreads, 0);
+        &per_sm, ffn_kernel<Q, T>, kThreads, 0);
     if (e != cudaSuccess) return (int)e;
     if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
     blocks[dev] = per_sm * sms;
   }
   Args a = args;
   void* params[] = {&a};
-  e = cudaLaunchCooperativeKernel((const void*)ffn_kernel<Q, NUM, T>,
+  e = cudaLaunchCooperativeKernel((const void*)ffn_kernel<Q, T>,
                                   dim3(blocks[dev]), dim3(kThreads), params,
                                   0, stream);
   if (e != cudaSuccess) {
@@ -334,26 +316,40 @@ int launch(const Args& args, cudaStream_t stream) {
 template <int Q>
 int launch_xe(const Args& a, cudaStream_t stream) {
   switch (a.T) {
-    case 1: return launch<Q, kXe, 1>(a, stream);
-    case 2: return launch<Q, kXe, 2>(a, stream);
-    case 3: return launch<Q, kXe, 3>(a, stream);
-    case 4: return launch<Q, kXe, 4>(a, stream);
-    case 5: return launch<Q, kXe, 5>(a, stream);
-    case 6: return launch<Q, kXe, 6>(a, stream);
-    case 7: return launch<Q, kXe, 7>(a, stream);
-    case 8: return launch<Q, kXe, 8>(a, stream);
+    case 1: return launch<Q, 1>(a, stream);
+    case 2: return launch<Q, 2>(a, stream);
+    case 3: return launch<Q, 3>(a, stream);
+    case 4: return launch<Q, 4>(a, stream);
+    case 5: return launch<Q, 5>(a, stream);
+    case 6: return launch<Q, 6>(a, stream);
+    case 7: return launch<Q, 7>(a, stream);
+    case 8: return launch<Q, 8>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// L: the GLU stage, then the down stage, on the caller's stream
+template <lmrs_sm90::Quant Q>
+int launch_deq(const Args& a, cudaStream_t stream) {
+  using lmrs_sm90::Epi;
+  const size_t wcols = Q == lmrs_sm90::Quant::Q4 ? a.D / 2 : a.D;
+  const int err = lmrs_sm90::launch_n<Q, 16, Epi::Glu>(
+      a.x, a.w13, a.s13, nullptr, a.T, a.H, a.D, a.gs, stream, 0,
+      a.w13 + a.H * wcols, a.s13 + (size_t)a.H * (a.D / a.gs), a.g, a.act);
+  if (err != 0) return err;
+  return lmrs_sm90::launch_n<Q, 16, Epi::Down>(a.g, a.w2, a.s2, a.y, a.T,
+                                               a.D, a.H, a.gs, stream, 0);
 }
 
 }  // namespace
 
 // x (T, D) bf16; w13 (2H, D/2) u8 Q4 runtime bytes (quant 0) or (2H, D)
 // int8 (quant 1); s13 (2H, D/gs) f32; w2 (D, H/2) or (D, H); s2 (D, H/gs)
-// f32; g (T, H) bf16 scratch; y (T, D) f32.  numerics 0: K (1 <= T <= 8),
-// 1: L (9 <= T <= 16).  act 0: silu, 1: tanh-GELU.  Needs gs % 32 == 0,
-// D % gs == 0, H % gs == 0 and 16-byte aligned x, w13 and w2 (the Python
-// wrapper checks).  Returns the launch's error or cudaGetLastError().
+// f32; g (T, H) bf16 scratch; y (T, D) f32.  numerics 0: K (1 <= T <= 8,
+// one launch), 1: L (9 <= T <= 16, two launches).  act 0: silu, 1:
+// tanh-GELU.  Needs gs % 32 == 0 (L: gs in 32, 64, 128), D % gs == 0,
+// H % gs == 0 and 16-byte aligned x, w13 and w2 (the Python wrapper
+// checks).  Returns the first launch error or cudaGetLastError().
 extern "C" int lmrs_ffn_fused(int numerics, int quant, const void* x,
                               const uint8_t* w13, const float* s13,
                               const uint8_t* w2, const float* s2, void* g,
@@ -364,9 +360,10 @@ extern "C" int lmrs_ffn_fused(int numerics, int quant, const void* x,
   if (numerics == kXe) {
     if (quant == kQ4) return launch_xe<kQ4>(a, stream);
     if (quant == kQ8) return launch_xe<kQ8>(a, stream);
-  } else if (numerics == kDeq && T >= 9 && T <= 16) {
-    if (quant == kQ4) return launch<kQ4, kDeq, 16>(a, stream);
-    if (quant == kQ8) return launch<kQ8, kDeq, 16>(a, stream);
+  } else if (numerics == kDeq && T >= 9 && T <= 16 && gs >= 32 &&
+             128 % gs == 0) {
+    if (quant == kQ4) return launch_deq<lmrs_sm90::Quant::Q4>(a, stream);
+    if (quant == kQ8) return launch_deq<lmrs_sm90::Quant::Q8>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

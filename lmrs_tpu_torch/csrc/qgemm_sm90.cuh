@@ -51,6 +51,17 @@
 // order (distributed shared memory) and writes it: no atomics, the same
 // bits on every run.  With S = 1 the same path stages the tile for
 // coalesced stores.  Nothing dequantized leaves the SM.
+//
+// The epilogue is a template parameter (Epi).  Store writes y (kernels B
+// and F).  Glu is the first stage of kernel L (ffn_fused.cu): a block's 128
+// rows are 64 gate rows j0..j0+63 of W13 (consumer warpgroup 0) and the 64
+// matching up rows H+j0.. (warpgroup 1), from two weight maps of H rows
+// each (a box past row H reads zeros, never the other half); after the
+// cluster's sum the block forms g = bf16(act(gate) * up) in f32 and writes
+// bf16 g (T, H): [gate; up] never reaches device memory.  Down is Store
+// under another name: L's second stage, g . W2^T, told apart from F in a
+// profile.  K need not be a multiple of the chunk: TMA reads the columns
+// past K as zeros and the scales past the last group are copied as zeros.
 #pragma once
 
 #include <cuda.h>
@@ -68,6 +79,7 @@ namespace lmrs_sm90 {
 namespace {
 
 enum class Quant { Q4, Q8 };
+enum class Epi { Store, Glu, Down };
 
 constexpr int kRows = 128;         // output features per block
 constexpr int kConsumers = 256;    // two consumer warpgroups
@@ -153,9 +165,11 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
          "r"(c1) : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(dst), "l"(src) : "memory");
+// 4 bytes from src, or 4 zero bytes where !in (src is not read)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
 }
 
 // arrives on `bar` once this thread's earlier cp.async copies have landed
@@ -233,14 +247,41 @@ __device__ __forceinline__ int step_elem(int p, int half) {
   return Q == Quant::Q4 ? 16 * p + ((16 * p) & ~(half - 1)) : 16 * p;
 }
 
-template <Quant Q, int N>
+// the Glu epilogue's operands: the up rows' maps (W13 rows [H, 2H)), their
+// scales for the cp.async path, g (T, H) bf16 out, the activation
+struct GluArgs {
+  CUtensorMap umap, usmap;
+  const float* su;
+  __nv_bfloat16* g;
+  int act;                    // 0: silu, 1: tanh-GELU
+};
+
+// The GLU of lmrs_tpu/kernels/fused_ffn.py:105-110 in f32, in its order of
+// operations (no contraction into fma), rounded to bf16 once.
+__device__ __forceinline__ __nv_bfloat16 glu(float gate, float up, int act) {
+  float a;
+  if (act == 0) {
+    a = __fmul_rn(gate, __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-gate))));
+  } else {
+    const float cube = __fmul_rn(__fmul_rn(__fmul_rn(0.044715f, gate), gate),
+                                 gate);
+    const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(gate, cube));
+    a = __fmul_rn(__fmul_rn(0.5f, gate), __fadd_rn(1.0f, tanhf(inner)));
+  }
+  return __float2bfloat16_rn(__fmul_rn(a, up));
+}
+
+template <Quant Q, int N, Epi E>
 __global__ void __launch_bounds__(kThreads, (Layout<Q, N>::kBlocks))
 qgemm_kernel(const __grid_constant__ CUtensorMap xmap,
              const __grid_constant__ CUtensorMap wmap,
              const __grid_constant__ CUtensorMap smap,
              const float* __restrict__ s, float* __restrict__ y, int T, int O,
-             int K, int gs, int scale_tma) {
+             int K, int gs, int scale_tma,
+             const __grid_constant__ GluArgs glu_args) {
   using L = Layout<Q, N>;
+  // output rows a tile: Glu pairs 64 gate rows with their 64 up rows
+  constexpr int kTileRows = E == Epi::Glu ? kRows / 2 : kRows;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::kBody);
@@ -252,9 +293,9 @@ qgemm_kernel(const __grid_constant__ CUtensorMap xmap,
   uint32_t rank, nsplit;
   asm("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
   asm("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(nsplit));
-  const int o0 = (blockIdx.x / nsplit) * kRows;
+  const int o0 = (blockIdx.x / nsplit) * kTileRows;
   const int n0 = blockIdx.y * N;
-  const int nchunks = K / L::BK;
+  const int nchunks = (K + L::BK - 1) / L::BK;
   const int c0 = nchunks * rank / nsplit;
   const int c1 = nchunks * (rank + 1) / nsplit;
 
@@ -284,11 +325,17 @@ qgemm_kernel(const __grid_constant__ CUtensorMap xmap,
       const uint32_t ss = ws + L::kWTile;
       const int g0 = c * L::BK / gs;     // first group of the chunk
       if (!scale_tma) {
-        // scale rows not 16-byte aligned: [row][4] by 4-byte copies
+        // scale rows not 16-byte aligned: [row][4] by 4-byte copies, zeros
+        // past the last row or group
         for (int i = lane; i < kRows * kScaleCols; i += 32) {
-          const int o = o0 + i / kScaleCols, g = g0 + i % kScaleCols;
-          if (o < O && g < ngroups)
-            cp_async4(ss + 4 * i, s + (size_t)o * ngroups + g);
+          const int r = i / kScaleCols, g = g0 + i % kScaleCols;
+          const bool up = E == Epi::Glu && r >= kTileRows;
+          const int o = o0 + (up ? r - kTileRows : r);
+          const bool in = o < O && g < ngroups;
+          cp_async4(ss + 4 * i,
+                    (up ? glu_args.su : s) + (in ? (size_t)o * ngroups + g
+                                                 : 0),
+                    in);
         }
         cp_async_arrive(full(stage));
       }
@@ -300,9 +347,17 @@ qgemm_kernel(const __grid_constant__ CUtensorMap xmap,
           tma_load_2d(xs + a * N * 128, &xmap, full(stage),
                       c * L::BK + a * 64, n0);
         tma_load_2d(ws, &wmap, full(stage), c * kWBytes, o0);
+        if constexpr (E == Epi::Glu)
+          tma_load_2d(ws + kTileRows * kWBytes, &glu_args.umap, full(stage),
+                      c * kWBytes, o0);
         // the aligned window of 4 groups holding the chunk's (in bounds:
         // a box past the last column faults)
-        if (scale_tma) tma_load_2d(ss, &smap, full(stage), g0 & ~3, o0);
+        if (scale_tma) {
+          tma_load_2d(ss, &smap, full(stage), g0 & ~3, o0);
+          if constexpr (E == Epi::Glu)
+            tma_load_2d(ss + kTileRows * kScaleCols * 4, &glu_args.usmap,
+                        full(stage), g0 & ~3, o0);
+        }
       }
       if (++stage == L::kStages) { stage = 0; phase ^= 1; }
       __syncwarp();
@@ -406,9 +461,52 @@ qgemm_kernel(const __grid_constant__ CUtensorMap xmap,
     red[col * kRedLd + row] = acc[i];
   }
   cluster_sync();
+  const int tn = min(N, T - n0);
+  if constexpr (E == Epi::Glu) {
+    // block r takes quads of 4 gate rows [e0, e1) and their up rows, each
+    // summed over the cluster's blocks 0..S-1 in that order, then the GLU
+    const int total = tn * (kTileRows / 4);
+    const int e0 = total * rank / nsplit, e1 = total * (rank + 1) / nsplit;
+    const uint32_t red_addr = smem_u32(red);
+    for (int e = e0 + tid; e < e1; e += kConsumers) {
+      const int n = e / (kTileRows / 4), r = 4 * (e % (kTileRows / 4));
+      const int j = o0 + r;
+      float4 sum[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t local =
+            red_addr + 4 * (n * kRedLd + r + h * kTileRows);
+        for (uint32_t q = 0; q < nsplit; ++q) {
+          uint32_t remote;
+          float4 v;
+          asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                       : "=r"(remote) : "r"(local), "r"(q));
+          asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                       : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                       : "r"(remote) : "memory");
+          if (q == 0) {
+            sum[h] = v;
+          } else {
+            sum[h].x += v.x; sum[h].y += v.y;
+            sum[h].z += v.z; sum[h].w += v.w;
+          }
+        }
+      }
+      if (j < O) {     // O = H, a multiple of 4: the quad is all in or out
+        const __nv_bfloat16 out[4] = {
+            glu(sum[0].x, sum[1].x, glu_args.act),
+            glu(sum[0].y, sum[1].y, glu_args.act),
+            glu(sum[0].z, sum[1].z, glu_args.act),
+            glu(sum[0].w, sum[1].w, glu_args.act)};
+        *reinterpret_cast<uint2*>(glu_args.g + (size_t)(n0 + n) * O + j) =
+            *reinterpret_cast<const uint2*>(out);
+      }
+    }
+    cluster_sync();
+    return;
+  }
   // block r sums quads of 4 features [e0, e1) over the cluster's blocks
   // 0..S-1 in that order; four quads' loads in flight a thread
-  const int tn = min(N, T - n0);
   const int total = tn * (kRows / 4);
   const int e0 = total * rank / nsplit, e1 = total * (rank + 1) / nsplit;
   const uint32_t red_addr = smem_u32(red);
@@ -502,14 +600,20 @@ inline bool make_map(CUtensorMap* map, const void* base,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// output rows a tile of epilogue E
+template <Epi E>
+constexpr int tile_rows() {
+  return E == Epi::Glu ? kRows / 2 : kRows;
+}
+
 // the kernel's shared-memory size, set once (launches and occupancy
 // queries need it)
-template <Quant Q, int N>
+template <Quant Q, int N, Epi E = Epi::Store>
 int prepare() {
   static bool done = false;
   if (!done) {
     const cudaError_t err =
-        cudaFuncSetAttribute(qgemm_kernel<Q, N>,
+        cudaFuncSetAttribute(qgemm_kernel<Q, N, E>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              Layout<Q, N>::kSmem);
     if (err != cudaSuccess) return (int)err;
@@ -520,7 +624,7 @@ int prepare() {
 
 // clusters of `split` blocks of this kernel that the card holds at once (a
 // cluster lives in one GPC, so fewer fit than SMs / split); 0 if unknown
-template <Quant Q, int N>
+template <Quant Q, int N, Epi E = Epi::Store>
 int max_clusters(int split) {
   static int known[kMaxSplit + 1] = {};
   if (known[split] == 0) {
@@ -536,8 +640,8 @@ int max_clusters(int split) {
     cfg.attrs = &attr;
     cfg.numAttrs = 1;
     int n = 0;
-    if (prepare<Q, N>() != 0 ||
-        cudaOccupancyMaxActiveClusters(&n, qgemm_kernel<Q, N>, &cfg) !=
+    if (prepare<Q, N, E>() != 0 ||
+        cudaOccupancyMaxActiveClusters(&n, qgemm_kernel<Q, N, E>, &cfg) !=
             cudaSuccess)
       n = 0;
     known[split] = n > 0 ? n : -1;
@@ -549,42 +653,62 @@ int max_clusters(int split) {
 // one per K chunk, for which the clusters of all tiles are resident at once.
 // A second wave of clusters costs more than the split saves
 // (scripts/torch_gemm_split.py)
-template <Quant Q, int N>
+template <Quant Q, int N, Epi E = Epi::Store>
 int split_k(int T, int O, int K) {
-  const int tiles = (O + kRows - 1) / kRows * ((T + N - 1) / N);
+  const int rows = tile_rows<E>();
+  const int tiles = (O + rows - 1) / rows * ((T + N - 1) / N);
+  const int nchunks = (K + Layout<Q, N>::BK - 1) / Layout<Q, N>::BK;
   int split = 1;
-  for (int s = 2; s <= kMaxSplit && s <= K / Layout<Q, N>::BK; ++s)
-    if (tiles <= max_clusters<Q, N>(s)) split = s;
+  for (int s = 2; s <= kMaxSplit && s <= nchunks; ++s)
+    if (tiles <= max_clusters<Q, N, E>(s)) split = s;
   return split;
 }
 
-// split <= 0: split_k's choice
-template <Quant Q, int N>
+// split <= 0: split_k's choice.  Glu: q, s are the gate rows [0, O) of W13
+// and uq, us the up rows (O of each), g the (T, O) bf16 output (y unused)
+template <Quant Q, int N, Epi E = Epi::Store>
 int launch_n(const void* x, const void* q, const float* s, float* y, int T,
-             int O, int K, int gs, cudaStream_t stream, int split) {
+             int O, int K, int gs, cudaStream_t stream, int split,
+             const void* uq = nullptr, const float* us = nullptr,
+             __nv_bfloat16* g = nullptr, int act = 0) {
   using L = Layout<Q, N>;
-  const int ready = prepare<Q, N>();
+  constexpr int rows = tile_rows<E>();
+  const int ready = prepare<Q, N, E>();
   if (ready != 0) return ready;
   // scales through TMA where their rows are 16-byte aligned and a chunk's
   // groups lie in one aligned window of four (power-of-two group sizes:
   // every model shape); else the producer copies them with cp.async
   const int ngroups = K / gs;
-  const int scale_tma = ngroups % kScaleCols == 0 && (gs & (gs - 1)) == 0 &&
-                        reinterpret_cast<uintptr_t>(s) % 16 == 0;
+  const int scale_tma =
+      ngroups % kScaleCols == 0 && (gs & (gs - 1)) == 0 &&
+      reinterpret_cast<uintptr_t>(s) % 16 == 0 &&
+      (E != Epi::Glu || reinterpret_cast<uintptr_t>(us) % 16 == 0);
 
   CUtensorMap xmap, wmap, smap = {};
+  GluArgs glu_args = {};
   const int wcols = Q == Quant::Q4 ? K / 2 : K;
   if (!make_map(&xmap, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, T, K, N, 64,
                 CU_TENSOR_MAP_SWIZZLE_128B) ||
-      !make_map(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, wcols, kRows,
+      !make_map(&wmap, q, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O, wcols, rows,
                 kWBytes, CU_TENSOR_MAP_SWIZZLE_64B) ||
       (scale_tma &&
        !make_map(&smap, s, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, O, ngroups,
-                 kRows, kScaleCols, CU_TENSOR_MAP_SWIZZLE_NONE)))
+                 rows, kScaleCols, CU_TENSOR_MAP_SWIZZLE_NONE)))
     return (int)cudaErrorInvalidValue;
-  if (split <= 0) split = split_k<Q, N>(T, O, K);
+  if constexpr (E == Epi::Glu) {
+    if (!make_map(&glu_args.umap, uq, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, O,
+                  wcols, rows, kWBytes, CU_TENSOR_MAP_SWIZZLE_64B) ||
+        (scale_tma &&
+         !make_map(&glu_args.usmap, us, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+                   O, ngroups, rows, kScaleCols, CU_TENSOR_MAP_SWIZZLE_NONE)))
+      return (int)cudaErrorInvalidValue;
+    glu_args.su = us;
+    glu_args.g = g;
+    glu_args.act = act;
+  }
+  if (split <= 0) split = split_k<Q, N, E>(T, O, K);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((O + kRows - 1) / kRows * split, (T + N - 1) / N, 1);
+  cfg.gridDim = dim3((O + rows - 1) / rows * split, (T + N - 1) / N, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = L::kSmem;
   cfg.stream = stream;
@@ -596,8 +720,8 @@ int launch_n(const void* x, const void* q, const float* s, float* y, int T,
   cfg.attrs = attrs;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, qgemm_kernel<Q, N>, xmap, wmap, smap, s, y, T,
-                         O, K, gs, scale_tma);
+      cudaLaunchKernelEx(&cfg, qgemm_kernel<Q, N, E>, xmap, wmap, smap, s, y,
+                         T, O, K, gs, scale_tma, glu_args);
   return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
 }
 

@@ -1,6 +1,8 @@
-"""Kernels K and L: one layer's whole GLU FFN in one launch.  CUDA source:
-`lmrs_tpu_torch/csrc/ffn_fused.cu`, whose header note names the TPU kernels
-they replace and their design.
+"""Kernels K and L: one layer's whole GLU FFN from one C call.  CUDA source:
+`lmrs_tpu_torch/csrc/ffn_fused.cu` (L on the template of kernels B and F,
+`csrc/qgemm_sm90.cuh`), whose header note names the TPU kernels they
+replace and their design: K is one cooperative launch, L two launches (the
+[gate; up] product with the GLU in its epilogue, then the W2 product).
 
     [gate; up] = W13 . bf16(x),   g = bf16(act(gate) * up),   y = W2 . g
 
@@ -8,13 +10,14 @@ K `ffn_fused_xe` (1 <= T <= 8): the exact integer weights times the bf16
 activations, f32 sums per group times the f32 group scale (the numerics of
 kernels A and E on bf16 activations).  L `ffn_fused` (9 <= T <= 16): the
 weights dequantized as bf16(bf16(q) * bf16(s)), f32 sums (those of kernels
-B and F).  Both: the GLU in f32, g rounded to bf16 once, y f32 (T, D).
+B and F, on their tensor-core template).  Both: the GLU in f32, g rounded
+to bf16 once, y f32 (T, D).
 W13 holds the [gate; up] rows in their logical order; Q4_0 weights are
 runtime-layout bytes (uint8), Q8_0 weights int8, the type telling which.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors; `ffn_fused_xe.launches` and
-`ffn_fused.launches` count kernel launches.
+`ffn_fused.launches` count calls of the C entry (one a layer's FFN).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from lmrs_tpu_torch.ops.activations import gelu_tanh, silu
 
 MAX_T_XE = 8            # K
 MIN_T, MAX_T = 9, 16    # L
+L_GROUP_SIZES = (32, 64, 128)   # those of kernels B and F
 ACTS = {"silu": 0, "gelu": 1}
 
 
@@ -116,6 +120,8 @@ def _launch(name, numerics, t_range, x, w13_q, w13_s, w2_q, w2_s,
     if gs % 32 or d % gs or h % gs:
         raise ValueError(f"{name} needs gs % 32 == 0, D % gs == 0 and "
                          f"H % gs == 0 (D={d}, H={h}, gs={gs})")
+    if numerics == 1 and gs not in L_GROUP_SIZES:
+        raise ValueError(f"{name} takes gs in {L_GROUP_SIZES}, got {gs}")
     if (w13_q.shape != (2 * h, d // per_byte)
             or w13_s.shape != (2 * h, d // gs)
             or w2_q.shape != (d, h // per_byte) or w2_s.shape != (d, h // gs)):

@@ -4,9 +4,13 @@ note names the TPU kernels it replaces and its design.
 
     y[t, o] = sum_g s[o, g] * sum_{k in g} w[o, k] * x[t, k]
 
-f32 activations, f32 accumulation, runtime-layout Q4 bytes.  The wrapper
-launches the kernel for CUDA tensors (or raises) and runs the plain version
-for CPU tensors; `q4_gemv.launches` counts kernel launches.
+f32 activations, exact integer weights, f32 sums, runtime-layout Q4
+bytes.  On the card the products run on the tensor cores: x enters as three
+bf16 slices that sum to it exactly, so it keeps its f32 value, and every
+(t, o) takes the same operations whatever T is (a row of a T-row call is
+the row computed alone, bit for bit).  The wrapper launches the kernel for
+CUDA tensors (or raises) and runs the plain version for CPU tensors;
+`q4_gemv.launches` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.quant import unpack_q4
 
 MAX_T = 8
+MAX_K = 16384       # the x slices of a block's K range fit shared memory
 
 
 def q4_gemv_plain(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
@@ -56,9 +61,9 @@ def _check_inputs(x, q, s, group_size):
     if q.shape != (o, k // 2) or s.shape != (o, k // group_size):
         raise ValueError(f"shapes x {tuple(x.shape)}, q {tuple(q.shape)}, "
                          f"s {tuple(s.shape)} do not match gs={group_size}")
-    if group_size % 32 or k % group_size:
-        raise ValueError(f"q4_gemv needs gs % 32 == 0 and K % gs == 0 "
-                         f"(K={k}, gs={group_size})")
+    if group_size % 32 or k % group_size or k > MAX_K:
+        raise ValueError(f"q4_gemv needs gs % 32 == 0, K % gs == 0 and "
+                         f"K <= {MAX_K} (K={k}, gs={group_size})")
     for name, a in (("x", x), ("q", q), ("s", s)):
         if not a.is_contiguous():
             raise ValueError(f"q4_gemv needs a contiguous {name}")

@@ -125,6 +125,61 @@ def test_gemv_kernel_on_card(cuda_device, t, o, k, gs):
     assert _rel_err(got, want) <= 1e-4
 
 
+# (O, K) of the five matmuls of Gemma-2-9B, Llama-3.2-3B and Phi-3.5-mini
+# (wqkv, wo, w13, w2, classifier), and odd row counts
+GEMV_MODEL_SHAPES = [(8192, 3584), (3584, 4096), (28672, 3584), (3584, 14336),
+                     (256000, 3584), (5120, 3072), (3072, 3072),
+                     (16384, 3072), (3072, 8192), (128256, 3072),
+                     (9216, 3072), (32064, 3072)]
+GEMV_ODD_SHAPES = [(1001, 3584, 128), (77, 4096, 128), (999, 256, 32),
+                   (13, 640, 64), (4099, 14336, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("o,k,gs", [(o, k, 128) for o, k in GEMV_MODEL_SHAPES]
+                         + GEMV_ODD_SHAPES)
+def test_gemv_every_t_at_model_shapes_on_card(cuda_device, o, k, gs):
+    """A at T = 1..8 at each model shape and at odd row counts (the last
+    m16 tile and quad of rows partly past O), within 1e-4 of the output
+    scale of its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(o + k)
+    q = torch.randint(0, 256, (o, k // 2), dtype=torch.uint8,
+                      device=cuda_device, generator=gen)
+    s = -0.003 * (0.5 + torch.rand((o, k // gs), device=cuda_device,
+                                   generator=gen))
+    for t in range(1, 9):
+        x = torch.randn(t, k, device=cuda_device, generator=gen)
+        got = q4_gemv(x, q, s, gs)
+        want = q4_gemv_plain(x, q, s, gs)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all() and got.shape == (t, o)
+        assert _rel_err(got, want) <= 1e-4, t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [5, 8])
+@pytest.mark.parametrize("o,k,gs", [(8192, 3584, 128), (3584, 14336, 128),
+                                    (3584, 4096, 128), (1001, 3584, 128),
+                                    (999, 256, 32), (13, 640, 64)])
+def test_gemv_rows_independent_of_t_on_card(cuda_device, t, o, k, gs):
+    """A row of a T-row call of A equals, bit for bit, the row computed
+    alone (one arithmetic path for every T: speculative greedy decoding is
+    exact on the card because of it); two calls give the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(t * o)
+    q = torch.randint(0, 256, (o, k // 2), dtype=torch.uint8,
+                      device=cuda_device, generator=gen)
+    s = -0.003 * (0.5 + torch.rand((o, k // gs), device=cuda_device,
+                                   generator=gen))
+    x = torch.randn(t, k, device=cuda_device, generator=gen)
+    whole = q4_gemv(x, q, s, gs)
+    rows = torch.cat([q4_gemv(x[i:i + 1].contiguous(), q, s, gs)
+                      for i in range(t)])
+    again = q4_gemv(x, q, s, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, rows)
+    assert torch.equal(whole, again)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", [9, 64, 100, 256, 512])
 @pytest.mark.parametrize("o,k,gs", [(1024, 3584, 128), (1000, 256, 32),
@@ -785,6 +840,38 @@ def test_ffn_fused_kernel_on_card(cuda_device, quant, act, d, h, gs, t):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all() and got.shape == (t, d)
     assert _rel_err(got, want) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", list(range(9, 17)))
+@pytest.mark.parametrize("quant,act,d,h,gs", [
+    ("q4", "gelu", 128, 96, 32), ("q8", "silu", 128, 96, 32),
+    ("q4", "silu", 96, 512, 32), ("q8", "gelu", 320, 320, 64)])
+def test_ffn_fused_glu_tiles_on_card(cuda_device, quant, act, d, h, gs, t):
+    """L at every T of 9..16 where H is not a multiple of the 64 gate rows
+    of a tile (H = 96, 320: the last tile's gate and up boxes run past H
+    and must read zeros, not the other half's rows), where a stage's K is
+    not a multiple of its chunk (Q4 chunks of 128: H = 96 in the down
+    stage, D = 96 in the GLU stage) and where D leaves a partial tile of
+    output rows."""
+    x, *w = _ffn_case(cuda_device, quant, t, d, h, gs, seed=t)
+    got = ffn_fused(x, *w, gs, act)
+    want = ffn_fused_plain(x, *w, gs, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (t, d)
+    assert _rel_err(got, want) <= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant,act,d,h,gs", FFN_CASES)
+def test_ffn_fused_deterministic_on_card(cuda_device, quant, act, d, h, gs):
+    """Two calls of L on the same inputs give the same bits (split-K sums
+    in cluster rank order, no atomics)."""
+    x, *w = _ffn_case(cuda_device, quant, 16, d, h, gs)
+    first = ffn_fused(x, *w, gs, act)
+    second = ffn_fused(x, *w, gs, act)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
