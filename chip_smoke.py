@@ -14,8 +14,10 @@ Phases (any failure ends the run with a non-zero exit):
    same function (timed only, never used by the port), and the bound (the
    larger of bytes / memory rate and operations / peak rate).  A (q4_gemv),
    B (q4_gemm), C (flash_attention, bf16 cache) and H (flash_attention_i4,
-   half packing) at the Gemma-2-9B shapes; D (q8_gemv_i8, its quantizer
-   pre-pass bit for bit first), E (q8_gemv), F (q8_gemm), C on a bf16 and
+   half packing) at the Gemma-2-9B shapes; D (q8_gemv_i8, one launch with
+   its quantizer inside; the quantizer's arithmetic bit for bit first, on
+   its own launch; library yardsticks bf16 torch.matmul and
+   torch._int_mm), E (q8_gemv), F (q8_gemm), C on a bf16 and
    on an f32 cache, G (flash_attention_i8) and H (pair packing) at the
    Llama-3.2-3B shapes.  The T <= 8 matmul kernels run at T 1, 4 and 5 (A
    also at 8, a batched step of 8 slots) and the flash kernels at T 1, 5
@@ -43,9 +45,9 @@ Phases (any failure ends the run with a non-zero exit):
    _MASK_NEG, the shards merged by M against I and the plain version.  M
    against its plain version on the split pass's workspaces of C and I.
    Then, per kernel, whether a row of a T = 5 call equals the same row
-   computed alone (what makes speculative greedy decoding exact; A also at
-   T = 8): a "no" fails the run for A, K and the flash kernels, whose
-   designs promise it.
+   computed alone (what makes speculative greedy decoding exact; A and D
+   also at T = 8): a "no" fails the run for A, D, K and the flash kernels,
+   whose designs promise it.
 3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
@@ -466,10 +468,11 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
                         bound_ms=b_ms, bound_by=b_by)
             extra = ""
             if kern == "q8_gemv_i8":
-                # second yardstick: the library's int8 product, where the
-                # installed PyTorch takes the shape (timed only)
-                xi = torch.randint(-127, 128, (t, k), dtype=torch.int8,
-                                   device="cuda", generator=gen)
+                # second yardstick: the library's int8 product, x padded to
+                # the 17 rows it takes at least (timed only)
+                xi = torch.randint(-127, 128, (max(t, 17), k),
+                                   dtype=torch.int8, device="cuda",
+                                   generator=gen)
                 qt = q.t()
                 try:
                     torch._int_mm(xi, qt)
@@ -762,6 +765,9 @@ def check_row_independence(torch):
             ("q4_gemv", q4_gemv, random_q4, GEMMA, "w2", 5),
             ("q4_gemv", q4_gemv, random_q4, GEMMA, "w2", 8),
             ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA, "wqkv", 5),
+            ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA, "wqkv", 8),
+            ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA, "wo", 5),
+            ("q8_gemv_i8", q8_gemv_i8, random_q8, LLAMA, "wo", 8),
             ("q8_gemv", q8_gemv, random_q8, LLAMA, "wqkv", 5)):
         o, k = matmul_shapes(model)[shape]
         q, s = make(torch, gen, o, k)
@@ -769,7 +775,8 @@ def check_row_independence(torch):
         whole = fn(x, q, s, GS)
         rows = torch.cat([fn(x[i:i + 1].contiguous(), q, s, GS)
                           for i in range(t)])
-        key = f"{name} ({shape}, T={t})" if name == "q4_gemv" else name
+        key = (f"{name} ({shape}, T={t})"
+               if name in ("q4_gemv", "q8_gemv_i8") else name)
         same[key] = torch.equal(whole, rows)
     pos = 1100
     for model, cache in ((GEMMA, "bf16"), (LLAMA, "f32"), (LLAMA, "int8"),
@@ -2009,11 +2016,11 @@ def main() -> int:
         "alone?")
     row_independent = check_row_independence(torch)
     row_independent.update(check_batched_row_independence(torch))
-    # A, K and the flash kernels promise it by design (one arithmetic path
-    # for every T; fixed split rows, a merge in split order): a "no" there
-    # fails the run
+    # A, D, K and the flash kernels promise it by design (one arithmetic
+    # path for every T; fixed split rows, a merge in split order): a "no"
+    # there fails the run
     promised = {name: ok for name, ok in row_independent.items()
-                if name.startswith(("q4_gemv", "ffn_fused_xe",
+                if name.startswith(("q4_gemv", "q8_gemv_i8", "ffn_fused_xe",
                                     "flash_attention"))}
     if not all(promised.values()):
         raise RuntimeError(f"a kernel breaks row independence: {promised}")
@@ -2211,9 +2218,10 @@ def main() -> int:
         what, plan = unit[name]
         pick = {(c["model"], c["shape"], c["T"]): c for c in mine}
         tot = {}
-        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "int_mm_ms",
+                    "bound_ms"):
             vals = [n * pick[(m, s, t)][key] for m, s, t, n in plan
-                    if pick[(m, s, t)][key] is not None]
+                    if pick[(m, s, t)].get(key) is not None]
             tot[key] = sum(vals) if len(vals) == len(plan) else None
         per_kernel.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2227,8 +2235,10 @@ def main() -> int:
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
             bound_by=pick[plan[0][:3]]["bound_by"],
-            library_ms=tot["library_ms"], unit=what, cases=mine))
-    log("rows of a T=5 call (A: and T=8) equal the rows alone: "
+            library_ms=tot["library_ms"],
+            **({"int_mm_ms": tot["int_mm_ms"]} if name == "q8_gemv_i8"
+               else {}), unit=what, cases=mine))
+    log("rows of a T=5 call (A and D: and T=8) equal the rows alone: "
         + json.dumps(row_independent))
     log("main paths: " + json.dumps(paths))
     log(f"chip_smoke ran {time.perf_counter() - t_run:.1f} s")

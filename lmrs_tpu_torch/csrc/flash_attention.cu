@@ -133,6 +133,18 @@
 // hd 256 (four at hd 128) and one block's loads overlap another's products;
 // a row sees the same operations in either size of block.
 //
+// What bounds kernel M is not its bytes (a Gemma-2-9B row's splits at pos
+// 6,000 are ~50 KB, read from L2) but its place as a second, dependent
+// launch: its blocks start only after the split pass's last block ends,
+// 3-8 us of device time a decode call for reads worth 0.2 us.  Folding the
+// merge into the split pass (the last block of each group to finish, found
+// by a ticket from an int32 counter, merging in split order) was measured
+// on an H100 and cost more than it saved: one block a group then runs the
+// merge's L2 round trips in series, where M's own grid spreads them over
+// 64-128 blocks, and a decode call took 1.05-1.32x the device time of the
+// two launches (PERF.md §6).  So M stays a launch of its own, behind the
+// split pass in the same host call.
+//
 // The cp partials (B1).  _flash_kernel_batched with lse=True and seq_base
 // (the batched cp step's shard of the sequence) is the split pass with a
 // row base: the operand's row 0 is the global row seq_base (struct Walk),

@@ -20,6 +20,12 @@ measurement on the card (PERF.md): it never depends on the position, T or
 B, so a row's split boundaries are the same global rows in every call, and
 a row of a T = 5 call equals the row computed alone bit for bit.
 
+What bounds kernel M is its place as a second launch, not its bytes: its
+blocks wait for the split pass's last one.  Its merge folded into the
+split pass's last block of each group was measured slower on an H100
+(1.05-1.32x the device time of a decode call: one block a group runs the
+merge's L2 round trips in series), so the two launches stay (PERF.md §6).
+
 `flash_merge` launches kernel M for CUDA tensors (or raises) and runs its
 plain version for CPU tensors; `flash_merge.launches` counts kernel M's
 launches, those that `split_pass(..., out=)` makes behind the split pass

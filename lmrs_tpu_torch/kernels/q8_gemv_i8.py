@@ -7,12 +7,14 @@ whose header note names the TPU kernels it replaces and its design.
                     * xs[t, g]
 
 The integer dot of a group is exact; the scales multiply it in f32, weight
-scale first.  The activation quantizer is the kernel's own pre-pass (one
-extra launch in the same entry point), not `quant.quantize_q8_act`'s half a
-dozen small PyTorch ops per matmul.  The wrapper launches the kernels for
-CUDA tensors (or raises) and runs the plain version for CPU tensors;
-`q8_gemv_i8.launches` counts kernel launches (one per call: quantizer and
-product go out together).
+scale first, and the groups add in increasing order (then the K split's
+partial sums in rank order).  One launch a call: each block quantizes the
+slice of x its K range needs into shared memory with the standalone
+quantizer's arithmetic (`q8_act_quant`, kept for the bit-exact card
+check), so xq and xs never reach device memory and the wrapper allocates
+only y.  The wrapper launches the kernel for CUDA tensors (or raises) and
+runs the plain version for CPU tensors; `q8_gemv_i8.launches` counts
+kernel launches.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.quant import quantize_q8_act
 
 MAX_T = 8
+MAX_K = 8 * 4096        # eight ranks of the K split, 4,096 bytes each
 GROUP_SIZES = (32, 64, 128, 256)
 
 
@@ -52,7 +55,7 @@ def _entries():
         p, i = ctypes.c_void_p, ctypes.c_int
         quant.argtypes = [p, p, p, i, i, i, p]
         quant.restype = ctypes.c_int
-        gemv.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+        gemv.argtypes = [p, p, p, p, i, i, i, i, p]
         gemv.restype = ctypes.c_int
     return quant, gemv
 
@@ -63,15 +66,18 @@ def _check_x(x, group_size):
         raise ValueError(f"q8_gemv_i8 takes 1..{MAX_T} rows, got {t}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError(f"q8_gemv_i8 wants contiguous f32 x, got {x.dtype}")
-    if group_size not in GROUP_SIZES or k % group_size:
-        raise ValueError(f"q8_gemv_i8 needs gs in {GROUP_SIZES} and "
-                         f"K % gs == 0 (K={k}, gs={group_size})")
+    if group_size not in GROUP_SIZES or k % group_size or k > MAX_K:
+        raise ValueError(f"q8_gemv_i8 needs gs in {GROUP_SIZES}, K % gs == 0 "
+                         f"and K <= {MAX_K} (K={k}, gs={group_size})")
+    if x.data_ptr() % 16:
+        raise ValueError("q8_gemv_i8 needs a 16-byte aligned x")
 
 
 def q8_act_quant(x: torch.Tensor, group_size: int):
-    """Kernel D's quantizer pre-pass alone: x (T, K) f32 -> (xq int8 (T, K),
-    xs f32 (T, K/gs)), bit for bit `quant.quantize_q8_act` (which CPU
-    tensors take)."""
+    """Kernel D's quantizer alone: x (T, K) f32 -> (xq int8 (T, K), xs f32
+    (T, K/gs)), bit for bit `quant.quantize_q8_act` (which CPU tensors
+    take).  Its arithmetic is the device function kernel D quantizes with,
+    so this launch checks D's quantizer bit for bit on the card."""
     if not x.is_cuda:
         return quantize_q8_act(x, group_size)
     _check_x(x, group_size)
@@ -106,13 +112,9 @@ def q8_gemv_i8(x: torch.Tensor, q: torch.Tensor, s: torch.Tensor,
                              f"{x.device}")
     if q.data_ptr() % 16:
         raise ValueError("q8_gemv_i8 needs a 16-byte aligned q")
-    xq = torch.empty((t, k), dtype=torch.int8, device=x.device)
-    xs = torch.empty((t, k // group_size), dtype=torch.float32,
-                     device=x.device)
     y = torch.empty((t, o), dtype=torch.float32, device=x.device)
-    err = _entries()[1](x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-                        q.data_ptr(), s.data_ptr(), y.data_ptr(), t, o, k,
-                        group_size,
+    err = _entries()[1](x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                        y.data_ptr(), t, o, k, group_size,
                         torch.cuda.current_stream(x.device).cuda_stream)
     cuda.check(err, "q8_gemv_i8")
     q8_gemv_i8.launches += 1

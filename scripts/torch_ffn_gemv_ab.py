@@ -1,19 +1,26 @@
 #!/usr/bin/env python3
-"""Two versions of kernel A (`q4_gemv.cu`) and of kernels K and L
-(`ffn_fused.cu`) side by side on one card: did a change to either source
-move them?
+"""Two versions of kernel A (`q4_gemv.cu`), of kernels K and L
+(`ffn_fused.cu`) and of kernel D (`q8_gemv_i8.cu`) side by side on one
+card: did a change to a source move them?
 
-    python3 scripts/torch_ffn_gemv_ab.py --parent DIR [--only a,k,l]
+    python3 scripts/torch_ffn_gemv_ab.py --parent DIR [--only a,k,l,d]
         [--ts 1,2,4,5,8] [--ffn-ts 9,12,16] [--xe-ts 1,5,8]
 
-DIR holds the other version's `q4_gemv.cu` and `ffn_fused.cu` (with any
-header they include), e.g. `git show <commit>:lmrs_tpu_torch/csrc/
+DIR holds the other version's sources of the kernels compared
+(`q4_gemv.cu`, `ffn_fused.cu` with any header it includes, `q8_gemv_i8.cu`
+with any header it includes), e.g. `git show <commit>:lmrs_tpu_torch/csrc/
 q4_gemv.cu > DIR/q4_gemv.cu`.  Both versions build with the package's nvcc
 flags; the change is the tree's `lmrs_tpu_torch/csrc`.  Cases:
 
 - A at the five matmuls (wqkv, wo, w13, w2, classifier) of Gemma-2-9B,
   Llama-3.2-3B and Phi-3.5-mini as Q4_0 (group size 128), at every T of
   `--ts`; held against `q4_gemv_plain` within 1e-4 of the output scale;
+- D at the four layer matmuls (wqkv, wo, w13, w2) of the same models as
+  Q8_0 (group size 128), at every T of `--ts`; held against
+  `q8_gemv_i8_plain` within 1e-4 of the output scale.  A parent whose entry
+  point takes the quantizer's scratch (x, xq, xs, q, s, y, ...: the two
+  launches of the pre-pass design) is called with it, allocated a call as
+  its wrapper did;
 - L at Gemma-2-9B's FFN (Q4_0, tanh-GELU) and Llama-3.2-3B's (Q8_0, silu)
   at every T of `--ffn-ts`, K at the same FFNs at every T of `--xe-ts`;
   held against their plain versions within 1e-3 of the output scale.
@@ -25,16 +32,20 @@ before each: its window holds the host's time where a call is shorter),
 the device time of one call (torch.profiler over 20 calls, each after the
 same flush: the sum of the call's kernels' device time, PyTorch's own
 kernels left out) and the host's time per call (200 calls enqueued back to
-back, median of 5).  Beside them: the library yardstick (A: one
-`torch.matmul` of bf16 x and the pre-dequantized bf16 weights; K and L:
-the unfused chain of PyTorch calls, as chip_smoke.py's) and the bound (A:
-the packed weights, scales, f32 x and y once each over 3.35 TB/s, or
-three bf16 slices of x through the tensor cores at 989 TFLOP/s; K and L:
-weights, scales, x and y over 3.35 TB/s, or 2*T*3*H*D at 989 TFLOP/s; the
-larger).  Then A's per-token units: for each model and T, its layers x
-(wqkv, wo, w13, w2) + the classifier, from the timer and from the device
-times.  Prints the card's name and power limit, one line per case and one
-JSON line.  Needs one CUDA device and nvcc.
+back, median of 5).  Beside them: the library yardstick (A and D: one
+`torch.matmul` of bf16 x and the pre-dequantized bf16 weights; D also
+`torch._int_mm` of int8 x and the int8 weights, x padded to 17 rows, the
+fewest it takes; K and L: the unfused chain of PyTorch calls, as
+chip_smoke.py's; for D also the device time of both, every kernel of the
+call but the flush's) and the bound (A: the packed weights, scales, f32 x and y
+once each over 3.35 TB/s, or three bf16 slices of x through the tensor
+cores at 989 TFLOP/s; D: int8 weights, scales, f32 x and y over 3.35
+TB/s, or 2*T*O*K at 1,979 TOP/s; K and L: weights, scales, x and y over
+3.35 TB/s, or 2*T*3*H*D at 989 TFLOP/s; the larger).  Then the per-token
+units: for each model and T, A's layers x (wqkv, wo, w13, w2) + the
+classifier, D's layers x (wqkv, wo, w13, w2), from the timer and from the
+device times.  Prints the card's name and power limit, one line per case
+and one JSON line.  Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -54,17 +65,28 @@ GS = 128
 PHI = dict(name="phi3.5-mini", D=3072, HID=8192, L=32, H=32, KH=32, HD=96,
            V=32064)
 TURNS = ("parent", "change", "change", "parent")
-# the kernels of A, K and L by the names the profiler sees
-OURS = ("q4_gemv", "ffn_kernel", "qgemm_kernel")
+# the kernels of A, K, L and D (and D's parent's quantizer pre-pass) by
+# the names the profiler sees
+OURS = ("q4_gemv", "ffn_kernel", "qgemm_kernel", "q8_gemv_i8",
+        "q8_act_quant")
+# the library source of each kernel letter
+SOURCE = {"a": "q4_gemv", "k": "ffn_fused", "l": "ffn_fused",
+          "d": "q8_gemv_i8"}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True,
                     help="directory of the other q4_gemv.cu and ffn_fused.cu")
-    ap.add_argument("--only", default="a,k,l",
-                    help="kernels to compare: a, k, l")
-    ap.add_argument("--ts", default="1,2,4,5,8", help="A's rows of x")
+    ap.add_argument("--only", default="a,k,l,d",
+                    help="kernels to compare: a, k, l, d")
+    ap.add_argument("--ts", default="1,2,4,5,8", help="A's and D's rows "
+                    "of x")
+    ap.add_argument("--parent-d-abi", dest="parent_d_abi", default="plain",
+                    choices=("plain", "scratch"),
+                    help="the parent lmrs_q8_gemv_i8's arguments: plain "
+                         "(x, q, s, y, ...) or scratch (x, xq, xs, q, s, y, "
+                         "...: the pre-pass design)")
     ap.add_argument("--ffn-ts", dest="ffn_ts", default="9,12,16",
                     help="L's rows of x")
     ap.add_argument("--xe-ts", dest="xe_ts", default="1,5,8",
@@ -87,6 +109,8 @@ def main() -> int:
     from lmrs_tpu_torch.kernels.q4_gemm import dequant_bf16 as dequant_q4
     from lmrs_tpu_torch.kernels.q4_gemv import q4_gemv, q4_gemv_plain
     from lmrs_tpu_torch.kernels.q8_gemm import dequant_bf16 as dequant_q8
+    from lmrs_tpu_torch.kernels.q8_gemv_i8 import (q8_gemv_i8,
+                                                   q8_gemv_i8_plain)
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -111,9 +135,10 @@ def main() -> int:
 
     seen = []
 
-    def device_ms(fn, calls=20) -> float:
-        """Device time of one call: the kernels it launches, from the
-        profiler's trace of `calls` calls, each after an L2 flush."""
+    def device_ms(fn, calls=20, library=False) -> float:
+        """Device time of one call: the kernels it launches (ours, or with
+        `library` every kernel but the flush's), from the profiler's trace
+        of `calls` calls, each after an L2 flush."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -125,8 +150,10 @@ def main() -> int:
                     fn()
                 torch.cuda.synchronize()
             ours = [ev for ev in prof.key_averages()
-                    if any(key in ev.key for key in OURS)]
-            if not seen:        # the names the profiler gives, once
+                    if (library and "FillFunctor" not in ev.key)
+                    or (not library and any(key in ev.key for key in OURS))]
+            if not seen and not library:   # the names the profiler gives
+                # once
                 seen.extend(ev.key for ev in ours)
                 print("profiled kernel names: " + "; ".join(seen),
                       flush=True)
@@ -138,15 +165,18 @@ def main() -> int:
         return us / calls / 1e3
 
     def turns(row, name, fn, check):
-        """Time `fn` under both versions of library `name` in turns."""
+        """Time `fn` under both versions of library `name` in turns (`fn`
+        a callable, or version -> callable where the versions' entry
+        points differ)."""
         row.update(ms={}, device_ms={}, host_us={})
         for turn, version in enumerate(TURNS):
             cuda._libs[name] = libs[(name, version)]
-            check(version)
+            run = fn[version] if isinstance(fn, dict) else fn
+            check(version, run)
             col = f"{version}_{turn}"
-            row["ms"][col] = timed(fn)
-            row["device_ms"][col] = device_ms(fn)
-            row["host_us"][col] = host_us(fn)
+            row["ms"][col] = timed(run)
+            row["device_ms"][col] = device_ms(run)
+            row["host_us"][col] = host_us(run)
         cuda._libs.pop(name)
         for key in ("ms", "device_ms"):
             par = min(row[key]["parent_0"], row[key]["parent_3"])
@@ -158,12 +188,89 @@ def main() -> int:
               + "  ".join(f"{c} {v:.4f}" for c, v in row["ms"].items())
               + "  device " + " ".join(f"{v:.4f}"
                                        for v in row["device_ms"].values())
-              + f"  library {row['library_ms']:.4f}  bound "
+              + f"  library {row['library_ms']:.4f}"
+              + (f"  _int_mm {row['int_mm_ms']:.4f} (device: library "
+                 f"{row['library_device_ms']:.4f}, _int_mm "
+                 f"{row['int_mm_device_ms']:.4f})" if "int_mm_ms" in row
+                 else "")
+              + f"  bound "
               f"{row['bound_ms']:.4f} ({row['bound_by']})  x "
               f"{row['parent_over_change_ms']:.2f} (device "
               f"{row['parent_over_change_device_ms']:.2f})  host us "
               + " ".join(f"{v:.1f}" for v in row["host_us"].values()),
               flush=True)
+
+    def d_cases(libs, results):
+        """D at the three models' Q8 layer shapes, every T of --ts."""
+        import ctypes
+
+        def parent_d(x, q, s, gs):
+            """The parent's entry point with its own arguments."""
+            fn = libs[("q8_gemv_i8", "parent")].lmrs_q8_gemv_i8
+            p, i = ctypes.c_void_p, ctypes.c_int
+            t, k = x.shape
+            o = q.shape[0]
+            y = torch.empty((t, o), dtype=torch.float32, device=x.device)
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            if args.parent_d_abi == "scratch":
+                fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p]
+                xq = torch.empty((t, k), dtype=torch.int8, device=x.device)
+                xs = torch.empty((t, k // gs), dtype=torch.float32,
+                                 device=x.device)
+                err = fn(x.data_ptr(), xq.data_ptr(), xs.data_ptr(),
+                         q.data_ptr(), s.data_ptr(), y.data_ptr(), t, o, k,
+                         gs, stream)
+            else:
+                fn.argtypes = [p, p, p, p, i, i, i, i, p]
+                err = fn(x.data_ptr(), q.data_ptr(), s.data_ptr(),
+                         y.data_ptr(), t, o, k, gs, stream)
+            cuda.check(err, "parent q8_gemv_i8")
+            return y
+
+        for model in (GEMMA, LLAMA, PHI):
+            for shape in LAYER_SHAPES:
+                o, k = matmul_shapes(model)[shape]
+                q, s = random_q8(torch, gen, o, k)
+                w_lib = dequant_q8(q, s, GS)
+                qt = q.t()
+                for t in ts:
+                    x = torch.randn(t, k, device="cuda", generator=gen)
+                    xl = x.to(torch.bfloat16)
+                    xi = torch.randint(-127, 128, (max(t, 17), k),
+                                       dtype=torch.int8, device="cuda",
+                                       generator=gen)
+                    want = q8_gemv_i8_plain(x, q, s, GS)
+                    scale = want.abs().max().item()
+
+                    def check(version, run):
+                        got = run()
+                        torch.cuda.synchronize()
+                        err = (got - want).abs().max().item() / scale
+                        if not err <= 1e-4:
+                            raise RuntimeError(
+                                f"{version} q8_gemv_i8 {model['name']} "
+                                f"{shape} T={t}: {err} of the output scale")
+
+                    row = dict(kernel="q8_gemv_i8", model=model["name"],
+                               shape=shape, T=t, O=o, K=k)
+                    turns(row, "q8_gemv_i8",
+                          {"parent": lambda: parent_d(x, q, s, GS),
+                           "change": lambda: q8_gemv_i8(x, q, s, GS)},
+                          check)
+                    lib = lambda: torch.matmul(xl, w_lib.t())   # noqa: E731
+                    imm = lambda: torch._int_mm(xi, qt)         # noqa: E731
+                    row["library_ms"] = timed(lib)
+                    row["int_mm_ms"] = timed(imm)
+                    row["library_device_ms"] = device_ms(lib, library=True)
+                    row["int_mm_device_ms"] = device_ms(imm, library=True)
+                    nbytes = o * k + 4 * o * k / GS + 4 * t * k + 4 * t * o
+                    row["bound_ms"], row["bound_by"] = bound_ms(
+                        nbytes, 2.0 * t * o * k, peak["int8"], peak["mem"])
+                    results.append(row)
+                    show(f"q8_gemv_i8 {model['name']:12s} {shape:10s} "
+                         f"T={t}", row)
+                del q, s, w_lib, qt
+                torch.cuda.empty_cache()
 
     (ROOT / "build").mkdir(exist_ok=True)
     results = []
@@ -173,7 +280,7 @@ def main() -> int:
         builds = []
         for version, src in (("parent", Path(args.parent)),
                              ("change", cuda.CSRC)):
-            for name in ("q4_gemv", "ffn_fused"):
+            for name in sorted({SOURCE[c] for c in only}):
                 lib = Path(tmp) / f"lib{name}_{version}.so"
                 builds.append((name, version, lib, subprocess.Popen(
                     [cuda._nvcc(), *cuda.NVCC_FLAGS, "-o", str(lib),
@@ -197,8 +304,8 @@ def main() -> int:
                         want = q4_gemv_plain(x, q, s, GS)
                         scale = want.abs().max().item()
 
-                        def check(version):
-                            got = q4_gemv(x, q, s, GS)
+                        def check(version, run):
+                            got = run()
                             torch.cuda.synchronize()
                             err = (got - want).abs().max().item() / scale
                             if not err <= 1e-4:
@@ -223,6 +330,9 @@ def main() -> int:
                              f"T={t}", row)
                     del q, s, w_lib
                     torch.cuda.empty_cache()
+
+        if "d" in only:
+            d_cases(libs, results)
 
         ffn_plan = []
         if "l" in only:
@@ -256,8 +366,8 @@ def main() -> int:
                 want = plain(x, *w, GS, act)
                 scale = want.abs().max().item()
 
-                def check(version):
-                    got = fn(x, *w, GS, act)
+                def check(version, run):
+                    got = run()
                     torch.cuda.synchronize()
                     err = (got - want).abs().max().item() / scale
                     if not err <= 1e-3:
@@ -277,30 +387,42 @@ def main() -> int:
             del w, w13d, w2d
             torch.cuda.empty_cache()
 
-    # A's units: a decode step's matmuls of each model at each T
+    # the units: a decode step's matmuls of each model at each T (A: the
+    # layers and the classifier; D: the layers)
     units = []
-    for model in (GEMMA, LLAMA, PHI):
-        for t in ts:
-            mine = {r["shape"]: r for r in results
-                    if r["kernel"] == "q4_gemv" and r["model"] == model["name"]
-                    and r["T"] == t}
-            if len(mine) < 5:
-                continue
-            n = {s: model["L"] for s in LAYER_SHAPES} | {"classifier": 1}
-            unit = dict(model=model["name"], T=t)
-            for key in ("ms", "device_ms"):
-                unit[key] = {c: sum(n[s] * mine[s][key][c] for s in n)
-                             for c in mine["wo"][key]}
-            for key in ("library_ms", "bound_ms"):
-                unit[key] = sum(n[s] * mine[s][key] for s in n)
-            units.append(unit)
-            print(f"unit q4_gemv {model['name']} T={t} ({model['L']} x 4 + "
-                  f"classifier): "
-                  + "  ".join(f"{c} {v:.3f}" for c, v in unit["ms"].items())
-                  + "  device " + " ".join(
-                      f"{v:.3f}" for v in unit["device_ms"].values())
-                  + f"  library {unit['library_ms']:.3f}  bound "
-                  f"{unit['bound_ms']:.3f}", flush=True)
+    for kern, shapes in (("q4_gemv", LAYER_SHAPES + ("classifier",)),
+                         ("q8_gemv_i8", LAYER_SHAPES)):
+        for model in (GEMMA, LLAMA, PHI):
+            for t in ts:
+                mine = {r["shape"]: r for r in results
+                        if r["kernel"] == kern
+                        and r["model"] == model["name"] and r["T"] == t}
+                if len(mine) < len(shapes):
+                    continue
+                n = {s: (1 if s == "classifier" else model["L"])
+                     for s in shapes}
+                unit = dict(kernel=kern, model=model["name"], T=t)
+                for key in ("ms", "device_ms"):
+                    unit[key] = {c: sum(n[s] * mine[s][key][c] for s in n)
+                                 for c in mine["wo"][key]}
+                for key in ("library_ms", "int_mm_ms", "library_device_ms",
+                            "int_mm_device_ms", "bound_ms"):
+                    if all(mine[s].get(key) is not None for s in n):
+                        unit[key] = sum(n[s] * mine[s][key] for s in n)
+                units.append(unit)
+                print(f"unit {kern} {model['name']} T={t} ({model['L']} x "
+                      f"{'4 + classifier' if len(shapes) == 5 else '4'}): "
+                      + "  ".join(f"{c} {v:.3f}"
+                                  for c, v in unit["ms"].items())
+                      + "  device " + " ".join(
+                          f"{v:.3f}" for v in unit["device_ms"].values())
+                      + f"  library {unit['library_ms']:.3f}"
+                      + (f"  _int_mm {unit['int_mm_ms']:.3f}"
+                         if "int_mm_ms" in unit else "")
+                      + (f"  (device: library {unit['library_device_ms']:.3f}"
+                         f", _int_mm {unit['int_mm_device_ms']:.3f})"
+                         if "int_mm_device_ms" in unit else "")
+                      + f"  bound {unit['bound_ms']:.3f}", flush=True)
     print(card)
     print(json.dumps(dict(card=card, cases=results, units=units)))
     return 0

@@ -11,21 +11,21 @@ flash_attention.cu` with the package's nvcc flags, then times kernel C
 at Llama's geometry, half at Gemma's) of each at Llama-3.2-3B's and
 Gemma-2-9B's attention geometry, S = 8,192, T = 1 at pos 1,100 and 6,000,
 and kernels I (per-slot cache) and J (pool of 512-row pages) at Gemma's, 8
-slots at `chip_smoke.BATCH_POS`, bf16, T = 1: median of 50 calls with the
-L2 flushed before each (128 MB, `chip_smoke.Timer`), in the order parent,
-change, change, parent, so that drift within the call shows as a
-difference between the two runs of one version.  Beside each time, the
-host's time per call: the wall time of 200 calls enqueued back to back
-(no synchronization among them) over 200, median of 5 such runs, which
-shows what a call of two launches (the split pass and kernel M) costs the
-host against one.  The parent runs the wrappers with the split off
-(`flash_merge.SPLIT` 0: one launch through the entry points of every
-version), the change with the package's split.  Then the change alone at
-each split of `--splits` (0: the change's template unsplit), which is how
-SPLIT is chosen; the splits run in turns too (each once forward, once
-backward).  Each result is held against the plain version first.  Prints
-the card's name and power limit, one line per case and one JSON line.
-Needs one CUDA device and nvcc.
+slots at `chip_smoke.BATCH_POS`, bf16, T = 1, in the order parent, change,
+change, parent, so that drift within the call shows as a difference
+between the two runs of one version: the median of 50 calls with the L2
+flushed before each (128 MB, `chip_smoke.Timer`), the device time of one
+call (torch.profiler over 20 calls, each after the same flush: the sum of
+the call's kernels, the split pass and kernel M) and the host's time per
+call (the wall time of 200 calls enqueued back to back over 200, median of
+5).  Both versions run with the package's split and the tree's wrappers,
+so the parent must take the tree's arguments.  Each result is held against
+the plain version, and the change's against the parent's bit for bit
+(`same_bits`).  Then the change alone at each split of `--splits` (0: the
+change's template unsplit; empty: none), which is how SPLIT is chosen; the
+splits run in turns too (each once forward, once backward).  Prints the
+card's name and power limit, one line per case and one JSON line.  Needs
+one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def main() -> int:
                     help="the other version of flash_attention.cu")
     ap.add_argument("--splits", default="0,128,256,512",
                     help="rows per split to time the change at, after the "
-                         "turns (0: unsplit)")
+                         "turns (0: unsplit; empty: none)")
     args = ap.parse_args()
 
     import torch
@@ -80,7 +80,7 @@ def main() -> int:
         flash_attention_paged_tol)
     from lmrs_tpu_torch.quant import quantize_kv_rows, quantize_kv_rows_q4
 
-    # the module (the package's `flash_merge` is kernel M's wrapper)
+    # the modules (the package's names are the wrappers)
     flash_merge = importlib.import_module(
         "lmrs_tpu_torch.kernels.flash_merge")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -131,6 +131,9 @@ def main() -> int:
                   flash_attention_paged_plain, flash_attention_paged_tol,
                   (qb, kp, vp, table, 0, bpos), kw))
 
+    first = {}      # label -> the first parent turn's output
+    same_bits = {label: [] for label, *_ in cases}
+
     def run_all(results, column):
         for label, kernel, plain, tol_fn, a, kw in cases:
             got, want = kernel(*a, **kw), plain(*a, **kw)
@@ -140,8 +143,39 @@ def main() -> int:
             if not ratio <= 1.0:
                 raise RuntimeError(f"{column} {label}: {ratio} of the "
                                    f"tolerance")
+            if column.startswith(("parent", "change")):
+                if label not in first:
+                    first[label] = got
+                elif column.startswith("change"):
+                    same_bits[label].append(torch.equal(got, first[label]))
             results[label][column] = timed(lambda: kernel(*a, **kw))
+            devices[label][column] = device_ms(lambda: kernel(*a, **kw))
             hosts[label][column] = host_us(lambda: kernel(*a, **kw))
+
+    def device_ms(fn, calls=20) -> float:
+        """Device time of one call: the flash kernels it launches (the
+        split pass, and a parent's kernel M), from the profiler's trace of
+        `calls` calls, each after an L2 flush."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        ours = []
+        for _ in range(3):      # a trace that lost kernels is taken again
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    timed.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            ours = [ev for ev in prof.key_averages()
+                    if "flash_kernel" in ev.key
+                    or "flash_merge_kernel" in ev.key]
+            if sum(ev.count for ev in ours) >= calls:
+                break
+        us = sum(getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+                 for ev in ours)
+        return us / calls / 1e3
 
     def host_us(fn, calls=200, runs=5) -> float:
         per_call = []
@@ -159,6 +193,7 @@ def main() -> int:
     (ROOT / "build").mkdir(exist_ok=True)
     results = {label: {} for label, *_ in cases}
     hosts = {label: {} for label, *_ in cases}
+    devices = {label: {} for label, *_ in cases}
     package_split = flash_merge.SPLIT
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
         libs = {}
@@ -170,10 +205,9 @@ def main() -> int:
         for turn, version in enumerate(("parent", "change", "change",
                                         "parent")):
             cuda._libs["flash_attention"] = libs[version]
-            flash_merge.SPLIT = 0 if version == "parent" else package_split
             run_all(results, f"{version}_{turn}")
         cuda._libs["flash_attention"] = libs["change"]
-        splits = [int(x) for x in args.splits.split(",")]
+        splits = [int(x) for x in args.splits.split(",") if x]
         for i, rows in enumerate(splits + splits[::-1]):
             flash_merge.SPLIT = rows
             run_all(results, f"split{rows}_{i}")
@@ -184,11 +218,17 @@ def main() -> int:
     for label, row in results.items():
         print(f"{label:24s}" + "  ".join(f"{k} {v:.4f}"
                                          for k, v in row.items()) + "  (ms)")
+        print(f"{'':24s}" + "  ".join(f"{k} {v:.4f}" for k, v in
+                                      devices[label].items())
+              + "  (device ms)")
         print(f"{'':24s}" + "  ".join(f"{k} {v:.1f}"
                                       for k, v in hosts[label].items())
-              + "  (host us a call)")
+              + f"  (host us a call)  change == parent bit for bit: "
+              f"{all(same_bits[label])}")
     print(json.dumps(dict(card=card, split=package_split, ms=results,
-                          host_us=hosts)))
+                          device_ms=devices, host_us=hosts,
+                          same_bits={k: all(v) for k, v in
+                                     same_bits.items()})))
     return 0
 
 

@@ -266,6 +266,34 @@ def test_q8_gemv_i8_kernel_on_card(cuda_device, t, o, k, gs):
     assert _rel_err(got, want) <= 1e-4
 
 
+# kernel D at the models' layer shapes: Llama-3.2-3B's wqkv, wo, w13, w2
+# (the K split over clusters of 4, 8, 2 and 8 ranks on an H100) and
+# Gemma-2-9B's w2 (K = 14,336)
+Q8_LAYER_SHAPES = [(5120, 3072), (3072, 3072), (16384, 3072), (3072, 8192),
+                   (3584, 14336)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 5, 8])
+@pytest.mark.parametrize("o,k", Q8_LAYER_SHAPES)
+def test_q8_gemv_i8_layer_shapes_on_card(cuda_device, t, o, k):
+    """D at its main path's shapes, 1e-4 of the output scale (exact integer
+    dots, f32 sums in another order), one launch a call, and a row of the
+    call bit for bit the row computed alone (the K split depends on O and
+    K only; each column's operations are its own)."""
+    q, s = _q8_weights(o, k, cuda_device)
+    x = act_quant_traps(t, k, 128, cuda_device)
+    reset_launches()
+    got = q8_gemv_i8(x, q, s, 128)
+    assert launches()["q8_gemv_i8"] == 1
+    want = q8_gemv_i8_plain(x, q, s, 128)
+    rows = torch.cat([q8_gemv_i8(x[i:i + 1].contiguous(), q, s, 128)
+                      for i in range(t)])
+    torch.cuda.synchronize()
+    assert _rel_err(got, want) <= 1e-4
+    assert torch.equal(got, rows)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("t", [1, 2, 3, 4, 5, 6, 7, 8])
 @pytest.mark.parametrize("o,k,gs", Q8_SHAPES)
