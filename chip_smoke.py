@@ -31,8 +31,9 @@ Phases (any failure ends the run with a non-zero exit):
    own rows, J bit for bit I, and a slot unchanged when every other slot,
    page and the trash page hold NaN; timed at the per-slot cache and
    512-row pages (library yardstick: SDPA over each slot's live rows,
-   padded, with a mask).  K (ffn_fused_xe, T 1, 5, 8) and L (ffn_fused, T
-   9, 12, 16), the fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0,
+   padded, with a mask).  K (ffn_fused_xe, T 1, 2, 5, 8; its device time
+   and span from the profiler beside the timer) and L (ffn_fused, T 9, 12,
+   16), the fused FFN of one layer, at Gemma-2-9B's FFN (Q4_0,
    tanh-GELU) and Llama-3.2-3B's (Q8_0, silu); library yardstick: the
    unfused chain in PyTorch calls (two torch.matmul on pre-dequantized bf16
    W13 and W2, the GLU between them).  A decode call of C, G, H, I or J
@@ -260,7 +261,7 @@ GEMMA_PAGED_FUSED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
 LLAMA_PAGED_FUSED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
                       "flash_merge", "ffn_fused"},
                      {"q8_gemv_i8", "ffn_fused_xe"})
-FFN_T = {"ffn_fused_xe": (1, 5, 8), "ffn_fused": (9, 12, 16)}
+FFN_T = {"ffn_fused_xe": (1, 2, 5, 8), "ffn_fused": (9, 12, 16)}
 # the slots' positions of the batched kernel checks: 0 to 6,000, some past
 # Gemma's 4,096-row window; pages of 512 rows and of 56 (a 64-row tile then
 # spans two or three pages)
@@ -300,6 +301,51 @@ class Timer:
             pairs.append((a, b))
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def profile_calls(torch, fn, keys, flush, calls=20, settle=False):
+    """Device time of one call of `fn` and its span, from torch.profiler's
+    trace of `calls` calls, each after `flush` (the timer's L2 flush): the
+    kernels whose names hold one of `keys`, a call's kernels those between
+    two other kernels (the flushes).  A call's device time is the sum of
+    its kernels' times, its span from the first one's start to the last
+    one's end.  Returns (mean device ms, median span ms) of the calls the
+    trace kept; a trace that lost kernels is taken again.  `settle`: wait
+    for the flush to end before each call, so that a programmatic
+    dependent launch (M) cannot start early and wait inside its kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    groups = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                flush()
+                if settle:
+                    torch.cuda.synchronize()
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((ev for ev in prof.events()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda ev: ev.time_range.start)
+        groups, open_ = [], False
+        for ev in evs:
+            if not any(key in ev.name for key in keys):
+                open_ = False
+            elif open_:
+                groups[-1].append(ev)
+            else:
+                groups.append([ev])
+                open_ = True
+        if len(groups) >= calls:
+            break
+    if not groups:
+        return None, None
+    busy = [sum(ev.time_range.elapsed_us() for ev in g) for g in groups]
+    span = [max(ev.time_range.end for ev in g) - g[0].time_range.start
+            for g in groups]
+    return statistics.mean(busy) / 1e3, statistics.median(span) / 1e3
 
 
 def bound_ms(nbytes: float, flops: float, flop_rate: float, mem: float):
@@ -556,9 +602,20 @@ def check_ffn_kernels(torch, timer, peak, model, quant):
                         plain_ms=timer(plain),
                         library_ms=timer(lambda: lib_chain(xb)),
                         bound_ms=b_ms, bound_by=b_by)
+            if kern == "ffn_fused_xe":
+                # the timer's window holds host time for short calls: K's
+                # two launches on the profiler's clock too, as the span from
+                # the first one's start to the second one's end (device_ms;
+                # the second is a programmatic dependent launch whose blocks
+                # wait inside it, so the sum of the two, busy_ms, overstates
+                # the call)
+                case["busy_ms"], case["device_ms"] = profile_calls(
+                    torch, run, ("ffn_xe_kernel",), timer.flush.zero_)
             log(f"  {kern:12s} {model['name']} ffn T={t:2d}: max_abs_err "
-                f"{err:.3e} (tol {tol:.3e})  kernel {case['ms']:.4f} ms  "
-                f"plain {case['plain_ms']:.4f}  library "
+                f"{err:.3e} (tol {tol:.3e})  kernel {case['ms']:.4f} ms"
+                + (f" (device span {case['device_ms']:.4f}, busy "
+                   f"{case['busy_ms']:.4f})" if "device_ms" in case else "")
+                + f"  plain {case['plain_ms']:.4f}  library "
                 f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
             if not err <= tol:
                 raise RuntimeError(f"{kern} {model['name']} T={t}: error "
@@ -1290,10 +1347,13 @@ def check_merge(torch, timer, peak, model):
         case.update(ms=timer(lambda: flash_merge(acc, m, l)),
                     plain_ms=timer(lambda: flash_merge_plain(acc, m, l)),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        case["device_ms"], _ = profile_calls(
+            torch, lambda: flash_merge(acc, m, l), ("flash_merge_kernel",),
+            timer.flush.zero_, settle=True)
         log(f"  flash_merge {model['name']} {shape} ({n} splits, {live} "
             f"live split rows): worst err/tol {ratio:.3f}  kernel "
-            f"{case['ms']:.4f} ms  plain {case['plain_ms']:.4f}  bound "
-            f"{b_ms:.4f} ({b_by})")
+            f"{case['ms']:.4f} ms (device {case['device_ms']:.4f})  plain "
+            f"{case['plain_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
         if not ratio <= 1.0:
             raise RuntimeError(f"flash_merge {shape}: {ratio} of the "
                                f"tolerance")
@@ -2218,8 +2278,8 @@ def main() -> int:
         what, plan = unit[name]
         pick = {(c["model"], c["shape"], c["T"]): c for c in mine}
         tot = {}
-        for key in ("ms", "plain_ms", "library_ms", "int_mm_ms",
-                    "bound_ms"):
+        for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                    "int_mm_ms", "bound_ms"):
             vals = [n * pick[(m, s, t)][key] for m, s, t, n in plan
                     if pick[(m, s, t)].get(key) is not None]
             tot[key] = sum(vals) if len(vals) == len(plan) else None
@@ -2232,7 +2292,12 @@ def main() -> int:
             cli_launches=sum(c.get(name, 0) for c in cli_counts.values()),
             max_abs_err=max(c["max_abs_err"] for c in mine),
             err_over_tol=max(c["err_over_tol"] for c in mine),
-            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            ms=tot["ms"],
+            # K and M: the profiler's device time of the same unit beside
+            # the timer's (whose window holds host time for short calls)
+            **({"device_ms": tot["device_ms"]} if tot["device_ms"]
+               is not None else {}),
+            plain_ms=tot["plain_ms"],
             bound_ms=tot["bound_ms"],
             bound_by=pick[plan[0][:3]]["bound_by"],
             library_ms=tot["library_ms"],

@@ -143,7 +143,14 @@
 // merge's L2 round trips in series, where M's own grid spreads them over
 // 64-128 blocks, and a decode call took 1.05-1.32x the device time of the
 // two launches (PERF.md §6).  So M stays a launch of its own, behind the
-// split pass in the same host call.
+// split pass in the same host call, and is a programmatic dependent launch
+// (cudaLaunchAttributeProgrammaticStreamSerialization): the split pass's
+// blocks execute griddepcontrol.launch_dependents once their tiles are
+// walked, before their epilogue writes, so M's blocks are resident by the
+// time the split pass ends; each executes griddepcontrol.wait (which
+// returns once the split pass has completed and its writes are visible)
+// before its first load of m, l or acc.  A decode call's span, from the
+// split pass's start to M's end, is its measure (PERF.md §6).
 //
 // The cp partials (B1).  _flash_kernel_batched with lse=True and seq_base
 // (the batched cp step's shard of the sequence) is the split pass with a
@@ -634,6 +641,9 @@ flash_kernel(const float* __restrict__ q, const void* __restrict__ kc_raw,
   __syncthreads();
 
   if (sp.rows > 0) {
+    // the tiles are walked: kernel M's blocks may start (they wait for
+    // this grid to complete before they read the workspace)
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
     // the split's raw pieces for the valid rows of this block
     for (int i = tid; i < QR * HD; i += kWarps * 32) {
       const int r = i / HD, d = i % HD;
@@ -681,6 +691,9 @@ flash_merge_kernel(const float* __restrict__ acc, const float* __restrict__ m,
   __shared__ int warp_end[kMergeThreads / 32];
   const int r = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
   const size_t first = (size_t)b * n * rows + r;   // split s at s * rows
+  // a programmatic dependent launch: the split pass has completed and its
+  // writes are visible once this returns
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   // the largest m, and the end of the live splits
   float mg = -INFINITY;
   int end = 0;
@@ -954,10 +967,21 @@ extern "C" int lmrs_flash_merge(const float* acc, const float* m,
   if (B < 1 || B > 65535 || n < 1 || rows < 1 || hd < 1 || hd > 256 ||
       smem > 48 * 1024 || (out_m == nullptr) != (out_l == nullptr))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(rows, B, (hd + kMergeThreads - 1) / kMergeThreads);
-  flash_merge_kernel<<<grid, kMergeThreads, smem, stream>>>(
-      acc, m, l, out, out_m, out_l, n, rows, hd);
-  return (int)cudaGetLastError();
+  // a programmatic dependent launch: M's blocks start once every block of
+  // the split pass before it has walked its tiles, and wait in the kernel
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(rows, B, (hd + kMergeThreads - 1) / kMergeThreads);
+  cfg.blockDim = dim3(kMergeThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, flash_merge_kernel, acc, m,
+                                           l, out, out_m, out_l, n, rows, hd);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 // A decode call of C, G, H, I or J: lmrs_flash_partials into the workspace

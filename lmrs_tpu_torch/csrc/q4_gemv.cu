@@ -80,7 +80,11 @@
 
 #include <utility>
 
+#include "gemv_sm90.cuh"
+
 namespace {
+
+namespace gv = lmrs_gemv;
 
 constexpr int kWarps = 8;                  // warps a block
 constexpr int kThreads = kWarps * 32;
@@ -98,10 +102,6 @@ constexpr int kXBudget = 48 * 1024;        // x slices a block: two an SM
 constexpr int kFixedSegs = 4;              // a block's fixed cost, segments
 constexpr int kSmemMax = 227 * 1024;
 
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
 // (a, b) -> three bf16x2 slices whose sums are a and b exactly (a in the low
 // half: the lower k slot)
 __device__ __forceinline__ void split3(float a, float b, uint32_t& s0,
@@ -113,34 +113,9 @@ __device__ __forceinline__ void split3(float a, float b, uint32_t& s0,
   const float2 f1 = __bfloat1622float2(h1);
   const __nv_bfloat162 h2 =
       __floats2bfloat162_rn(__fsub_rn(ra, f1.x), __fsub_rn(rb, f1.y));
-  s0 = bf16x2_bits(h0);
-  s1 = bf16x2_bits(h1);
-  s2 = bf16x2_bits(h2);
-}
-
-__device__ __forceinline__ uint32_t hsub2_bits(uint32_t a, uint32_t b) {
-  __nv_bfloat162 v = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&a),
-                             *reinterpret_cast<__nv_bfloat162*>(&b));
-  return bf16x2_bits(v);
-}
-
-// the low nibbles of the two bytes of `sp` (spread to 16-bit halves) as
-// exact bf16 integers n - 8; the high nibbles (top bit biased) likewise
-__device__ __forceinline__ uint32_t dq4_lo(uint32_t sp) {
-  return hsub2_bits((sp & 0x000F000Fu) | 0x43004300u, 0x43084308u);
-}
-__device__ __forceinline__ uint32_t dq4_hi(uint32_t sp) {
-  return hsub2_bits(((sp >> 4) & 0x000F000Fu) ^ 0x43084308u, 0x43084308u);
-}
-
-__device__ __forceinline__ void mma16816(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint2 b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.x), "r"(b.y));
+  s0 = gv::bf16x2_bits(h0);
+  s1 = gv::bf16x2_bits(h1);
+  s2 = gv::bf16x2_bits(h2);
 }
 
 // W bytes of a weight row into this thread's slot of the ring, or W zero
@@ -156,15 +131,6 @@ __device__ __forceinline__ void copy_piece(uint32_t dst, const void* src,
                  :: "r"(dst), "l"(src), "n"(W), "r"(in ? W : 0)
                  : "memory");
   }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(kPending) : "memory");
 }
 
 __device__ __forceinline__ void cluster_sync() {
@@ -257,18 +223,13 @@ q4_gemv_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
           s + (size_t)min(row0 + r, O - 1) * ngroups + w_lo + c;
       const uint32_t dst = ss_addr + 4 * (r * sstride + c);
       const bool in = row0 + r < O;
-      if (vec)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                     :: "r"(dst), "l"(src), "r"(in ? 16 : 0) : "memory");
-      else
-        asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-                     :: "r"(dst), "l"(src), "r"(in ? 4 : 0) : "memory");
+      gv::cp_async_scale(dst, src, vec, in);
     }
-    cp_async_commit();
+    gv::cp_async_commit();
 #pragma unroll
     for (int d = 0; d < kDepth - 1; ++d) {
       if (d < nsg) issue(seg0 + d);
-      cp_async_commit();
+      gv::cp_async_commit();
     }
   };
 
@@ -323,7 +284,7 @@ q4_gemv_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
       }
     }
   }
-  cp_async_wait<kDepth - 1>();     // the scales have landed
+  gv::cp_async_wait<kDepth - 1>();     // the scales have landed
   __syncthreads();
 
   // ---- the products: a fresh fragment a segment, then times its scale;
@@ -356,11 +317,11 @@ q4_gemv_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
       for (int i = 0; i < kTiles; ++i) {
         const uint32_t s0 = __byte_perm(d[i][0][j >> 1], 0u, sel);
         const uint32_t s1 = __byte_perm(d[i][1][j >> 1], 0u, sel);
-        const uint32_t a0 = dq4_lo(s0), a1 = dq4_lo(s1);
-        const uint32_t a2 = dq4_hi(s0), a3 = dq4_hi(s1);
+        const uint32_t a0 = gv::dq4_lo(s0), a1 = gv::dq4_lo(s1);
+        const uint32_t a2 = gv::dq4_hi(s0), a3 = gv::dq4_hi(s1);
 #pragma unroll
         for (int n = 0; n < NT; ++n)
-          mma16816(part[i][n], a0, a1, a2, a3, b[n]);
+          gv::mma16816(part[i][n], a0, a1, a2, a3, b[n]);
       }
     }
     const int grp = seg * 4 * W / half - w_lo;
@@ -383,8 +344,8 @@ q4_gemv_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
   for (int i = 0; i < nsg; ++i) {
     // the stage read in the last iteration takes segment i + kDepth - 1
     if (i + kDepth - 1 < nsg) issue(seg0 + i + kDepth - 1);
-    cp_async_commit();
-    cp_async_wait<kDepth - 1>();        // segment i has landed
+    gv::cp_async_commit();
+    gv::cp_async_wait<kDepth - 1>();        // segment i has landed
     uint32_t d[kTiles][2][kWords];
 #pragma unroll
     for (int t = 0; t < kTiles; ++t)
@@ -437,11 +398,8 @@ q4_gemv_mma_kernel(const float* __restrict__ x, const uint8_t* __restrict__ q,
     const float4 w = make_float4((v0.x + v1.x) + v2.x, (v0.y + v1.y) + v2.y,
                                  (v0.z + v1.z) + v2.z, (v0.w + v1.w) + v2.w);
     const uint32_t owner = e / per;
-    uint64_t dst;
-    asm("mapa.u64 %0, %1, %2;\n"
-        : "=l"(dst) : "l"(inbox + rank * per + (e - owner * per)),
-          "r"(owner));
-    *reinterpret_cast<float4*>(dst) = w;
+    *reinterpret_cast<float4*>(
+        gv::map_rank(inbox + rank * per + (e - owner * per), owner)) = w;
   }
   cluster_sync();
   for (int j = tid; j < per && (int)rank * per + j < total; j += kThreads) {

@@ -1,8 +1,10 @@
 """Kernels K and L: one layer's whole GLU FFN from one C call.  CUDA source:
-`lmrs_tpu_torch/csrc/ffn_fused.cu` (L on the template of kernels B and F,
+`lmrs_tpu_torch/csrc/ffn_fused.cu` (K on kernel A's tensor-core pieces,
+`csrc/gemv_sm90.cuh`; L on the template of kernels B and F,
 `csrc/qgemm_sm90.cuh`), whose header note names the TPU kernels they
-replace and their design: K is one cooperative launch, L two launches (the
-[gate; up] product with the GLU in its epilogue, then the W2 product).
+replace and their design.  Each is two launches from one C call: the
+[gate; up] product with the GLU in its epilogue, then the W2 product (K's
+a programmatic dependent launch that streams W2 under the first's tail).
 
     [gate; up] = W13 . bf16(x),   g = bf16(act(gate) * up),   y = W2 . g
 

@@ -24,7 +24,10 @@ What bounds kernel M is its place as a second launch, not its bytes: its
 blocks wait for the split pass's last one.  Its merge folded into the
 split pass's last block of each group was measured slower on an H100
 (1.05-1.32x the device time of a decode call: one block a group runs the
-merge's L2 round trips in series), so the two launches stay (PERF.md §6).
+merge's L2 round trips in series), so the two launches stay (PERF.md §6);
+M is a programmatic dependent launch: its blocks are resident and waiting
+(griddepcontrol.wait) when the split pass ends, which cut a decode call's
+span by ~1.4 us on an H100 at every geometry and cache type measured.
 
 `flash_merge` launches kernel M for CUDA tensors (or raises) and runs its
 plain version for CPU tensors; `flash_merge.launches` counts kernel M's

@@ -61,8 +61,8 @@ FLASH_CACHES = ("bf16", "int8", "f32", "int4 half", "int4 pair")
 
 
 def _kernel_group(name: str) -> str:
-    if "ffn_kernel" in name:        # kernel K
-        return "ffn_fused_xe (K)"
+    if "ffn_xe_kernel" in name or "ffn_kernel" in name:
+        return "ffn_fused_xe (K)"   # K: both launches (an older K: one)
     if "qgemm_kernel" in name and ("Epi)1" in name or "Epi)2" in name):
         return "ffn_fused (L)"      # L: B/F's template, Glu and Down stages
     if "flash_merge_kernel" in name:  # kernel M: the split pass's merge

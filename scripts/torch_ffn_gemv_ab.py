@@ -23,7 +23,13 @@ flags; the change is the tree's `lmrs_tpu_torch/csrc`.  Cases:
   its wrapper did;
 - L at Gemma-2-9B's FFN (Q4_0, tanh-GELU) and Llama-3.2-3B's (Q8_0, silu)
   at every T of `--ffn-ts`, K at the same FFNs at every T of `--xe-ts`;
-  held against their plain versions within 1e-3 of the output scale.
+  held against their plain versions within 1e-3 of the output scale.  K's
+  own yardstick beside the library's: the unfused pair, A (Q4_0) or D
+  (Q8_0) on W13 and on W2 at the same T (timer, device time and span),
+  which says whether `fuse_ffn` is worth having.  For K also each call's span
+  (its first kernel's start to its last one's end, median of 20 calls):
+  its second launch is a programmatic dependent launch whose blocks wait
+  inside the kernel, so the sum of its device times overstates the call.
 
 Each case is timed in the order parent, change, change, parent, so that
 drift within the call shows as a difference between the two runs of one
@@ -44,8 +50,9 @@ TB/s, or 2*T*O*K at 1,979 TOP/s; K and L: weights, scales, x and y over
 3.35 TB/s, or 2*T*3*H*D at 989 TFLOP/s; the larger).  Then the per-token
 units: for each model and T, A's layers x (wqkv, wo, w13, w2) + the
 classifier, D's layers x (wqkv, wo, w13, w2), from the timer and from the
-device times.  Prints the card's name and power limit, one line per case
-and one JSON line.  Needs one CUDA device and nvcc.
+device times; for K, a token's FFNs (the model's layers x one call).
+Prints the card's name and power limit, one line per case and one JSON
+line.  Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -66,9 +73,10 @@ PHI = dict(name="phi3.5-mini", D=3072, HID=8192, L=32, H=32, KH=32, HD=96,
            V=32064)
 TURNS = ("parent", "change", "change", "parent")
 # the kernels of A, K, L and D (and D's parent's quantizer pre-pass) by
-# the names the profiler sees
-OURS = ("q4_gemv", "ffn_kernel", "qgemm_kernel", "q8_gemv_i8",
-        "q8_act_quant")
+# the names the profiler sees; K's two launches (ffn_xe_kernel), or an
+# older K's one (ffn_kernel)
+OURS = ("q4_gemv", "ffn_xe_kernel", "ffn_kernel", "qgemm_kernel",
+        "q8_gemv_i8", "q8_act_quant")
 # the library source of each kernel letter
 SOURCE = {"a": "q4_gemv", "k": "ffn_fused", "l": "ffn_fused",
           "d": "q8_gemv_i8"}
@@ -89,7 +97,7 @@ def main() -> int:
                          "...: the pre-pass design)")
     ap.add_argument("--ffn-ts", dest="ffn_ts", default="9,12,16",
                     help="L's rows of x")
-    ap.add_argument("--xe-ts", dest="xe_ts", default="1,5,8",
+    ap.add_argument("--xe-ts", dest="xe_ts", default="1,2,4,5,8",
                     help="K's rows of x")
     args = ap.parse_args()
 
@@ -101,7 +109,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from chip_smoke import (GEMMA, LAYER_SHAPES, LLAMA, PEAKS, Timer,
-                            bound_ms, matmul_shapes, random_q4, random_q8)
+                            bound_ms, matmul_shapes, profile_calls,
+                            random_q4, random_q8)
     from lmrs_tpu_torch.kernels import cuda
     from lmrs_tpu_torch.kernels.ffn_fused import (ffn_fused, ffn_fused_plain,
                                                   ffn_fused_xe,
@@ -164,11 +173,16 @@ def main() -> int:
                  for ev in ours)
         return us / calls / 1e3
 
-    def turns(row, name, fn, check):
+    def turns(row, name, fn, check, span_keys=None):
         """Time `fn` under both versions of library `name` in turns (`fn`
         a callable, or version -> callable where the versions' entry
-        points differ)."""
+        points differ); with `span_keys` (kernel names), also a call's
+        span on the profiler's clock (a programmatic dependent launch
+        waits inside the kernel, so the sum of device times overstates
+        it)."""
         row.update(ms={}, device_ms={}, host_us={})
+        if span_keys:
+            row["span_ms"] = {}
         for turn, version in enumerate(TURNS):
             cuda._libs[name] = libs[(name, version)]
             run = fn[version] if isinstance(fn, dict) else fn
@@ -176,9 +190,12 @@ def main() -> int:
             col = f"{version}_{turn}"
             row["ms"][col] = timed(run)
             row["device_ms"][col] = device_ms(run)
+            if span_keys:
+                row["span_ms"][col] = profile_calls(
+                    torch, run, span_keys, timed.flush.zero_)[1]
             row["host_us"][col] = host_us(run)
         cuda._libs.pop(name)
-        for key in ("ms", "device_ms"):
+        for key in ("ms", "device_ms") + (("span_ms",) if span_keys else ()):
             par = min(row[key]["parent_0"], row[key]["parent_3"])
             chg = max(row[key]["change_1"], row[key]["change_2"])
             row[f"parent_over_change_{key}"] = par / chg
@@ -188,7 +205,13 @@ def main() -> int:
               + "  ".join(f"{c} {v:.4f}" for c, v in row["ms"].items())
               + "  device " + " ".join(f"{v:.4f}"
                                        for v in row["device_ms"].values())
+              + ("  span " + " ".join(f"{v:.4f}"
+                                      for v in row["span_ms"].values())
+                 if "span_ms" in row else "")
               + f"  library {row['library_ms']:.4f}"
+              + (f"  unfused pair {row['pair_ms']:.4f} (device "
+                 f"{row['pair_device_ms']:.4f}, span "
+                 f"{row['pair_span_ms']:.4f})" if "pair_ms" in row else "")
               + (f"  _int_mm {row['int_mm_ms']:.4f} (device: library "
                  f"{row['library_device_ms']:.4f}, _int_mm "
                  f"{row['int_mm_device_ms']:.4f})" if "int_mm_ms" in row
@@ -377,8 +400,25 @@ def main() -> int:
 
                 row = dict(kernel=kern, model=model["name"], shape="ffn",
                            T=t, D=d, H=h, act=act)
-                turns(row, "ffn_fused", lambda: fn(x, *w, GS, act), check)
+                turns(row, "ffn_fused", lambda: fn(x, *w, GS, act), check,
+                      ("ffn_xe_kernel", "ffn_kernel")
+                      if kern == "ffn_fused_xe" else None)
                 row["library_ms"] = timed(lambda: chain(xb))
+                if kern == "ffn_fused_xe":
+                    # K's yardstick: the unfused path's two calls of A
+                    # (Q4_0) or D (Q8_0) on W13 and W2 at the same T
+                    gemv = q4_gemv if quant == "q4" else q8_gemv_i8
+                    gin = torch.randn(t, h, device="cuda", generator=gen)
+
+                    def pair():
+                        gemv(x, w[0], w[1], GS)
+                        return gemv(gin, w[2], w[3], GS)
+
+                    row["pair_ms"] = timed(pair)
+                    row["pair_device_ms"] = device_ms(pair)
+                    row["pair_span_ms"] = profile_calls(
+                        torch, pair, ("q4_gemv", "q8_gemv_i8"),
+                        timed.flush.zero_)[1]
                 row["bound_ms"], row["bound_by"] = bound_ms(
                     wbytes + 8 * t * d, 2.0 * t * 3 * h * d, peak["bf16"],
                     peak["mem"])
@@ -423,6 +463,30 @@ def main() -> int:
                          f", _int_mm {unit['int_mm_device_ms']:.3f})"
                          if "int_mm_device_ms" in unit else "")
                       + f"  bound {unit['bound_ms']:.3f}", flush=True)
+    # K's unit: a decode token's FFNs (the model's layers x one call)
+    for model in (GEMMA, LLAMA):
+        for r in results:
+            if r["kernel"] != "ffn_fused_xe" or r["model"] != model["name"]:
+                continue
+            n = model["L"]
+            unit = dict(kernel="ffn_fused_xe", model=model["name"], T=r["T"])
+            for key in ("ms", "device_ms", "span_ms"):
+                unit[key] = {c: n * v for c, v in r[key].items()}
+            for key in ("library_ms", "pair_ms", "pair_device_ms",
+                        "pair_span_ms", "bound_ms"):
+                unit[key] = n * r[key]
+            units.append(unit)
+            print(f"unit ffn_fused_xe {model['name']} T={r['T']} ({n} x 1): "
+                  + "  ".join(f"{c} {v:.3f}" for c, v in unit["ms"].items())
+                  + "  device " + " ".join(
+                      f"{v:.3f}" for v in unit["device_ms"].values())
+                  + "  span " + " ".join(
+                      f"{v:.3f}" for v in unit["span_ms"].values())
+                  + f"  unfused pair {unit['pair_ms']:.3f} (device "
+                  f"{unit['pair_device_ms']:.3f}, span "
+                  f"{unit['pair_span_ms']:.3f})  library "
+                  f"{unit['library_ms']:.3f}  bound {unit['bound_ms']:.3f}",
+                  flush=True)
     print(card)
     print(json.dumps(dict(card=card, cases=results, units=units)))
     return 0

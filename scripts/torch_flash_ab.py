@@ -16,7 +16,10 @@ change, parent, so that drift within the call shows as a difference
 between the two runs of one version: the median of 50 calls with the L2
 flushed before each (128 MB, `chip_smoke.Timer`), the device time of one
 call (torch.profiler over 20 calls, each after the same flush: the sum of
-the call's kernels, the split pass and kernel M) and the host's time per
+the call's kernels, the split pass and kernel M), its span (the median,
+over a trace of 100 such calls, of the time from the split pass's start to
+M's end: where M is a programmatic dependent launch its blocks wait
+inside the kernel, so the sum overstates the call) and the host's time per
 call (the wall time of 200 calls enqueued back to back over 200, median of
 5).  Both versions run with the package's split and the tree's wrappers,
 so the parent must take the tree's arguments.  Each result is held against
@@ -63,7 +66,8 @@ def main() -> int:
         print("needs a CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import BATCH_POS, GEMMA, Timer, batched_cache, to_pool
+    from chip_smoke import (BATCH_POS, GEMMA, Timer, batched_cache,
+                            profile_calls, to_pool)
     from lmrs_tpu_torch.kernels import cuda
     from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
                                                         flash_attention_plain,
@@ -150,6 +154,10 @@ def main() -> int:
                     same_bits[label].append(torch.equal(got, first[label]))
             results[label][column] = timed(lambda: kernel(*a, **kw))
             devices[label][column] = device_ms(lambda: kernel(*a, **kw))
+            spans[label][column] = profile_calls(
+                torch, lambda: kernel(*a, **kw),
+                ("flash_kernel", "flash_merge_kernel"), timed.flush.zero_,
+                calls=100)[1]
             hosts[label][column] = host_us(lambda: kernel(*a, **kw))
 
     def device_ms(fn, calls=20) -> float:
@@ -194,6 +202,7 @@ def main() -> int:
     results = {label: {} for label, *_ in cases}
     hosts = {label: {} for label, *_ in cases}
     devices = {label: {} for label, *_ in cases}
+    spans = {label: {} for label, *_ in cases}
     package_split = flash_merge.SPLIT
     with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as tmp:
         libs = {}
@@ -221,12 +230,16 @@ def main() -> int:
         print(f"{'':24s}" + "  ".join(f"{k} {v:.4f}" for k, v in
                                       devices[label].items())
               + "  (device ms)")
+        print(f"{'':24s}" + "  ".join(f"{k} {v:.4f}" for k, v in
+                                      spans[label].items())
+              + "  (span ms: first kernel's start to the last one's end)")
         print(f"{'':24s}" + "  ".join(f"{k} {v:.1f}"
                                       for k, v in hosts[label].items())
               + f"  (host us a call)  change == parent bit for bit: "
               f"{all(same_bits[label])}")
     print(json.dumps(dict(card=card, split=package_split, ms=results,
-                          device_ms=devices, host_us=hosts,
+                          device_ms=devices, span_ms=spans,
+                          host_us=hosts,
                           same_bits={k: all(v) for k, v in
                                      same_bits.items()})))
     return 0

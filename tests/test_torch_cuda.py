@@ -45,6 +45,8 @@ and the shards merged by M within I's bound of I's result and of the plain
 version (two levels of merge round differently: not bit for bit).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -82,6 +84,9 @@ from lmrs_tpu_torch.quant import (q4_cache_pair_mode, q4_file_to_runtime_np,
                                   quantize_q8_act, quantize_q40_np,
                                   quantize_q80_np, unpack_kv_q4)
 from torch_batched_cases import make_case, spoil
+
+# the module (the package exports kernel M's wrapper under its name)
+fm = importlib.import_module("lmrs_tpu_torch.kernels.flash_merge")
 
 
 def _weights(o, k, device, gs=128):
@@ -857,6 +862,25 @@ def test_ffn_fused_xe_kernel_on_card(cuda_device, quant, act, d, h, gs, t):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("t", [3, 4, 6, 7])
+@pytest.mark.parametrize("quant,act,d,h,gs", FFN_CASES[-2:])
+def test_ffn_fused_xe_every_t_at_model_shapes_on_card(cuda_device, quant,
+                                                      act, d, h, gs, t):
+    """K at the row counts the cases above leave out, at Gemma-2-9B's and
+    Llama-3.2-3B's FFN: within 1e-3 of the plain version's output scale,
+    each row bit for bit the row alone."""
+    x, *w = _ffn_case(cuda_device, quant, t, d, h, gs, seed=t)
+    got = ffn_fused_xe(x, *w, gs, act)
+    want = ffn_fused_xe_plain(x, *w, gs, act)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and got.shape == (t, d)
+    assert _rel_err(got, want) <= 1e-3
+    rows = torch.cat([ffn_fused_xe(x[i:i + 1].contiguous(), *w, gs, act)
+                      for i in range(t)])
+    assert torch.equal(rows, got)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("t", [9, 12, 16])
 @pytest.mark.parametrize("quant,act,d,h,gs", FFN_CASES)
 def test_ffn_fused_kernel_on_card(cuda_device, quant, act, d, h, gs, t):
@@ -991,6 +1015,31 @@ def test_flash_split_boundaries_on_card(cuda_device, cache, hd, kh, g,
                                           v, ks, vs, pos + i, **kw)
                                   for i in range(5)])
                 assert torch.equal(got, rows), pos
+
+
+@pytest.mark.gpu
+def test_flash_decode_merge_waits_for_the_split_pass_on_card(cuda_device):
+    """Kernel M launched behind the split pass in one host call (a
+    programmatic dependent launch) gives the bits of the split pass alone,
+    a synchronize, then M on its workspace: 50 calls at Gemma-2-9B's
+    geometry at pos 6,000, where the split pass is longest, so that a merge
+    that read the workspace before the split pass finished would show."""
+    kh, g, hd, s_len, pos = 8, 2, 256, 8192, 6000
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    k, v, _, _ = _split_cache("bf16", kh, hd, s_len, gen)
+    common = dict(n_kv=kh, s_len=s_len, row=kh * hd, pos=pos, seq_base=0,
+                  slot_stride=0, scale_slot_stride=0, table=None, maxp=0,
+                  psz=0, split=SPLIT, scale=hd ** -0.5, softcap=50.0,
+                  window=4096, ctype=fm.BF16, what="split pass",
+                  n_split=fm.n_splits_host(pos, 1, s_len, 4096, SPLIT))
+    for i in range(50):
+        q = torch.randn(1, kh * g, hd, device=cuda_device, generator=gen)
+        got = fm.split_pass(q, k[0], v[0], None, None,
+                            out=torch.empty_like(q), **common)
+        acc, m, l = fm.split_pass(q, k[0], v[0], None, None, **common)
+        torch.cuda.synchronize()
+        want = flash_merge(acc, m, l)[0]
+        assert torch.equal(got, want), i
 
 
 @pytest.mark.gpu
