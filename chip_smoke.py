@@ -96,8 +96,27 @@ Phases (any failure ends the run with a non-zero exit):
    TTFT, pool pages used and their peak, peak memory, prefix-cache hits
    and the speculative acceptance; its launch counts are set to 0 just
    before and read just after.
-5. One JSON line of per-kernel results, the card's name and power limit,
-   and the last line {"ok": true, "device": {...}}.
+5. The multimodal path at full width and depth: a synthetic
+   Phi-3.5-vision Q8_0 .lmrs (seed 0; CLIP ViT-L/14-336 encoder, 24
+   layers, and the 4,096 -> 3,072 projector) written with the port's own
+   writer.  A seeded (756, 1008, 3) image (no PIL) at 4 crops: 5 crops of
+   577 rows through 23 encoder layers, 757 image rows + 7 wrapper rows.
+   The exact (integer) matmul at a vision shape on the card against the
+   CPU (integer part bit for bit), and the encoder cut to 2 layers (f32
+   weights within 1e-4 of the output scale; Q8_0 weights within 1e-2,
+   the activation quantizer's rounding steps).  Host preprocessing ms,
+   the tower's and the projector's device ms (CUDA events).  The Engine:
+   encode, prefill_embeds of the 764 rows, a 22-row turn ending in
+   PHI_TURN_SUFFIX, 32 greedy tokens twice across reset() and a fresh
+   encode (identical), then top-p: F, C, M, D, E and no other kernel.
+   Then a BatchScheduler (2 slots, paged bf16 pool): a leased
+   conversation takes the same rows and turn while a text request decodes
+   beside it: F, J, M, D, E, and both greedy streams equal to the
+   Engine's up to a near-tie.  Image turn TTFT, prefill of the rows,
+   decode tok/s, peak memory, the phase's seconds.
+6. One JSON line of per-kernel results (launches over every path above),
+   the card's name and power limit, and the last line {"ok": true,
+   "device": {...}}.
 """
 
 from __future__ import annotations
@@ -1430,10 +1449,13 @@ def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
     return result, engine, prompt, toks_a
 
 
-def greedy_margins(torch, engine, prompt, n):
+def greedy_margins(torch, engine, prompt, n, embeds=None):
     """Plain greedy decoding step by step: (tokens, top-2 logit margin of
-    every step over the largest |logit| of that step)."""
+    every step over the largest |logit| of that step).  `embeds`: rows
+    prefilled before the prompt (an image's)."""
     engine.reset()
+    if embeds is not None:
+        engine.prefill_embeds(embeds, want_logits=False)
     logits = engine.prefill(prompt)
     toks, margins = [], []
     for _ in range(n):
@@ -1667,13 +1689,14 @@ def wave_metrics(reqs, wall):
                 aggregate_tok_s=n_tok / wall, per_request=per_req)
 
 
-def check_greedy(torch, label, engine, prompt, got, want, near_tie):
+def check_greedy(torch, label, engine, prompt, got, want, near_tie,
+                 embeds=None):
     """A batched greedy stream against the single-stream Engine's greedy
     tokens, up to the first step whose top-2 margin in a plain run is
     below `near_tie` of the logit scale."""
     if got == want:
         return len(got)
-    _, margins = greedy_margins(torch, engine, prompt, len(want))
+    _, margins = greedy_margins(torch, engine, prompt, len(want), embeds)
     close = [i for i, m in enumerate(margins) if m < near_tie]
     n_eq = close[0] if close else len(want)
     if got[:n_eq] != want[:n_eq]:
@@ -1987,6 +2010,330 @@ def batched_fused(torch, label, cfg, params, cache_dtype, batch, expect,
     return {label: res}
 
 
+# phase 5: Phi-3.5-vision Q8_0.  The image's rows and the turn run the Q8
+# text path: F for the prefill chunks (image rows and turn), C for their
+# attention, then each decode step D (layers), E (classifier), C and M.
+# Batched on the paged pool: J in C's place.
+PHI_IMAGE_PATH = {"q8_gemm", "flash_attention", "flash_merge", "q8_gemv_i8",
+                  "q8_gemv"}
+PHI_IMAGE_PAGED = {"q8_gemm", "flash_attention_paged", "flash_merge",
+                   "q8_gemv_i8", "q8_gemv"}
+IMAGE_SHAPE = (756, 1008, 3)       # 4 crops: a 2 x 2 grid of 336 tiles
+IMAGE_CROPS = 4
+
+
+def synthetic_image(seed=0):
+    """A (756, 1008, 3) uint8 image from a seeded generator: smooth colour
+    gradients plus noise (no file, no PIL)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    h, w, _ = IMAGE_SHAPE
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    base = np.stack([255 * xx / w, 255 * yy / h,
+                     255 * (0.5 + 0.5 * np.sin((xx + yy) / 97.0))], axis=-1)
+    return np.clip(base + rng.normal(0, 12, base.shape), 0,
+                   255).astype(np.uint8)
+
+
+def event_ms(torch, fn):
+    """(fn's result, device ms between CUDA events around it)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def float_vision(torch, vp):
+    """The encoder's params with every quantized matrix dequantized to f32
+    (float QTensors): the same tower without the activation quantizer."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import QuantType
+    from lmrs_tpu_torch.models.vision import VISION_MATRICES
+    from lmrs_tpu_torch.quant import QTensor, dequantize
+
+    def f32(w):
+        return QTensor(dequantize(w), None, QuantType.NONE, w.group_size,
+                       w.out_features, w.in_features)
+
+    lw = vp.layers
+    return dataclasses.replace(vp, layers=dataclasses.replace(
+        lw, **{n: f32(getattr(lw, n)) for n in VISION_MATRICES}))
+
+
+def rel_rows(torch, got, want, row_tol):
+    """(max error over the output scale, share of rows with an error above
+    `row_tol` of the scale)."""
+    err = (got.cpu() - want).abs().reshape(-1, want.shape[-1])
+    scale = want.abs().max().item()
+    return (err.max().item() / scale,
+            (err > row_tol * scale).any(dim=1).float().mean().item())
+
+
+def check_vision(torch, f, vcfg, vision, patches):
+    """The exact matmul at a vision shape (5 crops of 577 rows, w1 of the
+    first layer) and the encoder cut to its first 2 layers, each on the
+    card against the same function on the CPU on the same inputs.  The
+    encoder twice: with its weights dequantized to f32 (the tower's own
+    arithmetic: 1e-4 of the output scale), and as it runs, with Q8_0
+    weights and lm.rs's activation quantizer: the card's f32 sums differ
+    from the CPU's in the last bit (softmax, layernorm, exp), so now and
+    then an activation within that bit of a rounding boundary rounds to
+    the neighbouring integer on one side, and that one step moves the row
+    it feeds by up to ~3e-3 of the output scale (tests/test_torch_cuda.py
+    measured it); held at 1e-2 of the scale, and the share of rows past
+    1e-4 is reported."""
+    import dataclasses
+
+    from lmrs_tpu_torch.io.params import vision_params_from_lmrs
+    from lmrs_tpu_torch.models.vision import N_POSITIONS, vision_forward
+    from lmrs_tpu_torch.ops.matmul import group_ints, qmatmul_exact
+    from lmrs_tpu_torch.quant import quantize_q8_act
+
+    _, vp_cpu, _, _ = vision_params_from_lmrs(f, device="cpu")
+    rows = patches.shape[0] * N_POSITIONS
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(rows, vcfg.dim, generator=gen)
+    w_cpu = vp_cpu.layers.at(0).w1
+    w_dev = vision[1].layers.at(0).w1
+    want = qmatmul_exact(x, w_cpu)
+    xd = x.to(w_dev.q.device)
+    qmatmul_exact(xd, w_dev)                            # warm-up
+    got, mm_ms = event_ms(torch, lambda: qmatmul_exact(xd, w_dev))
+    rel = (got.cpu() - want).abs().max().item() / want.abs().max().item()
+    xq, xs = quantize_q8_act(x, vcfg.group_size)
+    cq, cs = quantize_q8_act(xd, vcfg.group_size)
+    ints_equal = (torch.equal(cq.cpu(), xq) and torch.equal(cs.cpu(), xs)
+                  and torch.equal(group_ints(cq, w_dev.q, vcfg.group_size)
+                                  .cpu(), group_ints(xq, w_cpu.q,
+                                                     vcfg.group_size)))
+    log(f"  exact matmul {rows} x {vcfg.dim} -> {w_dev.out_features} (Q8_0 "
+        f"w1): integer part card == CPU {ints_equal}, output max error "
+        f"{rel:.2e} of its scale (tolerance 1e-6), {mm_ms:.3f} ms on the "
+        f"card")
+    if not ints_equal or rel > 1e-6:
+        raise RuntimeError("the exact matmul on the card differs from the "
+                           "CPU")
+    cut = dataclasses.replace(vcfg, n_layers=3)       # runs 2 layers
+    pd = patches.to(xd.device)
+    out = dict(exact_matmul_rel_err=rel, exact_matmul_ints_equal=ints_equal,
+               exact_matmul_ms=mm_ms)
+    for what, cpu_p, dev_p, tol in (
+            ("f32 weights", float_vision(torch, vp_cpu),
+             float_vision(torch, vision[1]), 1e-4),
+            ("Q8_0 weights", vp_cpu, vision[1], 1e-2)):
+        want = vision_forward(cpu_p, cut, patches)
+        got = vision_forward(dev_p, cut, pd)
+        vrel, share = rel_rows(torch, got, want, 1e-4)
+        log(f"  vision_forward, first 2 layers, {patches.shape[0]} crops, "
+            f"{what}: card vs CPU max error {vrel:.2e} of the output scale "
+            f"(tolerance {tol:g}); rows past 1e-4: {100 * share:.2f}%")
+        if not torch.isfinite(got).all() or vrel > tol:
+            raise RuntimeError(f"vision_forward ({what}) on the card differs "
+                               f"from the CPU")
+        key = "f32" if what.startswith("f32") else "q8"
+        out.update({f"vision_2_layers_{key}_rel_err": vrel,
+                    f"vision_2_layers_{key}_rows_past_1e-4": share})
+    return out
+
+
+def multimodal_phase(torch, work: Path):
+    """Phase 5: Phi-3.5-vision Q8_0 at full width and depth."""
+    import numpy as np
+
+    from lmrs_tpu_torch.cli.chat import PHI_TURN_SUFFIX
+    from lmrs_tpu_torch.config import QuantType, phi35_vision, phi35_vision_aux
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import (params_from_lmrs,
+                                          vision_params_from_lmrs)
+    from lmrs_tpu_torch.io.synthetic import write_synthetic_lmrs
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.models.phi3v import (PHI_IMAGE_PREFIX_IDS,
+                                             PHI_IMAGE_SUFFIX_IDS,
+                                             encode_image_to_embeds,
+                                             preprocess_image,
+                                             processor_forward)
+    from lmrs_tpu_torch.models.transformer import embed_tokens
+    from lmrs_tpu_torch.models.vision import vision_forward
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+    from lmrs_tpu_torch.serve.scheduler import BatchScheduler
+
+    t_phase = time.perf_counter()
+    cfg = phi35_vision(quant=QuantType.Q8_0)
+    vcfg, pcfg = phi35_vision_aux(QuantType.Q8_0)
+    path = work / "phi35v.lmrs"
+    t0 = time.perf_counter()
+    write_synthetic_lmrs(str(path), cfg, seed=0, vision_cfg=vcfg,
+                         processor_cfg=pcfg)
+    log(f"  wrote {path.stat().st_size / 1e9:.2f} GB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    f = read_lmrs(str(path))
+    params = params_from_lmrs(f, device="cuda")
+    vision = vision_params_from_lmrs(f, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"  loaded text and vision weights in {load_s:.2f} s")
+    cfg, vcfg = f.cfg, f.vision_cfg
+
+    img = synthetic_image()
+    t0 = time.perf_counter()
+    patches, w_crop, h_crop, n_crops = preprocess_image(img, IMAGE_CROPS,
+                                                        vcfg.patch_size)
+    pre_ms = 1e3 * (time.perf_counter() - t0)
+    if (w_crop, h_crop, n_crops) != (2, 2, 5) or patches.shape != (5, 576,
+                                                                   588):
+        raise RuntimeError(f"preprocess: {w_crop}x{h_crop} crops, "
+                           f"{patches.shape}")
+    patches = torch.from_numpy(patches)
+    out = dict(load_s=load_s, preprocess_host_ms=pre_ms)
+    out.update(check_vision(torch, f, vcfg, vision, patches))
+
+    # the tower and the projector on their own, timed by CUDA events
+    with torch.no_grad():
+        pd = patches.to(params.final_norm.device)
+        vision_forward(vision[1], vcfg, pd)             # warm-up
+        feats, v_ms = event_ms(torch, lambda: vision_forward(
+            vision[1], vcfg, pd))
+        img_rows, p_ms = event_ms(torch, lambda: processor_forward(
+            vision[3], pcfg, feats, w_crop, h_crop))
+    n_img = 24 * 25 + 1 + 12 * 13
+    if (feats.shape != (5, 576, vcfg.dim)
+            or img_rows.shape != (n_img, cfg.dim)
+            or not torch.isfinite(img_rows).all()):
+        raise RuntimeError(f"vision: features {tuple(feats.shape)}, rows "
+                           f"{tuple(img_rows.shape)}")
+    log(f"  preprocess (host) {pre_ms:.1f} ms; vision tower (23 layers over "
+        f"5 x 577 rows) {v_ms:.1f} ms, processor {p_ms:.2f} ms of device "
+        f"time (CUDA events)")
+    out.update(vision_device_ms=v_ms, processor_device_ms=p_ms)
+
+    # the Engine: image rows, then the turn; greedy twice across reset()
+    # and a fresh ingest, then top-p; the counts cover exactly this path
+    gen = torch.Generator().manual_seed(21)
+    turn = torch.randint(0, 32000, (16,), generator=gen).tolist()
+    turn += PHI_TURN_SUFFIX
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    engine = Engine(cfg, params, cache_dtype=torch.bfloat16)
+    reset_launches()
+    runs, toks = [], []
+    for what, g in (("greedy", GenerationConfig(temperature=0.0,
+                                                max_new_tokens=32)),
+                    ("greedy again", GenerationConfig(temperature=0.0,
+                                                      max_new_tokens=32)),
+                    ("top-p", GenerationConfig(temperature=0.7, top_p=0.9,
+                                               seed=0, max_new_tokens=32))):
+        engine.reset()
+        t0 = time.perf_counter()
+        embeds = encode_image_to_embeds(vision, params, cfg, img,
+                                        IMAGE_CROPS)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        engine.prefill_embeds(embeds, want_logits=False)
+        fill_s = engine.metrics.prefill_seconds
+        toks.append(engine.generate(turn, g))
+        m = engine.metrics
+        runs.append((what, dict(
+            encode_ms=1e3 * enc_s, image_prefill_ms=1e3 * fill_s,
+            turn_ttft_ms=1e3 * m.ttft_seconds,
+            image_turn_ttft_ms=1e3 * (enc_s + fill_s + m.ttft_seconds),
+            decode_tok_s=m.tokens_per_second)))
+    torch.cuda.synchronize()
+    counts = launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if embeds.shape != (4 + n_img + 3, cfg.dim):
+        raise RuntimeError(f"image rows {tuple(embeds.shape)}")
+    want_rows = torch.cat([
+        embed_tokens(params, cfg, torch.tensor(PHI_IMAGE_PREFIX_IDS,
+                                               device=embeds.device)),
+        img_rows, embed_tokens(params, cfg, torch.tensor(
+            PHI_IMAGE_SUFFIX_IDS, device=embeds.device))])
+    rows_rel = ((embeds - want_rows).abs().max()
+                / want_rows.abs().max()).item()
+    if rows_rel > 1e-6:
+        raise RuntimeError(f"encode_image_to_embeds differs from its steps "
+                           f"by {rows_rel:.2e} of the scale")
+    if toks[0] != toks[1]:
+        raise RuntimeError("phi3.5-vision: greedy tokens differ across "
+                           "reset() and a fresh ingest")
+    if any(len(t) != 32 or not all(0 <= x < cfg.vocab_size for x in t)
+           for t in toks):
+        raise RuntimeError(f"phi3.5-vision: invalid tokens {toks}")
+    launched = {k for k, n in counts.items() if n > 0}
+    label = "phi3.5-vision Q8_0 image turn, bf16 cache"
+    log(f"  {label}: {embeds.shape[0]} image rows + {len(turn)}-token turn; "
+        f"peak memory {peak_gb:.2f} GB; launches {counts}")
+    for what, r in runs:
+        log(f"    {what}: encode {r['encode_ms']:.1f} ms, prefill of the "
+            f"{embeds.shape[0]} rows {r['image_prefill_ms']:.1f} ms, turn "
+            f"TTFT {r['turn_ttft_ms']:.1f} ms, image turn TTFT "
+            f"{r['image_turn_ttft_ms']:.1f} ms, decode "
+            f"{r['decode_tok_s']:.2f} tok/s")
+    log(f"    greedy tokens {toks[0][:12]}... top-p {toks[2][:12]}...")
+    if launched != PHI_IMAGE_PATH:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(PHI_IMAGE_PATH)}")
+    paths = {label: dict(out, launches=counts, peak_memory_gb=peak_gb,
+                         image_rows=embeds.shape[0], runs=dict(runs))}
+
+    # batched: a leased conversation takes the same rows and turn while a
+    # text request decodes beside it, on a paged bf16 pool of 2 slots
+    text = torch.randint(0, 32000, (200,), generator=gen).tolist()
+    engine.reset()
+    text_ref = engine.generate(text, GenerationConfig(temperature=0.0,
+                                                      max_new_tokens=32))
+    label = "phi3.5-vision Q8_0 batch 2, paged bf16 pool"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sched = BatchScheduler(cfg, params, max_batch=2, prefill_chunk=256,
+                           decode_chunk=8, pool_tokens=4096, page_size=256)
+    t0 = time.perf_counter()
+    reset_launches()
+    lease = sched.new_conversation()
+    side = sched.submit(text, max_new_tokens=32, temperature=0.0)
+    sched.step()                       # the text request is under way
+    sched.prefill_embeds(lease, embeds)
+    req = sched.submit(turn, max_new_tokens=32, temperature=0.0, lease=lease)
+    sched.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    launched = {k for k, n in counts.items() if n > 0}
+    if req.error or side.error or len(req.out) != 32 or len(side.out) != 32:
+        raise RuntimeError(f"{label}: {req.error!r} {side.error!r}")
+    log(f"  {label}: image stream and a 200-token text request, 32 tokens "
+        f"each, in {wall:.2f} s; image stream TTFT after its rows "
+        f"{1e3 * req.ttft:.1f} ms; pages peak {sched.pages_peak} of "
+        f"{sched.n_pages - 1}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; launches "
+        f"{counts}")
+    if launched != PHI_IMAGE_PAGED:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(PHI_IMAGE_PAGED)}")
+    n_img_eq = check_greedy(torch, label, engine, turn, req.out, toks[0],
+                            NEAR_TIE_W8A8, embeds)
+    n_txt_eq = check_greedy(torch, label, engine, text, side.out, text_ref,
+                            NEAR_TIE_W8A8)
+    sched.end_conversation(lease)
+    paths[label] = dict(
+        launches=counts, wall_s=wall, image_stream_ttft_ms=1e3 * req.ttft,
+        greedy_tokens_compared=n_img_eq + n_txt_eq,
+        pages_peak=sched.pages_peak,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del sched, engine, params, vision
+    torch.cuda.empty_cache()
+    path.unlink()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 5 ran {phase_s:.1f} s")
+    paths[label]["phase_s"] = phase_s
+    return paths
+
+
 def load_model(torch, work: Path, cfg):
     """Write the synthetic .lmrs of `cfg` (seed 0) and load it onto the
     card; returns (path, config as read, params, load seconds)."""
@@ -2211,10 +2558,17 @@ def main() -> int:
         log("phase 4b: Llama-3.2-3B Q8_0 batched serving (BackendServer, "
             "batch 16)")
         paths.update(batched_phase_llama(torch, model, tok_path, cfg))
+        model.unlink()
+        torch.cuda.empty_cache()
+
+        # ---- 5. Phi-3.5-vision Q8_0: image -> vision tower -> rows ->
+        # Engine and a 2-slot paged scheduler
+        log("phase 5: Phi-3.5-vision Q8_0 multimodal path")
+        paths.update(multimodal_phase(torch, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 5. results: one unit of work per kernel, (model, shape, T, count)
+    # ---- 6. results: one unit of work per kernel, (model, shape, T, count)
     g, ll = GEMMA["name"], LLAMA["name"]
     unit = {
         "q4_gemv": ("gemma2-9b decode token: 42 x (wqkv, wo, w13, w2) + "

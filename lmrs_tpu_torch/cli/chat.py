@@ -1,13 +1,18 @@
-"""Interactive chat CLI (text only).
+"""Interactive chat CLI.
 
 Multi-turn conversations share the KV cache, `pos` only growing within a
-session; Llama gets the system-prompt template with today's date.
+session; Llama gets the system-prompt template with today's date.  A
+multimodal model (Phi-3.5-vision) takes --image: the image is encoded
+(`models.phi3v.encode_image_to_embeds`, --num-crops crops at most) and its
+rows prefilled before the first turn, which then ends with
+PHI_TURN_SUFFIX instead of the chat template.
 
 Usage:
     python -m lmrs_tpu_torch.cli.chat --model model.lmrs
         [--tokenizer tokenizer.bin] [--temperature 0.7] [--top-p 0.9]
         [--seed N] [--max-new-tokens N] [--show-metrics] [--device cpu]
         [--cache-dtype bfloat16|float32|int8|int4] [--spec-k K]
+        [--image img.png] [--num-crops 1]
 
 Runs on the GPU unless --device names another device.  --show-metrics
 prints, after each reply, its speed and the CUDA kernel launches since
@@ -16,8 +21,8 @@ the program started (0 on the CPU, where the plain versions run), and with
 on prompt-lookup speculative decoding with K drafted tokens per step.  Q8_0
 layer weights decode with int8 activations (W8A8) unless the environment
 sets LMRS_W8A8=0, the JAX package's own switch.  The flags of the JAX
-package's CLI that this package does not cover yet (--image, --tp, --cp)
-are accepted and raise.
+package's CLI that this package does not cover yet (--tp, --cp) are
+accepted and raise.
 """
 
 from __future__ import annotations
@@ -44,6 +49,11 @@ LLAMA_SYSTEM_PREFIX = [128000, 128006, 9125, 128007, 271, 38766, 1303, 33025,
                        220]
 LLAMA_SYSTEM_SUFFIX = [271, 128009]
 
+# Phi-3.5-vision: the end of the first turn after an image, which takes no
+# chat template (the rows around the image itself are
+# models.phi3v.PHI_IMAGE_PREFIX_IDS and PHI_IMAGE_SUFFIX_IDS)
+PHI_TURN_SUFFIX = [32007, 29871, 13, 32001, 29871, 13]
+
 
 def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="lmrs_tpu_torch chat")
@@ -64,8 +74,13 @@ def build_argparser() -> argparse.ArgumentParser:
                         "per verify step (0 = off)")
     p.add_argument("--cache-dtype", default="bfloat16",
                    choices=["bfloat16", "float32", "int8", "int4"])
+    p.add_argument("--image", default=None,
+                   help="an image file for a multimodal model, encoded and "
+                        "prefilled before the first turn (needs PIL to "
+                        "decode the file)")
+    p.add_argument("--num-crops", dest="num_crops", type=int, default=1,
+                   help="most HD crops of the image besides its global view")
     # accepted for the JAX CLI's surface; not ported yet
-    p.add_argument("--image", default=None)
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--cp", type=int, default=1)
     return p
@@ -75,8 +90,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     args = build_argparser().parse_args(argv)
     from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
 
-    if args.image:
-        raise unsupported("--image", "A13 multimodal")
     if args.tp > 1 or args.cp > 1:
         raise unsupported("--tp / --cp", "A15 torch.distributed tp/cp")
     device = resolve_device(args.device)
@@ -107,6 +120,20 @@ def main(argv: Optional[List[str]] = None) -> None:
                     cache_dtype=args.cache_dtype,
                     w8a8=os.environ.get("LMRS_W8A8", "1") == "1")
     print("Done.\n")
+    image_turn = False
+    if args.image:
+        if not cfg.multimodal:
+            sys.exit("Cannot use images in a non-multimodal model.")
+        from lmrs_tpu_torch.io.params import vision_params_from_lmrs
+        from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
+
+        print("Preprocessing the image...")
+        embeds = encode_image_to_embeds(
+            vision_params_from_lmrs(f, device=device), params, cfg,
+            args.image, args.num_crops)
+        print("Filling KV Cache...\n")
+        engine.prefill_embeds(embeds, want_logits=False)
+        image_turn = True
     gen = GenerationConfig(temperature=args.temperature, top_p=args.top_p,
                            seed=args.seed, max_new_tokens=args.max_new_tokens,
                            speculative_k=args.spec_k)
@@ -127,8 +154,14 @@ def main(argv: Optional[List[str]] = None) -> None:
             today = datetime.date.today().strftime("%d %b %Y")
             prompt_tokens.extend(tokenizer.encode(today))
             prompt_tokens.extend(LLAMA_SYSTEM_SUFFIX)
-        prompt_tokens.extend(tokenizer.encode(
-            user_prompt, chat_format=True, model_type=cfg.model_type))
+        if image_turn:
+            # the first turn after an image: no chat template, its own end
+            prompt_tokens.extend(tokenizer.encode(user_prompt))
+            prompt_tokens.extend(PHI_TURN_SUFFIX)
+            image_turn = False
+        else:
+            prompt_tokens.extend(tokenizer.encode(
+                user_prompt, chat_format=True, model_type=cfg.model_type))
 
         print("Assistant:")
         decoder = StreamDecoder(tokenizer)

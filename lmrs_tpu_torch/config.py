@@ -208,6 +208,27 @@ def phi35_mini(**kw) -> ModelConfig:
         rms_norm_eps=1e-5, rope_theta=10000.0, **kw)
 
 
+def phi35_vision(**kw) -> ModelConfig:
+    """Phi-3.5-vision: the mini text backbone with the CLIP ViT-L/14-336
+    encoder beside it (`phi35_vision_aux`)."""
+    kw.setdefault("multimodal", True)
+    return phi35_mini(**kw)
+
+
+def phi35_vision_aux(quant, group_size: int = 128):
+    """The full-size vision and processor configs of a Phi-3.5-vision
+    export: CLIP-L dims, the 4x-merged processor into the 3,072-wide text
+    embedding."""
+    from lmrs_tpu_torch.models.phi3v import ProcessorConfig
+    from lmrs_tpu_torch.models.vision import VisionConfig
+
+    return (VisionConfig(dim=1024, hidden_dim=4096, n_layers=24, n_heads=16,
+                         head_dim=64, layernorm_eps=1e-5, patch_size=14,
+                         image_size=336, quant=quant, group_size=group_size),
+            ProcessorConfig(hidden_dim=4096, text_dim=3072, quant=quant,
+                            group_size=group_size))
+
+
 def tiny_llama(**kw) -> ModelConfig:
     """Small synthetic config for CPU runs — not a published model."""
     kw.setdefault("group_size", 32)
@@ -241,6 +262,7 @@ PRESETS = {
     "llama3.2-1b": llama32_1b,
     "llama3.2-3b": llama32_3b,
     "phi3.5-mini": phi35_mini,
+    "phi3.5-vision": phi35_vision,
     "tiny-llama": tiny_llama,
     "tiny-gemma": tiny_gemma,
     "tiny-flash": tiny_flash,

@@ -6,7 +6,9 @@ or packed Q4 bytes, + f32 scales).  Q8_0 bytes stay as they are; Q4_0's
 adjacent-pair file bytes are repacked into the runtime group-half layout ON
 THE DEVICE with torch ops (a host repack of a 9B model's ~4.9 GB is slow).
 The [q; k; v] and [gate; up] row concatenations are built once at load from
-per-tensor device copies, contiguous, as the kernels need them.
+per-tensor device copies, contiguous, as the kernels need them.  A
+multimodal file's vision and processor weights load with
+`vision_params_from_lmrs`, the vision layers stacked on a leading axis.
 """
 
 from __future__ import annotations
@@ -154,3 +156,96 @@ def kvcache_from_numpy(arrays: Dict[str, np.ndarray], dtype: torch.dtype,
     scales = {key: _to_device(arrays[key].astype(np.float32), device)
               for key in ("k_scale", "v_scale") if key in arrays}
     return KVCache(k=rows(arrays["k"]), v=rows(arrays["v"]), **scales)
+
+
+def vision_params_from_lmrs(f: LmrsFile, device=None):
+    """(VisionConfig, VisionParams, ProcessorConfig, ProcessorParams) of a
+    multimodal file, onto `device` (default cuda; raises without a GPU).
+    The vision layers' tensors are stacked (L, ...); Q4_0 bytes are
+    repacked into the runtime layout, as the text weights are."""
+    from lmrs_tpu_torch.models.phi3v import ProcessorParams
+    from lmrs_tpu_torch.models.vision import (VISION_MATRICES,
+                                              VISION_VECTORS,
+                                              VisionLayerWeights,
+                                              VisionParams)
+
+    device = resolve_device(device)
+    vc, pc = f.cfg_vision_processor()
+    t = f.tensors
+
+    def qt(q, s, quant, gs):
+        q = _to_device(q, device)
+        if quant == QuantType.NONE:
+            return QTensor(q, None, quant, gs, q.shape[-2], q.shape[-1])
+        s = _to_device(s, device)
+        if quant == QuantType.Q4_0:
+            return QTensor(q4_file_to_runtime(q, gs).contiguous(), s, quant,
+                           gs, q.shape[-2], q.shape[-1] * 2)
+        return QTensor(q, s, quant, gs, q.shape[-2], q.shape[-1])
+
+    def stacked(name):
+        return [t[f"v.{name}@{l}"] for l in range(vc.n_layers)]
+
+    def vec(name):
+        return _to_device(np.stack([a for a, _ in stacked(name)]), device)
+
+    layers = {name: qt(np.stack([q for q, _ in stacked(name)]),
+                       None if vc.quant == QuantType.NONE
+                       else np.stack([s for _, s in stacked(name)]),
+                       vc.quant, vc.group_size)
+              for name in VISION_MATRICES}
+    layers.update({name: vec(name) for name in VISION_VECTORS})
+    top = {name: _to_device(t[f"v.{name}"][0], device)
+           for name in ("class_embedding", "patch_embedding",
+                        "position_embedding", "pre_ln_w", "pre_ln_b")}
+    vparams = VisionParams(layers=VisionLayerWeights(**layers), **top)
+    pparams = ProcessorParams(
+        glb_gn=_to_device(t["p.glb_gn"][0], device),
+        sub_gn=_to_device(t["p.sub_gn"][0], device),
+        proj0=qt(*t["p.proj0"], pc.quant, pc.group_size),
+        proj0_b=_to_device(t["p.proj0_b"][0], device),
+        proj1=qt(*t["p.proj1"], pc.quant, pc.group_size),
+        proj1_b=_to_device(t["p.proj1_b"][0], device))
+    return vc, vparams, pc, pparams
+
+
+def vision_params_from_jax(vc, pc, varrays: Dict[str, np.ndarray],
+                           parrays: Dict[str, np.ndarray], device=None):
+    """(VisionParams, ProcessorParams) on `device` from the JAX package's
+    vision and processor parameters flattened to numpy: `varrays` holds
+    "class_embedding", "patch_embedding", "position_embedding",
+    "pre_ln_w", "pre_ln_b", "layers.<vector>" (L, n) and
+    "layers.<matrix>.q" / ".s" (stacked); `parrays` "glb_gn", "sub_gn",
+    "proj0.q", "proj0.s", "proj0_b", "proj1.q", "proj1.s", "proj1_b".  The
+    bytes are copied as they are: a JAX QTensor's Q4 bytes are taken in
+    the runtime layout, which is how the JAX exact matmul reads them."""
+    from lmrs_tpu_torch.models.phi3v import ProcessorParams
+    from lmrs_tpu_torch.models.vision import (VISION_MATRICES,
+                                              VISION_VECTORS,
+                                              VisionLayerWeights,
+                                              VisionParams)
+
+    device = resolve_device(device)
+    dev = lambda a: _to_device(np.asarray(a), device)  # noqa: E731
+
+    def qt(arrays, prefix, quant, gs):
+        q, s = arrays[f"{prefix}.q"], arrays.get(f"{prefix}.s")
+        per_byte = 2 if quant == QuantType.Q4_0 else 1
+        return QTensor(dev(q), None if s is None else dev(s), quant, gs,
+                       q.shape[-2], q.shape[-1] * per_byte)
+
+    layers = {n: qt(varrays, f"layers.{n}", vc.quant, vc.group_size)
+              for n in VISION_MATRICES}
+    layers.update({n: dev(varrays[f"layers.{n}"]) for n in VISION_VECTORS})
+    vparams = VisionParams(
+        layers=VisionLayerWeights(**layers),
+        **{n: dev(varrays[n]) for n in ("class_embedding", "patch_embedding",
+                                        "position_embedding", "pre_ln_w",
+                                        "pre_ln_b")})
+    pparams = ProcessorParams(
+        glb_gn=dev(parrays["glb_gn"]), sub_gn=dev(parrays["sub_gn"]),
+        proj0=qt(parrays, "proj0", pc.quant, pc.group_size),
+        proj0_b=dev(parrays["proj0_b"]),
+        proj1=qt(parrays, "proj1", pc.quant, pc.group_size),
+        proj1_b=dev(parrays["proj1_b"]))
+    return vparams, pparams

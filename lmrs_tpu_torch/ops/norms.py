@@ -17,3 +17,16 @@ def rmsnorm(x: torch.Tensor, weight: torch.Tensor, eps: float,
     if unit_offset:
         w = 1.0 + w
     return (w * (inv * x32)).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+              eps: float) -> torch.Tensor:
+    """Layer norm over the last axis with the biased variance (the CLIP
+    vision encoder's)."""
+    x32 = x.float()
+    mean = torch.mean(x32, dim=-1, keepdim=True)
+    diff = x32 - mean
+    var = torch.mean(diff * diff, dim=-1, keepdim=True)
+    inv_std = 1.0 / torch.sqrt(var + eps)
+    out = diff * inv_std * weight.float() + bias.float()
+    return out.to(x.dtype)

@@ -114,27 +114,50 @@ class Engine:
                 want_logits: bool = True) -> Optional[torch.Tensor]:
         """Run prompt tokens through the model in chunks of at most
         `prefill_chunk` rows; returns the last token's logits (or None)."""
-        t0 = time.perf_counter()
         n = len(tokens)
+        self._check_fits(n)
+        tok = torch.as_tensor(list(tokens), dtype=torch.long,
+                              device=self.device)
+        self._hist[self.pos:self.pos + n] = tok
+        return self._prefill_rows(
+            n, lambda off, m: embed_tokens(self.params, self.cfg,
+                                           tok[off:off + m]), want_logits)
+
+    def prefill_embeds(self, x: torch.Tensor,
+                       want_logits: bool = True) -> Optional[torch.Tensor]:
+        """Prefill precomputed (N, D) embeddings (an image's rows,
+        `models.phi3v.encode_image_to_embeds`) as `prefill` prefills
+        tokens; their history rows hold -1, so that no prompt-lookup draft
+        is taken from them."""
+        n = x.shape[0]
+        self._check_fits(n)
+        x = x.to(self.device, torch.float32)
+        self._hist[self.pos:self.pos + n] = -1
+        return self._prefill_rows(n, lambda off, m: x[off:off + m],
+                                  want_logits)
+
+    def _check_fits(self, n: int):
         if n == 0:
             raise ValueError("empty prompt")
         if self.pos + n > self.cfg.seq_len:
             raise ValueError(f"context overflow: pos={self.pos} + prompt {n}"
                              f" > seq_len {self.cfg.seq_len}")
-        tok = torch.as_tensor(list(tokens), dtype=torch.long,
-                              device=self.device)
-        self._hist[self.pos:self.pos + n] = tok
+
+    def _prefill_rows(self, n: int, rows, want_logits: bool
+                      ) -> Optional[torch.Tensor]:
+        """The chunked prefill of n rows, `rows(off, m)` giving the (m, D)
+        embeddings of rows off..off+m-1."""
+        t0 = time.perf_counter()
         logits = None
         with torch.no_grad():
             for off in range(0, n, self.prefill_chunk):
-                chunk = tok[off:off + self.prefill_chunk]
-                last = off + chunk.shape[0] == n
-                x = embed_tokens(self.params, self.cfg, chunk)
-                logits = forward(self.params, self.cfg, self.cache, x,
-                                 self.pos,
-                                 chunk.shape[0] - 1 if last and want_logits
-                                 else None, w8a8=self.w8a8)
-                self.pos += chunk.shape[0]
+                m = min(self.prefill_chunk, n - off)
+                last = off + m == n
+                logits = forward(self.params, self.cfg, self.cache,
+                                 rows(off, m), self.pos,
+                                 m - 1 if last and want_logits else None,
+                                 w8a8=self.w8a8)
+                self.pos += m
         self._sync()
         self.metrics.prefill_tokens += n
         self.metrics.prefill_seconds += time.perf_counter() - t0

@@ -1,12 +1,25 @@
-"""WebSocket serving backend, text only (counterpart of
-`lmrs_tpu/serve/backend.py`, which speaks lm.rs's backend protocol).
+"""WebSocket serving backend (counterpart of `lmrs_tpu/serve/backend.py`,
+which speaks lm.rs's backend protocol).
 
-  client -> server: {"text": "..."}   (an "image" field is ignored)
-  server -> client: {"category": "STATUS" | "OUTPUT", "text": "..."}
+  client -> server: {"text": "...", "image": "<base64>"?}
+  server -> client: {"category": "STATUS" | "OUTPUT" | "FEATURE",
+                     "text": "..."}
+    FEATURE "multimodal" at connect, when the server runs --multimodal
+    STATUS  "Preprocessing the image", "Encoding the image", "Filling KV
+            cache" while an image is taken in
     STATUS  "Server at capacity — try again later" (batch mode, no slot)
     STATUS  "Context window full — start a new session"
     OUTPUT  token pieces, streamed during generation
     OUTPUT  "<eos>" at the end of each generation
+
+A --multimodal server (Phi-3.5-vision) decodes an "image" field with PIL,
+encodes it (`models.phi3v.encode_image_to_embeds`, --num-crops crops at
+most) and prefills its rows into the conversation's cache before the
+message's text, which then ends with PHI_TURN_SUFFIX instead of the chat
+template.  lm.rs's backend counts the image's rows twice in its position
+(it adds the new absolute position to the old one); the engine and the
+scheduler keep the position themselves, so that fault has no counterpart
+here.  A text-only server drops an "image" field.
 
 One connection is one conversation.  Without --batch each connection gets
 its own `Engine` (KV cache and position) over the shared weights, and
@@ -24,18 +37,22 @@ Usage:
     python -m lmrs_tpu_torch.serve.backend --model m.lmrs --tokenizer
         tokenizer.bin [--ip 127.0.0.1] [--port 5000] [--batch N]
         [--cache-dtype int8] [--spec-k K] [--device cpu]
+        [--multimodal] [--num-crops N]
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import base64
 import datetime
+import io
 import json
 import os
 from typing import List, Optional
 
-from lmrs_tpu_torch.cli.chat import LLAMA_SYSTEM_PREFIX, LLAMA_SYSTEM_SUFFIX
+from lmrs_tpu_torch.cli.chat import (LLAMA_SYSTEM_PREFIX, LLAMA_SYSTEM_SUFFIX,
+                                     PHI_TURN_SUFFIX)
 from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
 
 # prompt rows per prefill chunk, single-stream and batched: one chunk per
@@ -43,6 +60,8 @@ from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
 PREFILL_CHUNK = 256
 CAPACITY = "Server at capacity — try again later"
 CONTEXT_FULL = "Context window full — start a new session"
+IMAGE_STATUS = ("Preprocessing the image", "Encoding the image",
+                "Filling KV cache")
 
 
 def _response(category: str, text: str) -> str:
@@ -53,14 +72,12 @@ class BackendServer:
     def __init__(self, model_path: str, tokenizer_path: str,
                  temperature: float = 0.7, top_p: float = 0.9,
                  seed: Optional[int] = None, multimodal: bool = False,
-                 cache_dtype: str = "bfloat16",
+                 num_crops: int = 1, cache_dtype: str = "bfloat16",
                  max_new_tokens: Optional[int] = None, batch: int = 0,
                  max_ctx: Optional[int] = None, tp: int = 1, cp: int = 1,
                  spec_k: int = 0, pool_tokens: Optional[int] = None,
                  page_size: int = 512, dp: int = 1, no_paged: bool = False,
                  device=None):
-        if multimodal:
-            raise unsupported("--multimodal", "A13 multimodal")
         if tp > 1 or cp > 1 or dp > 1:
             raise unsupported("--tp / --cp / --dp",
                               "A15 torch.distributed tp/cp")
@@ -68,7 +85,8 @@ class BackendServer:
             raise ValueError("--pool-tokens (paged KV cache) requires "
                              "--batch")
         from lmrs_tpu_torch.io.lmrs import read_lmrs
-        from lmrs_tpu_torch.io.params import params_from_lmrs
+        from lmrs_tpu_torch.io.params import (params_from_lmrs,
+                                              vision_params_from_lmrs)
         from lmrs_tpu_torch.models.transformer import cache_dtype_of
         from lmrs_tpu_torch.tokenizer import Tokenizer
 
@@ -76,7 +94,14 @@ class BackendServer:
         self.tokenizer = Tokenizer.from_file(tokenizer_path)
         self.file = read_lmrs(model_path)
         self.cfg = self.file.cfg
+        if multimodal and not self.cfg.multimodal:
+            raise ValueError("Current model doesn't support multimodality.")
+        self.multimodal = multimodal
+        self.num_crops = num_crops
         self.params = params_from_lmrs(self.file, device=self.device)
+        # the vision encoder and projector, loaded once for all images
+        self.vision = (vision_params_from_lmrs(self.file, device=self.device)
+                       if multimodal else None)
         self.cache_dtype = cache_dtype_of(cache_dtype)
         self.temperature = temperature
         self.top_p = top_p
@@ -123,15 +148,22 @@ class BackendServer:
         if self.scheduler is not None:
             self.scheduler.shutdown()
 
-    def _prompt(self, text: str, first_turn: bool) -> List[int]:
+    def _prompt(self, text: str, first_turn: bool,
+                image_turn: bool = False) -> List[int]:
         tokens: List[int] = []
         if self.cfg.model_type == ModelType.LLAMA and first_turn:
             tokens.extend(LLAMA_SYSTEM_PREFIX)
             today = datetime.date.today().strftime("%d %b %Y")
             tokens.extend(self.tokenizer.encode(today))
             tokens.extend(LLAMA_SYSTEM_SUFFIX)
-        tokens.extend(self.tokenizer.encode(
-            text.strip(), chat_format=True, model_type=self.cfg.model_type))
+        if image_turn:
+            # the turn right after an image: no chat template, its own end
+            tokens.extend(self.tokenizer.encode(text.strip()))
+            tokens.extend(PHI_TURN_SUFFIX)
+        else:
+            tokens.extend(self.tokenizer.encode(
+                text.strip(), chat_format=True,
+                model_type=self.cfg.model_type))
         return tokens
 
     def _stop_tokens(self):
@@ -140,19 +172,72 @@ class BackendServer:
         return {self.tokenizer.eos,
                 *EXTRA_STOP_TOKENS.get(self.cfg.model_type, ())}
 
-    @staticmethod
-    def _text(raw):
-        """The message's text, or None for a frame to skip (malformed JSON,
-        a binary frame, no "text"), as lm.rs skips them.  An "image" field
-        is dropped: the server is text-only (`multimodal=True` raises, A13),
-        and the JAX backend reads the image only when it is multimodal."""
+    def _message(self, raw):
+        """(text, base64 image or None) of a message, or None for a frame
+        to skip (malformed JSON, a binary frame, no "text"), as lm.rs skips
+        them.  A text-only server drops an "image" field, as the JAX
+        backend does."""
         try:
             msg = json.loads(raw)
             text = msg["text"]
         except (ValueError, KeyError, TypeError) as e:
             print(f"Error parsing message: {e}")
             return None
-        return text
+        return text, (msg.get("image") or None) if self.multimodal else None
+
+    def _encode_image(self, image_b64: str):
+        """The image's embedding rows (PIL decodes the base64 bytes)."""
+        from lmrs_tpu_torch.models.phi3v import (encode_image_to_embeds,
+                                                 load_image)
+
+        img = load_image(io.BytesIO(base64.b64decode(image_b64)))
+        return encode_image_to_embeds(self.vision, self.params, self.cfg,
+                                      img, self.num_crops)
+
+    async def _ingest_image(self, ws, engine, image_b64: str) -> bool:
+        """Single stream: encode the image and prefill its rows into the
+        connection's engine, under the GPU lock.  False (after the context
+        status) when its rows and a turn after them do not fit."""
+        await ws.send(_response("STATUS", IMAGE_STATUS[0]))
+        await ws.send(_response("STATUS", IMAGE_STATUS[1]))
+        loop = asyncio.get_running_loop()
+        async with self.gpu_lock:
+            embeds = await loop.run_in_executor(
+                None, lambda: self._encode_image(image_b64))
+            await ws.send(_response("STATUS", IMAGE_STATUS[2]))
+            if engine.pos + embeds.shape[0] + 1 >= self.cfg.seq_len:
+                await ws.send(_response("STATUS", CONTEXT_FULL))
+                return False
+            await loop.run_in_executor(
+                None, lambda: engine.prefill_embeds(embeds,
+                                                    want_logits=False))
+        return True
+
+    async def _ingest_image_batched(self, ws, lease, image_b64: str) -> bool:
+        """Batched: encode the image and prefill its rows into the leased
+        slot, both on the scheduler's thread between decode chunks.  False
+        (after the context status) when its rows and a turn after them do
+        not fit."""
+        thread = self.scheduler
+        sched = thread.sched
+        await ws.send(_response("STATUS", IMAGE_STATUS[0]))
+        await ws.send(_response("STATUS", IMAGE_STATUS[1]))
+
+        def encode_and_fill():
+            embeds = self._encode_image(image_b64)
+            if (sched.slots[lease.slot_idx].pos + embeds.shape[0] + 1
+                    >= sched.S):
+                return False
+            sched.prefill_embeds(lease, embeds)
+            return True
+
+        loop = asyncio.get_running_loop()
+        fits = await loop.run_in_executor(
+            None, lambda: thread.call(encode_and_fill))
+        await ws.send(_response("STATUS", IMAGE_STATUS[2]))
+        if not fits:
+            await ws.send(_response("STATUS", CONTEXT_FULL))
+        return fits
 
     async def _stream(self, ws, queue: asyncio.Queue, finished) -> None:
         """Send pieces from `queue` until the awaitable `finished` is done,
@@ -185,11 +270,19 @@ class BackendServer:
                                max_new_tokens=self.max_new_tokens,
                                speculative_k=self.spec_k)
         stop_tokens = self._stop_tokens()
+        if self.multimodal:
+            await ws.send(_response("FEATURE", "multimodal"))
         async for raw in ws:
-            text = self._text(raw)
-            if text is None:
+            msg = self._message(raw)
+            if msg is None:
                 continue
-            prompt_tokens = self._prompt(text, engine.pos == 0)
+            text, image = msg
+            image_turn = image is not None
+            if image_turn and not await self._ingest_image(ws, engine,
+                                                           image):
+                await ws.send(_response("OUTPUT", "<eos>"))
+                continue
+            prompt_tokens = self._prompt(text, engine.pos == 0, image_turn)
             decoder = StreamDecoder(self.tokenizer)
             loop = asyncio.get_running_loop()
             queue: asyncio.Queue = asyncio.Queue()
@@ -230,12 +323,20 @@ class BackendServer:
             return
         stop_tokens = self._stop_tokens()
         first_turn = True
+        if self.multimodal:
+            await ws.send(_response("FEATURE", "multimodal"))
         try:
             async for raw in ws:
-                text = self._text(raw)
-                if text is None:
+                msg = self._message(raw)
+                if msg is None:
                     continue
-                prompt_tokens = self._prompt(text, first_turn)
+                text, image = msg
+                image_turn = image is not None
+                if image_turn and not await self._ingest_image_batched(
+                        ws, lease, image):
+                    await ws.send(_response("OUTPUT", "<eos>"))
+                    continue
+                prompt_tokens = self._prompt(text, first_turn, image_turn)
                 first_turn = False
                 pos = sched.slots[lease.slot_idx].pos
                 if pos + len(prompt_tokens) + 1 >= sched.S:
@@ -290,7 +391,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--top-p", dest="top_p", type=float, default=0.9)
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--multimodal", action="store_true",
-                   help="not ported yet (ROADMAP.md A13)")
+                   help="take images (an \"image\" field, base64) for a "
+                        "multimodal model; PIL decodes them")
+    p.add_argument("--num-crops", dest="num_crops", type=int, default=1,
+                   help="most HD crops of an image besides its global view")
     p.add_argument("--batch", type=int, default=0,
                    help="continuous-batching slots (0: one engine per "
                         "connection)")
@@ -326,6 +430,7 @@ def main(argv=None):
     args = build_argparser().parse_args(argv)
     server = BackendServer(args.model, args.tokenizer, args.temperature,
                            args.top_p, args.seed, args.multimodal,
+                           num_crops=args.num_crops,
                            cache_dtype=args.cache_dtype, batch=args.batch,
                            max_ctx=args.max_ctx, tp=args.tp, cp=args.cp,
                            spec_k=args.spec_k, pool_tokens=args.pool_tokens,

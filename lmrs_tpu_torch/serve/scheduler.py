@@ -300,6 +300,36 @@ class BatchScheduler:
                     if self.paged:
                         self._free_slot_pages(lease.slot_idx)
 
+    def prefill_embeds(self, lease: Lease, embeds: torch.Tensor) -> None:
+        """Prefill precomputed (N, D) embeddings (an image's rows) into a
+        leased conversation's slot at its `pos`, chunk by chunk, without
+        sampling; call it on the scheduler's thread between steps
+        (`SchedulerThread.call`).  Paged, the slot takes the pages for all
+        N rows first (PoolExhausted if the pool cannot give them).  The
+        rows' tokens are recorded as -1, which no prompt matches, so the
+        admission prefix cache never forks them."""
+        slot_idx = lease.slot_idx
+        slot = self.slots[slot_idx]
+        n = embeds.shape[0]
+        if slot.req is not None or slot.pending is not None:
+            raise ValueError(f"slot {slot_idx} is busy with a request")
+        if slot.pos + n + 1 > self.S:
+            raise ValueError(f"image prefix of {n} embeddings at pos "
+                             f"{slot.pos} exceeds max context {self.S}")
+        if self.paged and not self._ensure_pages(slot_idx, slot.pos + n):
+            raise PoolExhausted(f"slot {slot_idx}: no free pages for "
+                                f"{n} embedding rows at pos {slot.pos}")
+        x = embeds.to(self.device, torch.float32)
+        pos0 = slot.pos
+        for off in range(0, n, self.prefill_chunk):
+            slot.pos += self._prefill_chunk(slot_idx, x, off)[1]
+        # list index == row position: a previous turn's final (never
+        # cached) token at pos0 is overwritten by the embeddings
+        del slot.tokens[pos0:]
+        slot.tokens.extend([-1] * n)
+        self._h_dirty.add(slot_idx)
+        self._release_window_pages()
+
     @property
     def active(self) -> int:
         return sum(1 for s in self.slots if s.req is not None)
@@ -467,6 +497,18 @@ class BatchScheduler:
                 logit_idx=logit_idx, w8a8=self.w8a8)
             return logits[0]
 
+    def _prefill_chunk(self, slot_idx: int, x: torch.Tensor, off: int):
+        """The next chunk of the rows x (N, D) from row `off` into the slot
+        at its pos, padded to `_pad_rows`; returns (the logits of the
+        chunk's last row, the chunk's real rows)."""
+        pos = self.slots[slot_idx].pos
+        chunk = min(self.prefill_chunk, x.shape[0] - off)
+        pad = min(_pad_rows(chunk), self.S + self._slack - pos)
+        xt = x[off:off + chunk]
+        if chunk < pad:
+            xt = torch.nn.functional.pad(xt, (0, 0, 0, pad - chunk))
+        return self._prefill_call(slot_idx, xt, pos, chunk - 1, chunk), chunk
+
     # ------------------------------------------------------------------
     def _admit(self):
         with self._lock:
@@ -559,7 +601,8 @@ class BatchScheduler:
         """(longest shared token prefix, donor slot) over the resident
         slots, capped at len(prompt) - 1 so that the tail prefill still
         yields the first token's logits; slots mid-prefill, free slots and
-        slots with window-freed pages are no donors."""
+        slots with window-freed pages are no donors, and a match ends at
+        the first row with no token (-1: an image's row)."""
         best, donor = 0, -1
         for i, s in enumerate(self.slots):
             if i == exclude or s.pending is not None:
@@ -570,7 +613,7 @@ class BatchScheduler:
                 continue
             limit = min(len(s.tokens), s.pos, len(prompt) - 1)
             n = 0
-            while n < limit and s.tokens[n] == prompt[n]:
+            while n < limit and s.tokens[n] == prompt[n] >= 0:
                 n += 1
             if n > best:
                 best, donor = n, i
@@ -584,18 +627,11 @@ class BatchScheduler:
             req = slot.pending
             if req is None:
                 continue
-            x = slot.pending_x
-            n = x.shape[0]
+            n = slot.pending_x.shape[0]
             off = slot.pending_off
-            chunk = min(self.prefill_chunk, n - off)
-            pad = min(_pad_rows(chunk), self.S + self._slack - slot.pos)
-            xt = x[off:off + chunk]
-            if xt.shape[0] < pad:
-                xt = torch.nn.functional.pad(xt, (0, 0, 0, pad - chunk))
-            last = off + chunk >= n
             try:
-                logits = self._prefill_call(slot_idx, xt, slot.pos,
-                                            chunk - 1, chunk)
+                logits, chunk = self._prefill_chunk(slot_idx,
+                                                    slot.pending_x, off)
             except PoolExhausted:
                 req.error = "kv page pool exhausted mid-prefill"
                 slot.pending = None
@@ -607,6 +643,7 @@ class BatchScheduler:
                 if req.on_done is not None:
                     req.on_done(req.out)
                 continue
+            last = off + chunk >= n
             start_pos = slot.pos
             slot.pos += chunk
             # list index == row position: a lease's next turn overwrites

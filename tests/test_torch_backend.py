@@ -10,6 +10,8 @@ and the batched scheduler (token for token: tests/test_torch_scheduler.py).
 """
 
 import asyncio
+import base64
+import io
 import json
 import string
 
@@ -20,7 +22,7 @@ from lmrs_tpu_torch.config import ModelType, QuantType
 from lmrs_tpu_torch.io.lmrs import write_lmrs
 from lmrs_tpu_torch.io.synthetic import random_weights, tiny_config
 from lmrs_tpu_torch.serve.backend import (CAPACITY, CONTEXT_FULL,
-                                          BackendServer, main)
+                                          IMAGE_STATUS, BackendServer, main)
 from lmrs_tpu_torch.tokenizer import Tokenizer
 
 torch.set_num_threads(1)
@@ -177,8 +179,7 @@ def test_context_full(artifacts, batch):
 def test_unsupported_options_raise(artifacts):
     model_path, tok_path = artifacts
     for kw, entry in ((dict(tp=2), "A15"), (dict(cp=2), "A15"),
-                      (dict(dp=2, batch=2), "A15"),
-                      (dict(multimodal=True), "A13")):
+                      (dict(dp=2, batch=2), "A15")):
         with pytest.raises(NotImplementedError, match=entry):
             BackendServer(model_path, tok_path, device="cpu", **kw)
     with pytest.raises(ValueError, match="requires --batch"):
@@ -270,3 +271,70 @@ def test_live_websocket_server(artifacts, single_replies):
         assert asyncio.run(go()) == single_replies[0]
     finally:
         srv.shutdown()
+
+
+def _tokenizer_file(path, size):
+    vocab = ["<pad>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    vocab += list(" " + string.ascii_letters + ".,!?")
+    vocab += ["~"] * (size - len(vocab))
+    Tokenizer(vocab, [0.0] * len(vocab), 1, 2).save(path)
+    return path
+
+
+@pytest.fixture(scope="module")
+def mm_artifacts(tmp_path_factory):
+    """A tiny Phi-3.5-vision file (tests/test_torch_multimodal.py), its
+    tokenizer, and one message with a PNG image."""
+    from PIL import Image
+
+    from test_torch_multimodal import image, write_tiny_mm
+
+    d = tmp_path_factory.mktemp("mm_backend")
+    model_path = write_tiny_mm(str(d / "mm.lmrs"))
+    tok_path = _tokenizer_file(str(d / "tok.bin"), 32064)
+    buf = io.BytesIO()
+    Image.fromarray(image(2, (90, 60, 3))).save(buf, format="PNG")
+    msg = json.dumps({"text": "What is in the image?",
+                      "image": base64.b64encode(buf.getvalue()).decode()})
+    return model_path, tok_path, msg
+
+
+@pytest.mark.parametrize("batch", [0, 2])
+def test_multimodal_image_turn_matches_jax_backend(mm_artifacts, batch):
+    """--multimodal, single stream and --batch 2: FEATURE at connect, the
+    three image STATUS lines, then the JAX backend's greedy replies to the
+    image turn and to a text turn after it, text for text."""
+    from lmrs_tpu.serve.backend import BackendServer as JaxBackendServer
+
+    model_path, tok_path, msg = mm_artifacts
+    convo = [msg, MSGS[1]]
+    jsrv = JaxBackendServer(model_path, tok_path, temperature=0.0,
+                            max_new_tokens=8, multimodal=True)
+    jconn = Conn(convo)
+    talk(jsrv, jconn)
+    srv = BackendServer(model_path, tok_path, temperature=0.0,
+                        max_new_tokens=8, multimodal=True, batch=batch,
+                        device="cpu")
+    try:
+        conn = Conn(convo)
+        (turns, status), = talk(srv, conn)
+    finally:
+        srv.shutdown()
+    assert conn.sent[0] == {"category": "FEATURE", "text": "multimodal"}
+    assert jconn.sent[0] == conn.sent[0]
+    assert status == list(IMAGE_STATUS) == replies(jconn)[1]
+    assert len(turns) == 2 and turns == replies(jconn)[0]
+
+
+def test_multimodal_refuses_a_text_only_model(artifacts, mm_artifacts):
+    model_path, tok_path = artifacts
+    with pytest.raises(ValueError, match="doesn't support multimodality"):
+        BackendServer(model_path, tok_path, device="cpu", multimodal=True)
+    # a multimodal model served without --multimodal drops the image
+    mm_model, mm_tok, msg = mm_artifacts
+    srv = BackendServer(mm_model, mm_tok, temperature=0.0, max_new_tokens=8,
+                        device="cpu")
+    conn = Conn([msg])
+    (turns, status), = talk(srv, conn)
+    assert not status and len(turns) == 1
+    assert all(m["category"] != "FEATURE" for m in conn.sent)

@@ -1165,3 +1165,191 @@ def test_flash_rows_independent_of_t_on_card(cuda_device, cache, hd, kh, g,
         rows = torch.cat([_single(cache, sq[t:t + 1].contiguous(), *one,
                                   pi + t, **kw) for t in range(t_q)])
         assert torch.equal(whole, rows), (cache, pi)
+
+
+# --------------------------------------------------------------------------
+# The multimodal path (Phi-3.5-vision): the exact matmul, the CLIP encoder
+# and the image prefix on the card against the same code on the CPU.  No
+# kernel of its own: the vision matmuls are f32 torch products of exact
+# integers, the text side the Phi path's kernels.  Tolerances: the exact
+# matmul's integer part bit for bit (integers below 2^24 in f32) and its
+# output within 1e-6 of the output scale (the same elementwise f32 ops and
+# group sums in the same order); the encoder with its weights dequantized
+# to f32 within 1e-4 of the output scale (f32 sums in another order); the
+# encoder and the image rows as they run, with lm.rs's activation
+# quantizer, within 1e-2 of the output scale and 1e-4 on at least 90% of
+# the rows: the card's f32 sums (softmax, layernorm, exp) differ from the
+# CPU's in the last bit, and where an activation lies within that bit of a
+# rounding boundary it rounds to the neighbouring integer on one side,
+# which moves the row it feeds by up to ~3e-3 of the scale at these
+# narrow widths (1.3% of the encoder's rows past 1e-4 measured on the
+# card); logits 1e-2 of the logit scale, as the small models above.
+# --------------------------------------------------------------------------
+
+def _close_up_to_rounding_steps(got, want):
+    err = (got.float().cpu() - want.float()).abs().reshape(
+        -1, want.shape[-1])
+    scale = want.abs().max().item()
+    assert err.max().item() <= 1e-2 * scale
+    assert (err > 1e-4 * scale).any(dim=1).float().mean().item() <= 0.1
+
+
+def _float_vision(vp):
+    """The encoder's params with its matrices dequantized to f32."""
+    import dataclasses
+
+    from lmrs_tpu_torch.config import QuantType
+    from lmrs_tpu_torch.models.vision import VISION_MATRICES
+    from lmrs_tpu_torch.quant import QTensor, dequantize
+
+    lw = vp.layers
+    return dataclasses.replace(vp, layers=dataclasses.replace(lw, **{
+        n: QTensor(dequantize(getattr(lw, n)), None, QuantType.NONE, 128,
+                   getattr(lw, n).out_features, getattr(lw, n).in_features)
+        for n in VISION_MATRICES}))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", ["Q8_0", "Q4_0"])
+@pytest.mark.parametrize("t,o,k", [(2885, 4096, 1024), (2885, 1024, 4096)])
+def test_exact_matmul_card_matches_cpu(cuda_device, quant, t, o, k):
+    """The vision encoder's w1 and w2 over 5 crops of 577 rows."""
+    from lmrs_tpu_torch.config import QuantType
+    from lmrs_tpu_torch.ops.matmul import group_ints, qmatmul_exact
+    from lmrs_tpu_torch.quant import (QTensor, quantize_q4_act,
+                                      quantize_q8_act, quantize_q40_np,
+                                      quantize_q80_np, unpack_q4)
+
+    rng = np.random.default_rng(t + o)
+    w = rng.normal(0, 0.02, (o, k)).astype(np.float32)
+    if quant == "Q8_0":
+        q, s, _ = quantize_q80_np(w, 128)
+        q = q.reshape(o, k)
+    else:
+        q, s, _ = quantize_q40_np(w, 128)
+        q = q4_file_to_runtime_np(q.reshape(o, k // 2), 128)
+    wt = QTensor(torch.from_numpy(q.copy()),
+                 torch.from_numpy(s.reshape(o, k // 128).copy()),
+                 QuantType[quant], 128, o, k)
+    x = torch.from_numpy(rng.normal(0, 1, (t, k)).astype(np.float32))
+    wc = QTensor(wt.q.to(cuda_device), wt.s.to(cuda_device), wt.qtype, 128,
+                 o, k)
+    want = qmatmul_exact(x, wt)
+    got = qmatmul_exact(x.to(cuda_device), wc).cpu()
+    scale = want.abs().max().item()
+    assert (got - want).abs().max().item() <= 1e-6 * scale
+    quantize = quantize_q8_act if quant == "Q8_0" else quantize_q4_act
+    xq, xs = quantize(x, 128)
+    cq, cs = quantize(x.to(cuda_device), 128)
+    assert torch.equal(cq.cpu(), xq) and torch.equal(cs.cpu(), xs)
+    wq = wt.q if quant == "Q8_0" else unpack_q4(wt.q, 128)
+    ints = group_ints(xq, wq, 128)
+    assert torch.equal(group_ints(cq, wq.to(cuda_device), 128).cpu(), ints)
+
+
+def _narrow_multimodal(path, vdim=256):
+    """A small Phi-3.5-vision file with kernel-legal text widths (gs 128,
+    head_dim 96 padded to a 128 cache head) and a narrow CLIP encoder."""
+    from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
+    from lmrs_tpu_torch.io.lmrs import write_lmrs
+    from lmrs_tpu_torch.io.synthetic import random_multimodal_weights
+    from lmrs_tpu_torch.models.phi3v import ProcessorConfig
+    from lmrs_tpu_torch.models.vision import VisionConfig
+
+    cfg = ModelConfig.make(
+        ModelType.PHI, dim=512, hidden_dim=1024, n_layers=2, n_heads=4,
+        head_dim=96, n_kv_heads=4, vocab_size=32064, seq_len=1024,
+        rms_norm_eps=1e-5, rope_theta=10000.0, quant=QuantType.Q8_0,
+        group_size=128, multimodal=True)
+    vc = VisionConfig(dim=vdim, hidden_dim=4 * vdim, n_layers=3, n_heads=4,
+                      head_dim=vdim // 4, quant=QuantType.Q8_0,
+                      group_size=128)
+    pc = ProcessorConfig(hidden_dim=4 * vdim, text_dim=512,
+                         quant=QuantType.Q8_0, group_size=128)
+    write_lmrs(path, cfg, random_multimodal_weights(cfg, vc, pc, 5),
+               vision_cfg=vc, processor_cfg=pc)
+    return path
+
+
+@pytest.mark.gpu
+def test_vision_forward_card_matches_cpu(cuda_device, tmp_path):
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import vision_params_from_lmrs
+    from lmrs_tpu_torch.models.vision import vision_forward
+
+    f = read_lmrs(_narrow_multimodal(str(tmp_path / "mm.lmrs")))
+    vc = f.vision_cfg
+    patches = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (3, vc.n_patches, 588)).astype(np.float32))
+    out, flt = {}, {}
+    for dev in ("cpu", "cuda"):
+        _, vp, _, _ = vision_params_from_lmrs(f, device=dev)
+        out[dev] = vision_forward(vp, vc, patches.to(dev))
+        flt[dev] = vision_forward(_float_vision(vp), vc, patches.to(dev))
+    assert torch.isfinite(out["cuda"]).all()
+    assert _rel_err(flt["cuda"].cpu(), flt["cpu"]) <= 1e-4
+    _close_up_to_rounding_steps(out["cuda"], out["cpu"])
+
+
+@pytest.mark.gpu
+def test_prefill_embeds_card_matches_cpu(cuda_device, tmp_path):
+    """An image (2 x 2 crops) to its 764 rows, prefilled before a turn:
+    the rows, the turn's logits and three decode steps' on the card
+    against the CPU; then greedy on the card launches the Phi Q8_0 path's
+    kernels and no other."""
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import (params_from_lmrs,
+                                          vision_params_from_lmrs)
+    from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    f = read_lmrs(_narrow_multimodal(str(tmp_path / "mm.lmrs")))
+    img = np.random.default_rng(3).integers(0, 256, (300, 400, 3),
+                                            dtype=np.uint8)
+    turn = [450, 311, 7321, 29973, 32007, 29871, 13, 32001, 29871, 13]
+    rows, logits = {}, {}
+    for dev in ("cpu", "cuda"):
+        params = params_from_lmrs(f, device=dev)
+        rows[dev] = encode_image_to_embeds(
+            vision_params_from_lmrs(f, device=dev), params, f.cfg, img, 4)
+        # the logits from the same rows: the text path's kernels alone
+        eng = Engine(f.cfg, params, device=dev, prefill_chunk=256)
+        eng.prefill_embeds(rows["cpu"].to(dev), want_logits=False)
+        out = [eng.prefill(turn)] + [eng.decode_step(t) for t in (5, 6, 7)]
+        logits[dev] = torch.stack([o.float().cpu() for o in out])
+    assert rows["cuda"].shape == (764, 512)
+    _close_up_to_rounding_steps(rows["cuda"], rows["cpu"])
+    a, b = logits["cuda"], logits["cpu"]
+    assert torch.isfinite(a).all()
+    assert (a - b).abs().max().item() <= 1e-2 * b.abs().max().item() + 1e-4
+    eng = Engine(f.cfg, params, device="cuda")
+    reset_launches()
+    eng.prefill_embeds(rows["cuda"], want_logits=False)
+    toks = eng.generate(turn, GenerationConfig(temperature=0.0,
+                                               max_new_tokens=8))
+    assert len(toks) == 8 and all(0 <= t < 32064 for t in toks)
+    assert {k for k, n in launches().items() if n > 0} == {
+        "q8_gemm", "flash_attention", "flash_merge", "q8_gemv_i8",
+        "q8_gemv"}
+
+
+@pytest.mark.gpu
+def test_image_file_decodes_on_card(cuda_device, tmp_path):
+    """An image file goes through PIL (skipped where PIL is missing) to
+    the same rows as its decoded array."""
+    Image = pytest.importorskip("PIL.Image")
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import (params_from_lmrs,
+                                          vision_params_from_lmrs)
+    from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
+
+    f = read_lmrs(_narrow_multimodal(str(tmp_path / "mm.lmrs"), vdim=128))
+    img = np.random.default_rng(4).integers(0, 256, (120, 90, 3),
+                                            dtype=np.uint8)
+    png = str(tmp_path / "img.png")
+    Image.fromarray(img).save(png)
+    params = params_from_lmrs(f, device="cuda")
+    vision = vision_params_from_lmrs(f, device="cuda")
+    a = encode_image_to_embeds(vision, params, f.cfg, png, 1)
+    b = encode_image_to_embeds(vision, params, f.cfg, img, 1)
+    assert torch.equal(a, b)

@@ -113,8 +113,7 @@ def test_chat_cli_answers_on_cpu(tmp_path):
     assert reply(spec.stdout) == reply(out.stdout)
     assert "Speculative: " in spec.stdout and "drafts accepted" in spec.stdout
     # what is not ported yet still raises, naming its ROADMAP entry
-    for flags, entry in ((["--image", "x.png"], "A13"), (["--tp", "2"], "A15"),
-                         (["--cp", "2"], "A15")):
+    for flags, entry in ((["--tp", "2"], "A15"), (["--cp", "2"], "A15")):
         bad = subprocess.run(base + flags, input="", capture_output=True,
                              text=True, timeout=120, env=env)
         assert bad.returncode != 0 and entry in bad.stderr
@@ -157,3 +156,60 @@ def test_chat_cli_q8_int8_cache_on_cpu(tmp_path):
         at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
         assert lines[at[0] + 1].strip()
 
+
+
+def test_chat_cli_image_turn_on_cpu(tmp_path):
+    """--image on a tiny Phi-3.5-vision file: the image is encoded and
+    prefilled, and the first turn's greedy reply is the Engine's after
+    prefill_embeds of the same rows and the image turn's tokens (the text
+    without the chat template, then PHI_TURN_SUFFIX).  A text-only model
+    refuses --image."""
+    from PIL import Image
+
+    from lmrs_tpu_torch.cli.chat import PHI_TURN_SUFFIX
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import (params_from_lmrs,
+                                          vision_params_from_lmrs)
+    from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+    from test_torch_multimodal import image, write_tiny_mm
+
+    model = write_tiny_mm(str(tmp_path / "mm.lmrs"))
+    j, _ = _pair()
+    fill = 32064 - len(j.vocab)
+    tok = Tokenizer(j.vocab + [f"<unused{i}>" for i in range(fill)],
+                    j.scores + [0.0] * fill, j.bos, j.eos)
+    tok.save(str(tmp_path / "tok.bin"))
+    png = str(tmp_path / "img.png")
+    Image.fromarray(image(3, (50, 70, 3))).save(png)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    base = [sys.executable, "-m", "lmrs_tpu_torch.cli.chat", "--model",
+            model, "--tokenizer", str(tmp_path / "tok.bin"), "--device",
+            "cpu", "--temperature", "0", "--max-new-tokens", "6"]
+    out = subprocess.run(base + ["--image", png, "--num-crops", "2"],
+                         input="hello world\n", capture_output=True,
+                         text=True, timeout=120, env=env, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr
+    assert "Preprocessing the image..." in out.stdout
+    lines = out.stdout.splitlines()
+    at = [i for i, ln in enumerate(lines) if ln.endswith("Assistant:")]
+    f = read_lmrs(model)
+    params = params_from_lmrs(f, device="cpu")
+    eng = Engine(f.cfg, params, device="cpu")
+    eng.prefill_embeds(encode_image_to_embeds(
+        vision_params_from_lmrs(f, "cpu"), params, f.cfg, png, 2),
+        want_logits=False)
+    toks = eng.generate(tok.encode("hello world") + PHI_TURN_SUFFIX,
+                        GenerationConfig(temperature=0.0, max_new_tokens=6),
+                        stop_tokens={tok.eos})
+    dec = StreamDecoder(tok)
+    want = "".join(dec.push(t) for t in toks if t != tok.eos) + dec.flush()
+    assert lines[at[0] + 1] == want
+    # a text-only model: the JAX CLI's message
+    cfg = tiny_config(ModelType.GEMMA, QuantType.Q8_0, vocab_size=4096)
+    write_lmrs(str(tmp_path / "t.lmrs"), cfg, random_weights(cfg, 0))
+    bad = subprocess.run(base[:4] + [str(tmp_path / "t.lmrs")] + base[5:]
+                         + ["--image", png], input="", capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert bad.returncode != 0
+    assert "Cannot use images in a non-multimodal model." in bad.stderr
