@@ -395,14 +395,16 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
                     cache: KVCache, x: torch.Tensor, pos: torch.Tensor,
                     t_q: int = 1, table: Optional[torch.Tensor] = None,
                     logit_idx: Optional[int] = None,
-                    w8a8: bool = True) -> torch.Tensor:
+                    w8a8: bool = True,
+                    want_logits: bool = True) -> Optional[torch.Tensor]:
     """One step of B independent sequences: x (B*t_q, D) float32 holds t_q
     rows per slot, slot by slot, at positions pos[b]..pos[b]+t_q-1 (pos a
     (B,) int32 tensor on the device, never read on the host).  The cache is
     per-slot ((B, L, S, row), `init_batched_kv_cache`) or, with `table` (a
     (B, maxp) int32 page table), a page pool (`init_kv_pool`).  Rows are
     written in place.  Returns the (B*t_q, V) float32 logits, or those of
-    row `logit_idx` alone ((1, V): a prefill chunk needs one).
+    row `logit_idx` alone ((1, V): a prefill chunk needs one), or None
+    without `want_logits` (an image's rows: no classifier runs).
 
     All matmuls run on the B*t_q rows at once, so the weights stream once
     per step whatever B is; only the cache writes and attention are per
@@ -422,6 +424,8 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
     for layer, lw in enumerate(params.layers):
         x = _layer_batched(cfg, x, lw, cache, layer, cos, sin, pos, t_q,
                            dest, table, w8a8)
+    if not want_logits:
+        return None
     if logit_idx is not None:
         x = x[logit_idx:logit_idx + 1]
     return _classify(params, cfg, x)

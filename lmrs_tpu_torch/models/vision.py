@@ -27,7 +27,7 @@ from lmrs_tpu_torch.kernels import cuda
 from lmrs_tpu_torch.ops.activations import quick_gelu
 from lmrs_tpu_torch.ops.matmul import qmatmul_exact
 from lmrs_tpu_torch.ops.norms import layernorm
-from lmrs_tpu_torch.quant import QTensor, _const
+from lmrs_tpu_torch.quant import QTensor, _const, dequantize
 
 N_POSITIONS = 577  # 24 * 24 patches + CLS
 
@@ -106,18 +106,30 @@ class VisionParams:
     pre_ln_b: torch.Tensor             # (D,)
 
 
-def _vlayer(cfg: VisionConfig, h: torch.Tensor,
-            lw: VisionLayerWeights) -> torch.Tensor:
+def vision_params_dequantized(params: VisionParams) -> VisionParams:
+    """The encoder's params with every quantized matrix dequantized to f32
+    (float QTensors): the same tower without lm.rs's activation quantizer,
+    whose rounding steps an f32 sum's last bit can flip."""
+    lw = params.layers
+    return dataclasses.replace(params, layers=dataclasses.replace(lw, **{
+        n: QTensor(dequantize(getattr(lw, n)), None, QuantType.NONE,
+                   getattr(lw, n).group_size, getattr(lw, n).out_features,
+                   getattr(lw, n).in_features)
+        for n in VISION_MATRICES}))
+
+
+def _vlayer(cfg: VisionConfig, h: torch.Tensor, lw: VisionLayerWeights,
+            matmul=qmatmul_exact) -> torch.Tensor:
     """One CLIP encoder layer over (C, T, D)."""
     c, t, d = h.shape
     hs = cfg.head_dim
     e = layernorm(h, lw.ln1_w, lw.ln1_b, cfg.layernorm_eps).reshape(c * t, d)
-    q = qmatmul_exact(e, lw.wq) + lw.wq_b
+    q = matmul(e, lw.wq) + lw.wq_b
     # a tensor divisor: on the card a tensor divided by a Python scalar is
     # a multiply by its reciprocal, not the quotient
     q = q / _const(q, math.sqrt(hs))
-    k = qmatmul_exact(e, lw.wk) + lw.wk_b
-    v = qmatmul_exact(e, lw.wv) + lw.wv_b
+    k = matmul(e, lw.wk) + lw.wk_b
+    v = matmul(e, lw.wv) + lw.wv_b
 
     def heads(a):                                   # (C, H, T, hs)
         return a.reshape(c, t, cfg.n_heads, hs).transpose(1, 2)
@@ -131,19 +143,22 @@ def _vlayer(cfg: VisionConfig, h: torch.Tensor,
     p = p / p.sum(dim=-1, keepdim=True)
     att = (p @ v).transpose(1, 2).reshape(c * t, d)
 
-    o = qmatmul_exact(att, lw.wo) + lw.wo_b
+    o = matmul(att, lw.wo) + lw.wo_b
     h = h + o.reshape(c, t, d)
     e2 = layernorm(h, lw.ln2_w, lw.ln2_b, cfg.layernorm_eps)
-    hid = quick_gelu(qmatmul_exact(e2.reshape(c * t, d), lw.w1) + lw.w1_b)
-    mlp = qmatmul_exact(hid, lw.w2) + lw.w2_b
+    hid = quick_gelu(matmul(e2.reshape(c * t, d), lw.w1) + lw.w1_b)
+    mlp = matmul(hid, lw.w2) + lw.w2_b
     return h + mlp.reshape(c, t, d)
 
 
 def vision_forward(params: VisionParams, cfg: VisionConfig,
-                   patches: torch.Tensor) -> torch.Tensor:
+                   patches: torch.Tensor,
+                   matmul=qmatmul_exact) -> torch.Tensor:
     """patches (C, n_patches, 3 * ps * ps) float32 -> features (C,
     n_patches, D): the penultimate layer's hidden states with the CLS
-    token stripped.  Runs on the patches' device."""
+    token stripped.  Runs on the patches' device.  `matmul(x, w)` computes
+    every weight product of the layers (a check wraps it to hold each call
+    on its own)."""
     c = patches.shape[0]
     if patches.is_cuda:
         cuda.plain_numerics()
@@ -152,5 +167,32 @@ def vision_forward(params: VisionParams, cfg: VisionConfig,
     h = torch.cat([cls, pe], dim=1) + params.position_embedding[None]
     h = layernorm(h, params.pre_ln_w, params.pre_ln_b, cfg.layernorm_eps)
     for l in range(cfg.n_layers - 1):
-        h = _vlayer(cfg, h, params.layers.at(l))
+        h = _vlayer(cfg, h, params.layers.at(l), matmul)
     return h[:, 1:, :]
+
+
+def recording_matmul(matmul=qmatmul_exact):
+    """(a `matmul` for vision_forward that keeps every call's (x, w, y),
+    the list it appends them to): a check holds each call on its own."""
+    calls = []
+
+    def rec(x, w):
+        y = matmul(x, w)
+        calls.append((x, w, y))
+        return y
+
+    return rec, calls
+
+
+def worst_call_error(calls) -> float:
+    """The largest error of the recorded calls' outputs against
+    qmatmul_exact on the CPU on each call's own input and weights, each
+    relative to its output's scale."""
+    worst = 0.0
+    for x, w, y in calls:
+        wc = dataclasses.replace(w, q=w.q.cpu(),
+                                 s=None if w.s is None else w.s.cpu())
+        want = qmatmul_exact(x.cpu(), wc)
+        err = (y.cpu() - want).abs().max().item()
+        worst = max(worst, err / want.abs().max().item())
+    return worst

@@ -7,7 +7,9 @@ which speaks lm.rs's backend protocol).
     FEATURE "multimodal" at connect, when the server runs --multimodal
     STATUS  "Preprocessing the image", "Encoding the image", "Filling KV
             cache" while an image is taken in
-    STATUS  "Server at capacity — try again later" (batch mode, no slot)
+    STATUS  "Could not read the image" (its base64 or image bytes are bad)
+    STATUS  "Server at capacity — try again later" (batch mode: no slot,
+            or no pages of the KV pool for an image's rows)
     STATUS  "Context window full — start a new session"
     OUTPUT  token pieces, streamed during generation
     OUTPUT  "<eos>" at the end of each generation
@@ -19,7 +21,9 @@ message's text, which then ends with PHI_TURN_SUFFIX instead of the chat
 template.  lm.rs's backend counts the image's rows twice in its position
 (it adds the new absolute position to the old one); the engine and the
 scheduler keep the position themselves, so that fault has no counterpart
-here.  A text-only server drops an "image" field.
+here.  A text-only server drops an "image" field.  An image that cannot
+be read, or whose rows the KV pool cannot hold, ends that message with a
+STATUS line and "<eos>" and leaves the conversation as it was.
 
 One connection is one conversation.  Without --batch each connection gets
 its own `Engine` (KV cache and position) over the shared weights, and
@@ -62,6 +66,7 @@ CAPACITY = "Server at capacity — try again later"
 CONTEXT_FULL = "Context window full — start a new session"
 IMAGE_STATUS = ("Preprocessing the image", "Encoding the image",
                 "Filling KV cache")
+IMAGE_UNREADABLE = "Could not read the image"
 
 
 def _response(category: str, text: str) -> str:
@@ -185,25 +190,43 @@ class BackendServer:
             return None
         return text, (msg.get("image") or None) if self.multimodal else None
 
-    def _encode_image(self, image_b64: str):
-        """The image's embedding rows (PIL decodes the base64 bytes)."""
-        from lmrs_tpu_torch.models.phi3v import (encode_image_to_embeds,
-                                                 load_image)
+    async def _decode_image(self, ws, image_b64: str):
+        """The image as (H, W, 3) uint8 (PIL decodes the base64 bytes), or
+        None after the unreadable status when they are not an image."""
+        from lmrs_tpu_torch.models.phi3v import load_image
 
-        img = load_image(io.BytesIO(base64.b64decode(image_b64)))
+        def decode():
+            try:
+                return load_image(io.BytesIO(base64.b64decode(image_b64)))
+            except (ValueError, OSError):   # bad base64; not an image
+                return None
+
+        await ws.send(_response("STATUS", IMAGE_STATUS[0]))
+        img = await asyncio.get_running_loop().run_in_executor(None, decode)
+        if img is None:
+            await ws.send(_response("STATUS", IMAGE_UNREADABLE))
+        return img
+
+    def _encode_image(self, img):
+        """The image's embedding rows."""
+        from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
+
         return encode_image_to_embeds(self.vision, self.params, self.cfg,
                                       img, self.num_crops)
 
     async def _ingest_image(self, ws, engine, image_b64: str) -> bool:
         """Single stream: encode the image and prefill its rows into the
-        connection's engine, under the GPU lock.  False (after the context
-        status) when its rows and a turn after them do not fit."""
-        await ws.send(_response("STATUS", IMAGE_STATUS[0]))
+        connection's engine, under the GPU lock.  False (after its status)
+        when the image cannot be read, or its rows and a turn after them
+        do not fit."""
+        img = await self._decode_image(ws, image_b64)
+        if img is None:
+            return False
         await ws.send(_response("STATUS", IMAGE_STATUS[1]))
         loop = asyncio.get_running_loop()
         async with self.gpu_lock:
             embeds = await loop.run_in_executor(
-                None, lambda: self._encode_image(image_b64))
+                None, lambda: self._encode_image(img))
             await ws.send(_response("STATUS", IMAGE_STATUS[2]))
             if engine.pos + embeds.shape[0] + 1 >= self.cfg.seq_len:
                 await ws.send(_response("STATUS", CONTEXT_FULL))
@@ -216,28 +239,37 @@ class BackendServer:
     async def _ingest_image_batched(self, ws, lease, image_b64: str) -> bool:
         """Batched: encode the image and prefill its rows into the leased
         slot, both on the scheduler's thread between decode chunks.  False
-        (after the context status) when its rows and a turn after them do
-        not fit."""
+        (after its status) when the image cannot be read, its rows and a
+        turn after them do not fit, or the KV pool has no pages for them
+        (the slot keeps its rows and pages)."""
+        from lmrs_tpu_torch.serve.scheduler import PoolExhausted
+
         thread = self.scheduler
         sched = thread.sched
-        await ws.send(_response("STATUS", IMAGE_STATUS[0]))
+        img = await self._decode_image(ws, image_b64)
+        if img is None:
+            return False
         await ws.send(_response("STATUS", IMAGE_STATUS[1]))
 
         def encode_and_fill():
-            embeds = self._encode_image(image_b64)
+            """None, or the status that says why the rows did not go in."""
+            embeds = self._encode_image(img)
             if (sched.slots[lease.slot_idx].pos + embeds.shape[0] + 1
                     >= sched.S):
-                return False
-            sched.prefill_embeds(lease, embeds)
-            return True
+                return CONTEXT_FULL
+            try:
+                sched.prefill_embeds(lease, embeds)
+            except PoolExhausted:
+                return CAPACITY
+            return None
 
         loop = asyncio.get_running_loop()
-        fits = await loop.run_in_executor(
+        failed = await loop.run_in_executor(
             None, lambda: thread.call(encode_and_fill))
         await ws.send(_response("STATUS", IMAGE_STATUS[2]))
-        if not fits:
-            await ws.send(_response("STATUS", CONTEXT_FULL))
-        return fits
+        if failed:
+            await ws.send(_response("STATUS", failed))
+        return failed is None
 
     async def _stream(self, ws, queue: asyncio.Queue, finished) -> None:
         """Send pieces from `queue` until the awaitable `finished` is done,

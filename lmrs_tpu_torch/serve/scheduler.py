@@ -305,9 +305,10 @@ class BatchScheduler:
         leased conversation's slot at its `pos`, chunk by chunk, without
         sampling; call it on the scheduler's thread between steps
         (`SchedulerThread.call`).  Paged, the slot takes the pages for all
-        N rows first (PoolExhausted if the pool cannot give them).  The
-        rows' tokens are recorded as -1, which no prompt matches, so the
-        admission prefix cache never forks them."""
+        N rows first (PoolExhausted if the pool cannot give them: the slot
+        then keeps its pos and gives back the pages it took).  The rows run
+        no classifier.  Their tokens are recorded as -1, which no prompt
+        matches, so the admission prefix cache never forks them."""
         slot_idx = lease.slot_idx
         slot = self.slots[slot_idx]
         n = embeds.shape[0]
@@ -316,13 +317,20 @@ class BatchScheduler:
         if slot.pos + n + 1 > self.S:
             raise ValueError(f"image prefix of {n} embeddings at pos "
                              f"{slot.pos} exceeds max context {self.S}")
+        had = len(slot.pages)
         if self.paged and not self._ensure_pages(slot_idx, slot.pos + n):
+            for i in range(had, len(slot.pages)):
+                self._release_page(slot.pages[i])
+                self._table[slot_idx, i] = 0
+            del slot.pages[had:]
+            self._table_dirty = True
             raise PoolExhausted(f"slot {slot_idx}: no free pages for "
                                 f"{n} embedding rows at pos {slot.pos}")
         x = embeds.to(self.device, torch.float32)
         pos0 = slot.pos
         for off in range(0, n, self.prefill_chunk):
-            slot.pos += self._prefill_chunk(slot_idx, x, off)[1]
+            slot.pos += self._prefill_chunk(slot_idx, x, off,
+                                            want_logits=False)[1]
         # list index == row position: a previous turn's final (never
         # cached) token at pos0 is overwritten by the embeddings
         del slot.tokens[pos0:]
@@ -474,9 +482,11 @@ class BatchScheduler:
                        None if c.v_scale is None else c.v_scale[i])
 
     def _prefill_call(self, slot_idx: int, xt: torch.Tensor, pos: int,
-                      logit_idx: int, real_rows: int) -> torch.Tensor:
+                      logit_idx: Optional[int],
+                      real_rows: int) -> Optional[torch.Tensor]:
         """One prefill chunk (xt padded) into the slot at `pos`; returns
-        the logits of row `logit_idx`.  Paged: raises PoolExhausted when
+        the logits of row `logit_idx` (None: no classifier, no logits).
+        Paged: raises PoolExhausted when
         the pool cannot cover the chunk's REAL rows; the pad overhang
         writes through unallocated table entries into the trash page, so
         padding never costs a page."""
@@ -494,20 +504,25 @@ class BatchScheduler:
             logits = forward_batched(
                 self.params, self.cfg, self.cache, xt, p, t_q=xt.shape[0],
                 table=self._table_dev[slot_idx:slot_idx + 1],
-                logit_idx=logit_idx, w8a8=self.w8a8)
-            return logits[0]
+                logit_idx=logit_idx, w8a8=self.w8a8,
+                want_logits=logit_idx is not None)
+            return None if logits is None else logits[0]
 
-    def _prefill_chunk(self, slot_idx: int, x: torch.Tensor, off: int):
+    def _prefill_chunk(self, slot_idx: int, x: torch.Tensor, off: int,
+                       want_logits: bool = True):
         """The next chunk of the rows x (N, D) from row `off` into the slot
         at its pos, padded to `_pad_rows`; returns (the logits of the
-        chunk's last row, the chunk's real rows)."""
+        chunk's last row, or None without `want_logits`, the chunk's real
+        rows)."""
         pos = self.slots[slot_idx].pos
         chunk = min(self.prefill_chunk, x.shape[0] - off)
         pad = min(_pad_rows(chunk), self.S + self._slack - pos)
         xt = x[off:off + chunk]
         if chunk < pad:
             xt = torch.nn.functional.pad(xt, (0, 0, 0, pad - chunk))
-        return self._prefill_call(slot_idx, xt, pos, chunk - 1, chunk), chunk
+        return self._prefill_call(slot_idx, xt, pos,
+                                  chunk - 1 if want_logits else None,
+                                  chunk), chunk
 
     # ------------------------------------------------------------------
     def _admit(self):

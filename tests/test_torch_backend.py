@@ -22,7 +22,8 @@ from lmrs_tpu_torch.config import ModelType, QuantType
 from lmrs_tpu_torch.io.lmrs import write_lmrs
 from lmrs_tpu_torch.io.synthetic import random_weights, tiny_config
 from lmrs_tpu_torch.serve.backend import (CAPACITY, CONTEXT_FULL,
-                                          IMAGE_STATUS, BackendServer, main)
+                                          IMAGE_STATUS, IMAGE_UNREADABLE,
+                                          BackendServer, main)
 from lmrs_tpu_torch.tokenizer import Tokenizer
 
 torch.set_num_threads(1)
@@ -338,3 +339,58 @@ def test_multimodal_refuses_a_text_only_model(artifacts, mm_artifacts):
     (turns, status), = talk(srv, conn)
     assert not status and len(turns) == 1
     assert all(m["category"] != "FEATURE" for m in conn.sent)
+
+
+def _mm_server(mm_artifacts, **kw):
+    model_path, tok_path, _ = mm_artifacts
+    return BackendServer(model_path, tok_path, temperature=0.0,
+                         max_new_tokens=8, multimodal=True, device="cpu",
+                         **kw)
+
+
+def _mm_talk(srv, msgs):
+    """(turns, status) of one conversation with a --multimodal server,
+    after its FEATURE line."""
+    conn = Conn(msgs)
+    try:
+        talk(srv, conn)
+    finally:
+        srv.shutdown()
+    assert conn.sent[0] == {"category": "FEATURE", "text": "multimodal"}
+    conn.sent = conn.sent[1:]
+    return replies(conn)
+
+
+def _fresh_reply(mm_artifacts, msg, **kw):
+    """The reply to `msg` as a conversation's first message."""
+    turns, status = _mm_talk(_mm_server(mm_artifacts, **kw), [msg])
+    assert not status and len(turns) == 1
+    return turns[0]
+
+
+@pytest.mark.parametrize("batch", [0, 2])
+@pytest.mark.parametrize("bad", [
+    base64.b64encode(b"these bytes are no image").decode(),
+    "not base64!"])
+def test_multimodal_unreadable_image(mm_artifacts, batch, bad):
+    """An image field that is not base64, or not an image: the unreadable
+    status and "<eos>" end the message, the connection stays open, and the
+    next message is answered as a conversation's first."""
+    msg = json.dumps({"text": "What is in the image?", "image": bad})
+    turns, status = _mm_talk(_mm_server(mm_artifacts, batch=batch),
+                             [msg, MSGS[1]])
+    assert status == [IMAGE_STATUS[0], IMAGE_UNREADABLE]
+    assert turns == ["", _fresh_reply(mm_artifacts, MSGS[1], batch=batch)]
+
+
+def test_multimodal_image_past_the_kv_pool(mm_artifacts):
+    """--batch with a paged pool of 192 rows and an image of 320: the
+    capacity status and "<eos>" end the message, the slot keeps no row
+    and no page of it, and the next message is answered as a
+    conversation's first."""
+    kw = dict(batch=2, pool_tokens=192, page_size=64)
+    srv = _mm_server(mm_artifacts, **kw)
+    turns, status = _mm_talk(srv, [mm_artifacts[2], MSGS[1]])
+    assert srv.scheduler.sched.pages_used() == 0
+    assert status == list(IMAGE_STATUS) + [CAPACITY]
+    assert turns == ["", _fresh_reply(mm_artifacts, MSGS[1], **kw)]

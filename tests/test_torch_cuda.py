@@ -1183,7 +1183,11 @@ def test_flash_rows_independent_of_t_on_card(cuda_device, cache, hd, kh, g,
 # rounding boundary it rounds to the neighbouring integer on one side,
 # which moves the row it feeds by up to ~3e-3 of the scale at these
 # narrow widths (1.3% of the encoder's rows past 1e-4 measured on the
-# card); logits 1e-2 of the logit scale, as the small models above.
+# card); logits 1e-2 of the logit scale, as the small models above.  That
+# end-to-end bound cannot tell a wrong quantizer from those flips (a
+# skipped quantizer or bf16 products move the tower by about as much), so
+# each matmul call of the card's encoder is also held on its own, against
+# the exact arithmetic on the CPU on the input it was given, within 1e-6.
 # --------------------------------------------------------------------------
 
 def _close_up_to_rounding_steps(got, want):
@@ -1192,21 +1196,6 @@ def _close_up_to_rounding_steps(got, want):
     scale = want.abs().max().item()
     assert err.max().item() <= 1e-2 * scale
     assert (err > 1e-4 * scale).any(dim=1).float().mean().item() <= 0.1
-
-
-def _float_vision(vp):
-    """The encoder's params with its matrices dequantized to f32."""
-    import dataclasses
-
-    from lmrs_tpu_torch.config import QuantType
-    from lmrs_tpu_torch.models.vision import VISION_MATRICES
-    from lmrs_tpu_torch.quant import QTensor, dequantize
-
-    lw = vp.layers
-    return dataclasses.replace(vp, layers=dataclasses.replace(lw, **{
-        n: QTensor(dequantize(getattr(lw, n)), None, QuantType.NONE, 128,
-                   getattr(lw, n).out_features, getattr(lw, n).in_features)
-        for n in VISION_MATRICES}))
 
 
 @pytest.mark.gpu
@@ -1275,19 +1264,29 @@ def _narrow_multimodal(path, vdim=256):
 def test_vision_forward_card_matches_cpu(cuda_device, tmp_path):
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import vision_params_from_lmrs
-    from lmrs_tpu_torch.models.vision import vision_forward
+    from lmrs_tpu_torch.models.vision import (recording_matmul,
+                                              vision_forward,
+                                              vision_params_dequantized,
+                                              worst_call_error)
 
     f = read_lmrs(_narrow_multimodal(str(tmp_path / "mm.lmrs")))
     vc = f.vision_cfg
     patches = torch.from_numpy(np.random.default_rng(2).normal(
         0, 1, (3, vc.n_patches, 588)).astype(np.float32))
     out, flt = {}, {}
+    rec, calls = recording_matmul()
     for dev in ("cpu", "cuda"):
         _, vp, _, _ = vision_params_from_lmrs(f, device=dev)
-        out[dev] = vision_forward(vp, vc, patches.to(dev))
-        flt[dev] = vision_forward(_float_vision(vp), vc, patches.to(dev))
+        kw = dict(matmul=rec) if dev == "cuda" else {}
+        out[dev] = vision_forward(vp, vc, patches.to(dev), **kw)
+        flt[dev] = vision_forward(vision_params_dequantized(vp), vc,
+                                  patches.to(dev))
     assert torch.isfinite(out["cuda"]).all()
     assert _rel_err(flt["cuda"].cpu(), flt["cpu"]) <= 1e-4
+    # every matmul of the card's tower is lm.rs's exact arithmetic on the
+    # input it was given
+    assert len(calls) == 6 * (vc.n_layers - 1)
+    assert worst_call_error(calls) <= 1e-6
     _close_up_to_rounding_steps(out["cuda"], out["cpu"])
 
 

@@ -288,3 +288,56 @@ def test_prefill_embeds_context_overflow_raises(mm):
         with pytest.raises(ValueError, match="exceeds max context"):
             s.prefill_embeds(lease, rows[:8])
         assert s.slots[lease.slot_idx].pos == 120
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_scheduler_prefill_embeds_runs_no_classifier(mm, monkeypatch,
+                                                     paged):
+    """An image's rows through a lease sample nothing, so no chunk of
+    them runs the classifier (the Engine's want_logits=False); the turn
+    after them does."""
+    import lmrs_tpu_torch.models.transformer as tt
+
+    _, _, cfg, params, _ = mm
+    calls = []
+    classify = tt._classify
+
+    def counting(*a, **kw):
+        calls.append(1)
+        return classify(*a, **kw)
+
+    monkeypatch.setattr(tt, "_classify", counting)
+    s = _sched(cfg, params, paged)
+    lease = s.new_conversation()
+    s.prefill_embeds(lease, torch.zeros(150, cfg.dim))   # 3 chunks of 64
+    assert s.slots[lease.slot_idx].pos == 150 and not calls
+    req = s.submit(TURN, max_new_tokens=2, temperature=0.0, lease=lease)
+    s.run()
+    assert req.error is None and calls
+    s.end_conversation(lease)
+
+
+def test_scheduler_prefill_embeds_pool_exhausted_keeps_the_slot(mm):
+    """A paged pool that cannot hold an image's rows: PoolExhausted, the
+    slot keeps its pos, rows and pages and gives back the pages it took;
+    rows that fit go in afterwards."""
+    from lmrs_tpu_torch.serve.scheduler import PoolExhausted
+
+    _, _, cfg, params, _ = mm
+    s = BatchScheduler(cfg, params, max_batch=2, prefill_chunk=64,
+                       decode_chunk=4, device="cpu", pool_tokens=192,
+                       page_size=64)
+    lease = s.new_conversation()
+    rows = torch.zeros(200, cfg.dim)
+    s.prefill_embeds(lease, rows[:40])
+    slot = s.slots[lease.slot_idx]
+    assert (slot.pos, len(slot.pages), s.pages_used()) == (40, 1, 1)
+    with pytest.raises(PoolExhausted):
+        s.prefill_embeds(lease, rows)
+    assert (slot.pos, len(slot.pages), s.pages_used()) == (40, 1, 1)
+    assert slot.tokens == [-1] * 40
+    assert not s._table[lease.slot_idx, 1:].any()
+    s.prefill_embeds(lease, rows[:100])
+    assert (slot.pos, len(slot.pages), s.pages_used()) == (140, 3, 3)
+    s.end_conversation(lease)
+    assert s.pages_used() == 0
