@@ -114,7 +114,24 @@ Phases (any failure ends the run with a non-zero exit):
    beside it: F, J, M, D, E, and both greedy streams equal to the
    Engine's up to a near-tie.  Image turn TTFT, prefill of the rows,
    decode tok/s, peak memory, the phase's seconds.
-6. One JSON line of per-kernel results (launches over every path above),
+6. The offline path at full width and depth: a seeded BF16 Llama-3.2-1B
+   checkpoint in the Hugging Face layout (written here: the machine has no
+   `safetensors`), exported by `python -m lmrs_tpu_torch.io.export` to
+   Q8_0 and to Q4_0 (seconds, group errors).  2,048 seeded tokens scored
+   teacher-forced in 128-row chunks on an f32 cache
+   (`scripts/torch_perplexity.score_tokens`): the checkpoint's f32
+   weights (C only; its logits must spread by 1 or more across the
+   vocabulary), Q8_0 (F, C) and Q4_0 (B, C), each |NLL delta| < 0.05
+   against f32; Q8_0 on the bf16, int8 and int4 caches (C, G, H), each
+   within 0.05 of the f32 cache; Q8_0 at chunk 256 within 1e-3 of chunk
+   128; the CLI on the Q8_0 file equal to the in-process NLL; the f32
+   weights and both files cut to 2 layers (full width) scored on the card
+   and on the CPU's plain versions within 1e-3.  The native tokenizer attached on a 128,256-token
+   vocabulary and equal to the Python merge loop (both timed); the
+   desktop page served, and one turn through BackendServer.handle on the
+   Q8_0 file (D, E, F, C, M).  Each run's launch counts are set to 0 just
+   before and read just after, and its kernel set must be exact.
+7. One JSON line of per-kernel results (launches over every path above),
    the card's name and power limit, and the last line {"ok": true,
    "device": {...}}.
 """
@@ -122,7 +139,9 @@ Phases (any failure ends the run with a non-zero exit):
 from __future__ import annotations
 
 import json
+import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -1403,17 +1422,30 @@ def check_merge(torch, timer, peak, model):
     return cases
 
 
-def synthetic_tokenizer(path: Path, vocab_size: int):
+SMOKE_WORDS = ("hello", " from", " the", " smoke", " run", " card")
+
+
+def synthetic_tokenizer(path: Path, vocab_size: int, merges: bool = False):
+    """A tokenizer.bin of `vocab_size` tokens: specials, byte tokens, the
+    smoke words (score 1) and fillers.  With `merges`, the words' single
+    characters and every shorter prefix of each word come before the
+    fillers, scored by length, so that encoding a text of the words merges
+    character by character up to whole words."""
     from lmrs_tpu_torch.tokenizer import Tokenizer
 
     vocab = ["<pad>", "<eos>", "<bos>"] + [f"<0x{b:02X}>" for b in range(256)]
-    words = ["hello", " from", " the", " smoke", " run", " card"]
-    vocab += words
+    vocab += SMOKE_WORDS
+    scores = [0.0] * len(vocab)
+    scores[259:] = [1.0] * len(SMOKE_WORDS)
+    if merges:
+        pieces = dict.fromkeys([c for w in SMOKE_WORDS for c in w]
+                               + [w[:n] for w in SMOKE_WORDS
+                                  for n in range(2, len(w))])
+        vocab += pieces
+        scores += [len(p) / 10 for p in pieces]
     vocab += [f"<tok{i}>" for i in range(vocab_size - len(vocab))]
-    scores = [0.0] * vocab_size
-    for i, w in enumerate(words):
-        scores[259 + i] = 1.0
-    Tokenizer(vocab, scores, bos=2, eos=1).save(str(path))
+    scores += [0.0] * (vocab_size - len(scores))
+    Tokenizer(vocab, scores, bos=2, eos=1, native=False).save(str(path))
 
 
 def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
@@ -2454,6 +2486,411 @@ def multimodal_phase(torch, work: Path):
     return paths
 
 
+# phase 6: the offline path on Llama-3.2-1B at full width and depth.  A
+# seeded BF16 checkpoint in the Hugging Face layout -> the port's exporter
+# (Q8_0, Q4_0) -> teacher-forced scoring through the port's kernels.
+LLAMA1B = "llama3.2-1b"
+PPL_TOKENS = 2048          # scored tokens (2,047 targets)
+PPL_CHUNK = 128            # the JAX harness's default chunk
+PPL_MATCHED = 0.05         # |NLL per token delta| of a matched model
+CHUNK_TOL = 1e-3           # chunk 128 against chunk 256 (both F)
+CUT_LAYERS = 2             # the card-against-CPU model: full width
+CUT_TOKENS = 256
+CUT_TOL = 1e-3             # NLL per token, card against the CPU
+# the checkpoint's scales: HF's initializer range for the matrices, norm
+# weights near 1, and an embedding (the tied classifier) whose logits
+# spread by several units a row.  A wider embedding (2/sqrt(D)) makes the
+# random 16-layer model chaotic enough that Q4_0's NLL moves past 0.05;
+# PERF.md §6 has the trials
+CKPT_STD, CKPT_NORM_STD = 0.02, 0.05
+CKPT_EMBED_STD = 1.0       # times 1 / sqrt(dim)
+F32_SCORE = {"flash_attention"}
+Q8_SCORE = {"q8_gemm", "flash_attention"}
+Q4_SCORE = {"q4_gemm", "flash_attention"}
+CACHE_SCORE = {"bfloat16": Q8_SCORE,
+               "int8": {"q8_gemm", "flash_attention_i8"},
+               "int4": {"q8_gemm", "flash_attention_i4"}}
+
+
+def write_safetensors(path: Path, entries) -> None:
+    """A minimal safetensors writer (the card's machine has no
+    `safetensors` package): `entries` is a list of (name, dtype name,
+    shape, fill), fill() giving the tensor's raw little-endian bytes; the
+    tensors are written in order, one at a time."""
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    item = {"BF16": 2, "F16": 2, "F32": 4}
+    for name, dtype, shape, _ in entries:
+        n = item[dtype]
+        for d in shape:
+            n *= d
+        header[name] = {"dtype": dtype, "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for name, _, _, fill in entries:
+            data = fill()
+            lo, hi = header[name]["data_offsets"]
+            if len(data) != hi - lo:
+                raise ValueError(f"{name}: {len(data)} bytes, {hi - lo} "
+                                 f"in the header")
+            f.write(data)
+
+
+def llama_checkpoint(torch, cfg, work: Path, seed: int = 0):
+    """A seeded BF16 Llama checkpoint of `cfg` in the Hugging Face layout
+    (one model.safetensors, tied embedding) and its config.json, the
+    values drawn on the card.  Returns (checkpoint, config path)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def fill(shape, std, mean=0.0):
+        def make():
+            t = torch.randn(shape, generator=gen, device="cuda") * std + mean
+            return t.to(torch.bfloat16).view(torch.int16).cpu().numpy() \
+                .tobytes()
+        return make
+
+    D, H, A, KV = cfg.dim, cfg.hidden_dim, cfg.att_dim, cfg.kv_dim
+    entries = [("model.embed_tokens.weight", "BF16", (cfg.vocab_size, D),
+                fill((cfg.vocab_size, D), CKPT_EMBED_STD / D ** 0.5))]
+    for l in range(cfg.n_layers):
+        p = f"model.layers.{l}."
+        for name, shape in (("input_layernorm", (D,)),
+                            ("self_attn.q_proj", (A, D)),
+                            ("self_attn.k_proj", (KV, D)),
+                            ("self_attn.v_proj", (KV, D)),
+                            ("self_attn.o_proj", (D, A)),
+                            ("post_attention_layernorm", (D,)),
+                            ("mlp.gate_proj", (H, D)),
+                            ("mlp.up_proj", (H, D)),
+                            ("mlp.down_proj", (D, H))):
+            norm = len(shape) == 1
+            entries.append((p + name + ".weight", "BF16", shape,
+                            fill(shape, CKPT_NORM_STD if norm else CKPT_STD,
+                                 1.0 if norm else 0.0)))
+    entries.append(("model.norm.weight", "BF16", (D,),
+                    fill((D,), CKPT_NORM_STD, 1.0)))
+    ckpt = work / "model.safetensors"
+    write_safetensors(ckpt, entries)
+    config = dict(
+        architectures=["LlamaForCausalLM"], hidden_size=D,
+        intermediate_size=H, num_hidden_layers=cfg.n_layers,
+        num_attention_heads=cfg.n_heads, head_dim=cfg.head_dim,
+        num_key_value_heads=cfg.n_kv_heads, vocab_size=cfg.vocab_size,
+        max_position_embeddings=cfg.seq_len, rms_norm_eps=cfg.rms_norm_eps,
+        rope_theta=cfg.rope_theta, tie_word_embeddings=True,
+        torch_dtype="bfloat16")
+    cfg_path = work / "config.json"
+    cfg_path.write_text(json.dumps(config))
+    return ckpt, cfg_path
+
+
+def export_cli(ckpt: Path, cfg_path: Path, out: Path, qtype: int):
+    """The port's exporter in a subprocess; returns (seconds, the max and
+    mean group errors it reports)."""
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "lmrs_tpu_torch.io.export", "--files",
+         str(ckpt), "--config", str(cfg_path), "--save-path", str(out),
+         "--type", "LLAMA", "--quantize", "--quantize-type", str(qtype)],
+        capture_output=True, text=True, timeout=600, cwd=str(HERE),
+        env=dict(os.environ, PYTHONPATH=str(HERE)))
+    secs = time.perf_counter() - t0
+    if run.returncode != 0:
+        raise RuntimeError(f"export --quantize-type {qtype}: exit "
+                           f"{run.returncode}:\n{run.stderr[-4000:]}")
+    found = re.search(r"group error across all weights: (\S+?)\. "
+                      r"Mean: (\S+?)\.$", run.stdout, re.M)
+    if found is None:
+        raise RuntimeError(f"export printed no group error:\n{run.stdout}")
+    return secs, float(found[1]), float(found[2])
+
+
+def scored(torch, label, expect, cfg, params, tokens, f32_cache=True,
+           **kw):
+    """score_tokens on the card with the launch counts set to 0 just
+    before and read just after; exactly the kernels of `expect` must have
+    launched."""
+    from torch_perplexity import score_tokens
+
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    r = score_tokens(cfg, params, tokens, **kw)
+    secs = time.perf_counter() - t0
+    counts = launches()
+    launched = {k for k, n in counts.items() if n > 0}
+    log(f"  {label}: NLL/token {r['nll_per_token']!r} over "
+        f"{r['tokens_scored']} tokens in {secs:.2f} s; launches {counts}")
+    if not math.isfinite(r["nll_per_token"]):
+        raise RuntimeError(f"{label}: NLL {r['nll_per_token']}")
+    if launched != expect:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(expect)}")
+    return dict(launches=counts, f32_cache=f32_cache,
+                nll_per_token=r["nll_per_token"],
+                tokens_scored=r["tokens_scored"], score_s=secs)
+
+
+def logit_spread(torch, cfg, params, tokens):
+    """(least, median) over rows of max - min logit across the vocabulary
+    of the first chunk's rows."""
+    from lmrs_tpu_torch.models.transformer import (embed_tokens, forward,
+                                                   init_kv_cache)
+
+    cache = init_kv_cache(cfg, "cuda", torch.float32, seq_len=PPL_CHUNK)
+    x = embed_tokens(params, cfg, torch.as_tensor(tokens[:PPL_CHUNK],
+                                                  device="cuda"))
+    logits = forward(params, cfg, cache, x, 0, "all")
+    spread = (logits.amax(-1) - logits.amin(-1)).cpu()
+    return float(spread.min()), float(spread.median())
+
+
+def cut_card_vs_cpu(label, cfg, load, tokens):
+    """A model cut to CUT_LAYERS layers (full width, embedding and
+    classifier; `load(device)` gives its params): CUT_TOKENS tokens scored
+    on the card and on the CPU's plain versions.  Returns (card NLL, CPU
+    NLL)."""
+    from torch_perplexity import score_tokens
+
+    out = []
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        r = score_tokens(cfg, load(device), tokens[:CUT_TOKENS],
+                         chunk=PPL_CHUNK)
+        out.append(r["nll_per_token"])
+        log(f"  {label}, {CUT_LAYERS} layers, {CUT_TOKENS} tokens on "
+            f"{device}: NLL/token {r['nll_per_token']!r} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    diff = abs(out[0] - out[1])
+    if diff > CUT_TOL:
+        raise RuntimeError(f"{label}: card NLL {out[0]} against the CPU's "
+                           f"{out[1]}: {diff} > {CUT_TOL}")
+    return out
+
+
+def offline_phase(torch, work: Path):
+    """Phase 6: Llama-3.2-1B at full width and depth from a BF16
+    checkpoint through the port's exporter to Q8_0 and Q4_0, scored on the
+    card; the perplexity CLI, the native tokenizer and the desktop app."""
+    import asyncio
+    import threading
+    import urllib.request
+    from http.server import ThreadingHTTPServer
+
+    import numpy as np
+
+    sys.path.insert(0, str(HERE / "scripts"))
+    from lmrs_tpu_torch.cli.desktop import _PageHandler
+    from lmrs_tpu_torch.config import ModelType, QuantType, llama32_1b
+    from lmrs_tpu_torch.io.export import gather_weights
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import params_from_lmrs, params_from_weights
+    from lmrs_tpu_torch.io.safetensors import SafetensorsSource
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.serve.backend import BackendServer
+    from lmrs_tpu_torch.tokenizer import Tokenizer
+
+    t_phase = time.perf_counter()
+    cfg = llama32_1b()
+    t0 = time.perf_counter()
+    ckpt, cfg_path = llama_checkpoint(torch, cfg, work)
+    log(f"  wrote a BF16 checkpoint of {ckpt.stat().st_size / 1e9:.3f} GB "
+        f"in {time.perf_counter() - t0:.1f} s (embedding std "
+        f"{CKPT_EMBED_STD}/sqrt({cfg.dim}), matrices {CKPT_STD}, norms 1 "
+        f"+ N(0, {CKPT_NORM_STD}))")
+    files, exports = {}, {}
+    for qt, name in ((1, "Q8_0"), (2, "Q4_0")):
+        files[name] = work / f"llama1b_{name.lower()}.lmrs"
+        secs, max_err, mean_err = export_cli(
+            ckpt, cfg_path, files[name].with_suffix(""), qt)
+        exports[name] = dict(export_s=secs, max_group_error=max_err,
+                             mean_group_error=mean_err,
+                             lmrs_gb=files[name].stat().st_size / 1e9)
+        log(f"  export {name}: {secs:.1f} s, "
+            f"{exports[name]['lmrs_gb']:.3f} GB, group error max {max_err}"
+            f", mean {mean_err}")
+    rng = np.random.default_rng(6)
+    tokens = rng.integers(0, cfg.vocab_size, PPL_TOKENS)
+    np.save(work / "ids.npy", tokens)
+    paths = {}
+    tag = f"{LLAMA1B} {PPL_TOKENS} tokens, chunk {PPL_CHUNK}"
+
+    # f32: the checkpoint's dense weights, not exported
+    t0 = time.perf_counter()
+    weights = gather_weights(SafetensorsSource([str(ckpt)]), ModelType.LLAMA,
+                             cfg.n_layers)
+    cfg32 = read_lmrs(str(files["Q8_0"])).cfg.replace(quant=QuantType.NONE)
+    params = params_from_weights(cfg32, weights, device="cuda")
+    log(f"  f32 weights read and loaded in {time.perf_counter() - t0:.1f} s")
+    label = f"{tag}: f32 weights, f32 cache"
+    paths[label] = scored(torch, label, F32_SCORE, cfg32, params, tokens,
+                          chunk=PPL_CHUNK)
+    spread = logit_spread(torch, cfg32, params, tokens)
+    paths[label].update(logit_spread_min=spread[0],
+                        logit_spread_median=spread[1])
+    log(f"  f32 logits spread across the vocabulary: least {spread[0]:.3f},"
+        f" median {spread[1]:.3f} (ln V = {math.log(cfg.vocab_size):.4f})")
+    if spread[0] < 1.0:
+        raise RuntimeError(f"f32 logits sit flat: a row spreads {spread[0]}")
+    del params
+    torch.cuda.empty_cache()
+    nll32 = paths[label]["nll_per_token"]
+    # the cut model card against the CPU: with f32 weights (no B or F) the
+    # difference is the attention's rounding alone, the floor under the
+    # Q8_0 and Q4_0 readings below
+    cut32 = cfg32.replace(n_layers=CUT_LAYERS)
+    card, cpu = cut_card_vs_cpu(
+        f"{LLAMA1B} f32", cut32,
+        lambda dev: params_from_weights(cut32, weights, device=dev), tokens)
+    paths[label].update(cut_card_nll=card, cut_cpu_nll=cpu,
+                        cut_abs_diff=abs(card - cpu))
+    del weights
+
+    for name, expect in (("Q8_0", Q8_SCORE), ("Q4_0", Q4_SCORE)):
+        f = read_lmrs(str(files[name]))
+        params = params_from_lmrs(f, device="cuda")
+        label = f"{tag}: {name} weights, f32 cache"
+        paths[label] = scored(torch, label, expect, f.cfg, params, tokens,
+                              chunk=PPL_CHUNK)
+        delta = paths[label]["nll_per_token"] - nll32
+        paths[label].update(delta_vs_f32=delta, **exports[name])
+        log(f"  {name}: NLL delta against f32 {delta:+.6f}")
+        if abs(delta) >= PPL_MATCHED:
+            raise RuntimeError(f"{name}: NLL delta {delta} against f32, "
+                               f"not matched (< {PPL_MATCHED})")
+        if name == "Q8_0":
+            nll8 = paths[label]["nll_per_token"]
+            for cache, kernels in CACHE_SCORE.items():
+                clabel = f"{tag}: Q8_0 weights, {cache} cache"
+                paths[clabel] = scored(torch, clabel, kernels, f.cfg, params,
+                                       tokens, f32_cache=False,
+                                       chunk=PPL_CHUNK, cache_dtype=cache)
+                d = paths[clabel]["nll_per_token"] - nll8
+                paths[clabel]["delta_vs_f32_cache"] = d
+                log(f"  Q8_0, {cache} cache: NLL delta against the f32 "
+                    f"cache {d:+.6f}")
+                if abs(d) >= PPL_MATCHED:
+                    raise RuntimeError(f"{cache} cache: NLL delta {d}")
+            clabel = f"{LLAMA1B} {PPL_TOKENS} tokens, chunk 256: Q8_0 " \
+                     "weights, f32 cache"
+            paths[clabel] = scored(torch, clabel, Q8_SCORE, f.cfg, params,
+                                   tokens, chunk=256)
+            d = paths[clabel]["nll_per_token"] - nll8
+            paths[clabel]["delta_vs_chunk_128"] = d
+            log(f"  Q8_0, chunk 256 against chunk 128: {d:+.3e}")
+            if abs(d) >= CHUNK_TOL:
+                raise RuntimeError(f"chunk 256 against 128: {d}")
+        del params
+        torch.cuda.empty_cache()
+    log(f"  NLL per token: f32 {nll32:.6f}, Q8_0 {nll8:.6f}, Q4_0 "
+        f"{paths[f'{tag}: Q4_0 weights, f32 cache']['nll_per_token']:.6f};"
+        f" ln V = {math.log(cfg.vocab_size):.6f}")
+
+    # the perplexity CLI on the exported Q8_0 file
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, str(HERE / "scripts" / "torch_perplexity.py"),
+         "--model", str(files["Q8_0"]), "--tokens", str(work / "ids.npy")],
+        capture_output=True, text=True, timeout=600, cwd=str(HERE))
+    if cli.returncode != 0:
+        raise RuntimeError(f"torch_perplexity.py exit {cli.returncode}:\n"
+                           f"{cli.stderr[-4000:]}")
+    last = cli.stdout.strip().splitlines()[-1]
+    want = f"nll/tok {nll8:.9f}  over {PPL_TOKENS - 1} tok"
+    log(f"  scripts/torch_perplexity.py in {time.perf_counter() - t0:.1f} "
+        f"s: {last!r}")
+    if not last.endswith(want):
+        raise RuntimeError(f"the CLI printed {last!r}, in process {want!r}")
+
+    # the exported files cut to 2 layers, card against the CPU's plain
+    # versions: B and F against their plain arithmetic in a whole model
+    for name, path in files.items():
+        f = read_lmrs(str(path))
+        f.cfg = f.cfg.replace(n_layers=CUT_LAYERS)   # layers 0, 1 load
+        card, cpu = cut_card_vs_cpu(
+            f"{LLAMA1B} {name}", f.cfg,
+            lambda dev, f=f: params_from_lmrs(f, device=dev), tokens)
+        paths[f"{tag}: {name} weights, f32 cache"].update(
+            cut_card_nll=card, cut_cpu_nll=cpu, cut_abs_diff=abs(card - cpu))
+
+    # the native tokenizer on a 128,256-token vocabulary
+    tok_path = work / "tokenizer.bin"
+    synthetic_tokenizer(tok_path, cfg.vocab_size, merges=True)
+    tok = Tokenizer.from_file(str(tok_path))
+    if tok._native is None:
+        raise RuntimeError("the native tokenizer engine did not attach")
+    plain = Tokenizer.from_file(str(tok_path), native=False)
+    words = list(SMOKE_WORDS) + [" x", "é", "."]
+    text = "".join(np.random.default_rng(7).choice(words, 600))
+    t0 = time.perf_counter()
+    ids = tok.encode(text)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ids_plain = plain.encode(text)
+    plain_s = time.perf_counter() - t0
+    log(f"  tokenizer ({cfg.vocab_size} tokens): {len(text)} characters -> "
+        f"{len(ids)} ids, native merge {1e3 * native_s:.1f} ms, Python "
+        f"{1e3 * plain_s:.1f} ms")
+    if ids != ids_plain:
+        raise RuntimeError("native and Python merges differ")
+
+    # the desktop app: the page, then one turn through the backend
+    _PageHandler.ws_port = 5000
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), _PageHandler)
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    try:
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{httpd.server_address[1]}",
+                timeout=30) as r:
+            page = r.read().decode()
+    finally:
+        httpd.shutdown()
+        server_thread.join(30)
+    if "const WS_PORT = 5000;" not in page or "WebSocket" not in page:
+        raise RuntimeError("the desktop page is not served")
+    server = BackendServer(str(files["Q8_0"]), str(tok_path),
+                           temperature=0.0, max_new_tokens=32)
+    server.warmup()
+    conn = Conn([json.dumps({"text": "hello from the smoke run"})])
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    asyncio.run(server.handle(conn))
+    torch.cuda.synchronize()
+    turn_s = time.perf_counter() - t0
+    counts = launches()
+    launched = {k for k, n in counts.items() if n > 0}
+    pieces = [m for m in conn.sent if m["category"] == "OUTPUT"
+              and m["text"] != "<eos>"]
+    if (conn.sent[-1] != {"category": "OUTPUT", "text": "<eos>"}
+            or not pieces or any(m["category"] == "STATUS"
+                                 for m in conn.sent)):
+        raise RuntimeError(f"desktop turn: {conn.sent[:8]}")
+    log(f"  desktop page served ({len(page)} bytes); one turn through "
+        f"BackendServer.handle: {len(pieces)} pieces in {turn_s:.2f} s; "
+        f"launches {counts}")
+    if launched != Q8_PATH:
+        raise RuntimeError(f"desktop turn: kernels launched "
+                           f"{sorted(launched)}, expected {sorted(Q8_PATH)}")
+    server.shutdown()
+    del server
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 6 ran {phase_s:.1f} s")
+    paths[f"{LLAMA1B} Q8_0 desktop turn, bf16 cache"] = dict(
+        launches=counts, turn_s=turn_s, pieces=len(pieces),
+        tokenizer_native_ms=1e3 * native_s, tokenizer_python_ms=1e3 * plain_s,
+        tokenizer_ids=len(ids), phase_s=phase_s)
+    return paths
+
+
 def load_model(torch, work: Path, cfg):
     """Write the synthetic .lmrs of `cfg` (seed 0) and load it onto the
     card; returns (path, config as read, params, load seconds)."""
@@ -2691,10 +3128,16 @@ def main() -> int:
         # Engine and a 2-slot paged scheduler
         log("phase 5: Phi-3.5-vision Q8_0 multimodal path")
         paths.update(multimodal_phase(torch, work))
+
+        # ---- 6. Llama-3.2-1B: checkpoint -> exporter -> scored on the
+        # card; the perplexity CLI, the native tokenizer, the desktop app
+        log("phase 6: Llama-3.2-1B offline path (export, perplexity, "
+            "tokenizer, desktop)")
+        paths.update(offline_phase(torch, work))
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 6. results: one unit of work per kernel, (model, shape, T, count)
+    # ---- 7. results: one unit of work per kernel, (model, shape, T, count)
     g, ll = GEMMA["name"], LLAMA["name"]
     unit = {
         "q4_gemv": ("gemma2-9b decode token: 42 x (wqkv, wo, w13, w2) + "

@@ -21,12 +21,13 @@ import torch
 
 from lmrs_tpu_torch.config import (ModelConfig, ModelType, QuantType,
                                    resolve_device, unsupported)
-from lmrs_tpu_torch.io.lmrs import LmrsFile
+from lmrs_tpu_torch.io.lmrs import LmrsFile, _tensor_layout
 from lmrs_tpu_torch.kernels.ffn_fused import ffn_split_perm
 from lmrs_tpu_torch.models.transformer import (KVCache, LayerWeights,
                                                TransformerParams)
 from lmrs_tpu_torch.ops.rope import rope_tables
-from lmrs_tpu_torch.quant import QTensor, q4_file_to_runtime
+from lmrs_tpu_torch.quant import (QTensor, q4_file_to_runtime,
+                                  quantize_q40_np, quantize_q80_np)
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -42,9 +43,40 @@ def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
 def params_from_lmrs(f: LmrsFile, device=None) -> TransformerParams:
     """From a parsed .lmrs file's zero-copy tensor views, onto `device`
     (default cuda; raises without a GPU)."""
+    return _params_from_tensors(f.cfg, f.tensors, resolve_device(device))
+
+
+def params_from_weights(cfg: ModelConfig, weights: Dict[str, np.ndarray],
+                        device=None) -> TransformerParams:
+    """From dense float weights under the .lmrs layout names ("embed",
+    "wq@0", ...), the matrices quantized per `cfg.quant` at
+    `cfg.group_size` as the .lmrs writer quantizes them, onto `device`
+    (default cuda; raises without a GPU).  The same weights give the
+    params that `params_from_lmrs` loads from the file `io.lmrs.write_lmrs`
+    writes of them: one set of dense weights at f32, Q8_0 and Q4_0 at one
+    group size, as the perplexity comparison needs."""
     device = resolve_device(device)
-    cfg = f.cfg
-    t = f.tensors
+    gs = cfg.group_size
+    tensors = {}
+    for name, shape, quantized in _tensor_layout(cfg):
+        w = np.ascontiguousarray(weights[name], dtype=np.float32)
+        if w.shape != shape:
+            raise ValueError(f"{name}: shape {w.shape}, layout {shape}")
+        if not quantized:
+            tensors[name] = (w, None)
+            continue
+        quantize = (quantize_q80_np if cfg.quant == QuantType.Q8_0
+                    else quantize_q40_np)
+        q, s, _ = quantize(w, gs)
+        # Q4_0: file-layout bytes, repacked once on the device below
+        tensors[name] = (q.reshape(shape[0], -1),
+                         s.reshape(shape[0], shape[1] // gs))
+    return _params_from_tensors(cfg, tensors, device)
+
+
+def _params_from_tensors(cfg: ModelConfig, t, device) -> TransformerParams:
+    """TransformerParams on `device` from (values, scales) host arrays in
+    the .lmrs file's form, keyed by layout name."""
     gs = cfg.group_size
 
     def qt(names, l=None):

@@ -6,13 +6,17 @@ then per token f32 score, u32 byte length, utf-8 bytes.
 Encoding: each character maps to its vocab token if present, else to
 per-byte fallback tokens (byte value + 3); then the adjacent pair whose
 concatenation is in the vocab with the highest score merges (leftmost wins
-ties), until no merge applies.  This is the pure-Python merge loop; a
-native one comes later (ROADMAP.md A14).
+ties), until no merge applies.  The merge loop runs in the C++ engine of
+`lmrs_tpu_torch.native` (built with g++ at first use) unless the
+tokenizer is made with `native=False`; `_merge_plain` is its pure-Python
+plain version, with the same results.  Without g++ the tokenizer keeps the
+plain loop and warns once.
 """
 
 from __future__ import annotations
 
 import struct
+import warnings
 from typing import Dict, List, Optional, Sequence
 
 from lmrs_tpu_torch.config import ModelType
@@ -39,11 +43,16 @@ EXTRA_STOP_TOKENS = {
 
 class Tokenizer:
     def __init__(self, vocab: Sequence[str], scores: Sequence[float],
-                 bos: int, eos: int, max_token_len: Optional[int] = None):
+                 bos: int, eos: int, max_token_len: Optional[int] = None,
+                 native: bool = True):
         if len(vocab) != len(scores):
             raise ValueError(f"{len(vocab)} tokens but {len(scores)} scores")
         self.vocab: List[str] = list(vocab)
-        self.scores: List[float] = [float(s) for s in scores]
+        # float32, as the container stores them and the C++ engine
+        # compares them: two scores that round to one float32 tie in both
+        # merge loops
+        self.scores: List[float] = list(struct.unpack(
+            f"<{len(scores)}f", struct.pack(f"<{len(scores)}f", *scores)))
         self.bos = int(bos)
         self.eos = int(eos)
         self.max_token_len = max_token_len or max(
@@ -52,12 +61,35 @@ class Tokenizer:
         self._lookup: Dict[str, int] = {}
         for i, t in enumerate(self.vocab):
             self._lookup.setdefault(t, i)
+        self._native = self._attach_native() if native else None
+
+    def _attach_native(self):
+        """The C++ merge engine over this tokenizer's container bytes, or
+        None (with one warning) where there is no g++ to build it."""
+        from lmrs_tpu_torch.native import (CompilerMissing,
+                                           NativeTokenizerEngine)
+
+        try:
+            return NativeTokenizerEngine(self._serialize())
+        except CompilerMissing as e:
+            warnings.warn(f"{e}; the tokenizer keeps its pure-Python merge "
+                          f"loop", RuntimeWarning, stacklevel=3)
+            return None
 
     # ------------------------------------------------------------------
     # container
     # ------------------------------------------------------------------
+    def _serialize(self) -> bytes:
+        out = [struct.pack("<IIII", len(self.vocab), self.max_token_len,
+                           self.bos, self.eos)]
+        for s, t in zip(self.scores, self.vocab):
+            b = t.encode("utf-8")
+            out.append(struct.pack("<fI", s, len(b)))
+            out.append(b)
+        return b"".join(out)
+
     @classmethod
-    def from_file(cls, path: str) -> "Tokenizer":
+    def from_file(cls, path: str, native: bool = True) -> "Tokenizer":
         with open(path, "rb") as f:
             data = f.read()
         vocab_size, max_len, bos, eos = struct.unpack_from("<IIII", data, 0)
@@ -69,16 +101,11 @@ class Tokenizer:
             vocab.append(data[off:off + slen].decode("utf-8"))
             off += slen
             scores.append(score)
-        return cls(vocab, scores, bos, eos, max_len)
+        return cls(vocab, scores, bos, eos, max_len, native=native)
 
     def save(self, path: str) -> None:
         with open(path, "wb") as f:
-            f.write(struct.pack("<IIII", len(self.vocab), self.max_token_len,
-                                self.bos, self.eos))
-            for s, t in zip(self.scores, self.vocab):
-                b = t.encode("utf-8")
-                f.write(struct.pack("<fI", s, len(b)))
-                f.write(b)
+            f.write(self._serialize())
 
     # ------------------------------------------------------------------
     # encode
@@ -112,7 +139,14 @@ class Tokenizer:
         return tokens
 
     def _merge(self, tokens: List[int]) -> List[int]:
-        """Greedy highest-score merge loop."""
+        """Greedy highest-score merge loop: the C++ engine when attached,
+        else its plain version."""
+        if self._native is not None:
+            return self._native.merge(tokens)
+        return self._merge_plain(tokens)
+
+    def _merge_plain(self, tokens: List[int]) -> List[int]:
+        """The merge loop in pure Python."""
         vocab, scores, lookup = self.vocab, self.scores, self._lookup
         nv = len(vocab)
         tokens = list(tokens)

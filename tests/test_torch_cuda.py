@@ -42,10 +42,16 @@ bound (`flash_attention_batched_tol(..., return_lse=True)`), m within
 1e-5 and l within 1e-4 relative of the plain version's (f32 scores in
 another order), m == _MASK_NEG exactly where a shard holds no live key,
 and the shards merged by M within I's bound of I's result and of the plain
-version (two levels of merge round differently: not bit for bit).
+version (two levels of merge round differently: not bit for bit).  The
+offline path: a tiny model's NLL per token (`scripts/torch_perplexity.py`)
+on the card within `chip_smoke.CUT_TOL` of the CPU's plain versions (the
+attention's softmax-weight rounding, C's bound above, sets most of it),
+and the native tokenizer's ids equal to the Python merge loop's.
 """
 
 import importlib
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -1352,3 +1358,65 @@ def test_image_file_decodes_on_card(cuda_device, tmp_path):
     a = encode_image_to_embeds(vision, params, f.cfg, png, 1)
     b = encode_image_to_embeds(vision, params, f.cfg, img, 1)
     assert torch.equal(a, b)
+
+
+def _chip_smoke():
+    """chip_smoke.py, the run phase 6 of which these tests shrink."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.mark.gpu
+def test_native_tokenizer_on_the_card_machine(cuda_device, tmp_path):
+    """The native merge engine builds on the card's machine and equals the
+    Python loop on chip_smoke's 128,256-token vocabulary."""
+    from lmrs_tpu_torch.tokenizer import Tokenizer
+
+    cs = _chip_smoke()
+    path = tmp_path / "tokenizer.bin"
+    cs.synthetic_tokenizer(path, 128256, merges=True)
+    tok = Tokenizer.from_file(str(path))
+    assert tok._native is not None
+    plain = Tokenizer.from_file(str(path), native=False)
+    text = "".join(np.random.default_rng(7).choice(
+        list(cs.SMOKE_WORDS) + [" x", "é", "."], 300))
+    ids = tok.encode(text)
+    assert ids == plain.encode(text)
+    assert len(ids) < len(text) // 2          # the words merged
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache", ["float32", "int8"])
+@pytest.mark.parametrize("quant", ["Q8_0", "Q4_0"])
+def test_score_tokens_card_matches_cpu(cuda_device, quant, cache):
+    """scripts/torch_perplexity.score_tokens of a tiny model (300 tokens,
+    chunks of 128 and a 44-row tail) on the card against the CPU's plain
+    versions, at phase 6's bound (chip_smoke.CUT_TOL of NLL per token),
+    through B or F and C or G only."""
+    from lmrs_tpu_torch.config import QuantType, tiny_llama
+    from lmrs_tpu_torch.io.params import params_from_weights
+    from lmrs_tpu_torch.io.synthetic import random_weights
+
+    cs = _chip_smoke()
+    sys.path.insert(0, str(cs.HERE / "scripts"))
+    from torch_perplexity import score_tokens
+
+    # head_dim 64 (a head dim the attention kernels are built for) and 4
+    # query heads a kv head, as Llama-3.2-1B: every chunk, the tail's 44
+    # rows too, has G * T > 64 rows a kv head, so no flash-decoding split
+    cfg = tiny_llama(quant=QuantType[quant]).replace(
+        n_heads=4, head_dim=64, n_kv_heads=1)
+    weights = random_weights(cfg, seed=3)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, 300)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        params = params_from_weights(cfg, weights, device=dev)
+        reset_launches()
+        got[dev] = score_tokens(cfg, params, tokens, chunk=128,
+                                cache_dtype=cache)["nll_per_token"]
+    gemm = "q8_gemm" if quant == "Q8_0" else "q4_gemm"
+    flash = "flash_attention" if cache == "float32" else "flash_attention_i8"
+    assert {k for k, n in launches().items() if n > 0} == {gemm, flash}
+    assert np.isfinite(got["cuda"])
+    assert abs(got["cuda"] - got["cpu"]) <= cs.CUT_TOL
