@@ -45,18 +45,24 @@ Phases (any failure ends the run with a non-zero exit):
    shard against the plain version, rows with no live key at m ==
    _MASK_NEG, the shards merged by M against I and the plain version.  M
    against its plain version on the split pass's workspaces of C and I.
+   B1 also on 2 shards of 3,072 rows, Gemma's window edge inside shard 0
+   (held, not timed).  A, B and K at Gemma-2-9B's tp = 2 local shapes, D,
+   E, F and L at Llama-3.2-3B's tp = 2 and tp = 4 ones (heads, kv heads,
+   hidden dim and vocabulary divided by tp: wo 3,072 x 1,536, w2 3,072 x
+   4,096 at tp = 2), each against its plain version (held, not timed).
    Then, per kernel, whether a row of a T = 5 call equals the same row
    computed alone (what makes speculative greedy decoding exact; A and D
    also at T = 8): a "no" fails the run for A, D, K and the flash kernels,
    whose designs promise it.
-3. The Q4_0 main path at full width and depth: a synthetic Gemma-2-9B Q4_0
+3. The Q4_0 main path at full width, cut to GEMMA_DEPTH (5) of its 42
+   layers to make room for phase 7: a synthetic Gemma-2-9B Q4_0
    .lmrs (seed 0) written with the port's own writer, loaded with
    params_from_lmrs onto the card, Engine.generate greedy on a 1,024-token
    prompt (256-token chunks) for 64 new tokens twice across reset()
    (identical tokens), then one top-p generation; A, B, C and M, and no
    other kernel, must have launched.  The same with fuse_ffn on (K
-   besides; the launches of one decode step exactly K 42, A 85, C 42,
-   M 42; greedy tokens
+   besides; the launches of one decode step exactly K 5, A 11, C 5, M 5
+   at 5 layers; greedy tokens
    equal the unfused path's up to a near-tie), then speculative greedy
    decoding (k = 4, K at T = 5) on that engine and one BatchScheduler wave
    of 8 requests on the paged bf16 pool (K), all on the loaded params.
@@ -72,7 +78,8 @@ Phases (any failure ends the run with a non-zero exit):
    the default paged pool (bf16; J), the contiguous cache (I, and C for
    prefill) and the int4 pool (J, half packing).  Every greedy stream
    equals the single-stream Engine's greedy tokens up to a near-tie.
-4. The Q8_0 main path at full width and depth: a synthetic Llama-3.2-3B
+4. The Q8_0 main path at full width, cut to LLAMA_DEPTH (5) of its 28
+   layers (phase 7 runs it whole): a synthetic Llama-3.2-3B
    Q8_0 .lmrs (seed 0), the same three generations with the bf16 KV cache
    (D, E, F and C must have launched), with the int8 KV cache (D, E, F and
    G) and with the int4 KV cache (D, E, F and H), the launch counts set to
@@ -83,9 +90,10 @@ Phases (any failure ends the run with a non-zero exit):
    Engine and continued for 16 tokens as the uninterrupted engine
    continues.  One greedy run on an f32 cache, whose tokens are the bf16
    path's.  The int8 path with fuse_ffn on (the launches of one decode
-   step exactly K 28, D 56, E 1, G 28, M 28; greedy tokens equal the unfused
-   path's up to a near-tie) and one BatchScheduler wave of 16 requests on
-   the int8 pool (L, 28 launches a step of 9..16 rows).  Then the chat
+   step exactly K 5, D 10, E 1, G 5, M 5 at 5 layers; greedy tokens
+   equal the unfused path's up to a near-tie) and one BatchScheduler wave
+   of 16 requests on the int8 pool (L, a launch a layer a step of 9..16
+   rows).  Then the chat
    CLI with --cache-dtype int8, and with --cache-dtype int4 --spec-k 4.
    4b. Batched serving through BackendServer(batch=16): one request with
    a 512-token system prefix first, then 15 at once (8 sharing that
@@ -131,9 +139,31 @@ Phases (any failure ends the run with a non-zero exit):
    desktop page served, and one turn through BackendServer.handle on the
    Q8_0 file (D, E, F, C, M).  Each run's launch counts are set to 0 just
    before and read just after, and its kernel set must be exact.
-7. One JSON line of per-kernel results (launches over every path above),
-   the card's name and power limit, and the last line {"ok": true,
-   "device": {...}}.
+7. Tensor, context and data parallelism (`parallel/`): a synthetic
+   Llama-3.2-3B Q8_0 .lmrs (seed 0, full width and depth) on meshes of
+   rank processes that share this one card over gloo (the compute mode
+   printed first: Exclusive_Process fails the phase), each rank loading
+   its own shard.  tp = 2: the Engine on a 1,024-token prompt, 32 greedy
+   tokens twice across reset(), with the bf16 cache (D, E, F, C, M summed
+   over both ranks), speculative greedy (k = 4) and the int8 cache (D, E,
+   F, G, M); a session saved on tp = 2 after 16 tokens and continued on
+   one device as tp = 2 continues it; then BackendServer(batch=8, tp=2)
+   on a mesh of its own, one wave of 8 requests (6 greedy, 2 top-p) on the
+   paged bf16 pool (D, E, F, J, M).  cp = 2: a 5,000-token prompt across
+   the 4,096-row shard edge and 32 greedy tokens (D, E, F, I, B1 on both
+   ranks, M, and no C), then BackendServer(batch=4, cp=2), a 4-request
+   wave on the per-slot cache (no paged pool under cp).  tp 2 x cp 2: four
+   ranks, a 1,024-token prompt, 16 tokens.  dp = 2: BackendServer(batch=8,
+   dp=2), both replicas on this card, each request leased through the
+   backend's own lease path (the router), 4 placed on each.  The chat CLI
+   with --tp 2.  Every greedy stream equals the one-device Engine's up
+   to a near-tie (1e-2 of the logit scale); per mesh shape: load s per
+   rank, TTFT, decode tok/s, peak memory per rank, a decode step's
+   collectives and their host ms (ranks time-sharing one card: not a
+   scaling figure).
+8. One JSON line of per-kernel results (launches over every path above,
+   summed over a mesh's ranks), the card's name and power limit, and the
+   last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -165,6 +195,18 @@ LLAMA = dict(name="llama3.2-3b", D=3072, HID=8192, L=28, H=24, KH=8, HD=128,
 PHI = dict(name="phi3.5-mini", D=3072, HID=8192, L=32, H=32, KH=32, HD=96,
            CHD=128, V=32064, WINDOW=None, SOFTCAP=None)
 LAYER_SHAPES = ("wqkv", "wo", "w13", "w2")
+
+
+def local_model(m, tp):
+    """`m`'s shapes on one rank of tp: heads, kv heads, hidden dim and
+    vocabulary divided by tp (`config.local_config`; wo and w2 take the
+    rank's input columns, the classifier its vocabulary rows)."""
+    return dict(m, name=f"{m['name']} tp={tp}", H=m["H"] // tp,
+                KH=m["KH"] // tp, HID=m["HID"] // tp, V=m["V"] // tp)
+
+
+def fmt_ms(v):
+    return "untimed" if v is None else f"{v:.4f}"
 
 
 def matmul_shapes(m):
@@ -257,12 +299,11 @@ for _name in ("flash_attention_i8", "flash_attention_i4",
 # kernel A at T = 8 (a batched step of 8 slots) is a row of its own in the
 # kernels line, sharing A's source and launch count
 COUNTER = {"flash_attention_f32": "flash_attention",
-           "flash_attention_batched_lse": "flash_attention_batched",
            "q4_gemv_t8": "q4_gemv"}
 LAUNCHES_ARE = {"flash_attention_batched_lse": (
-    "kernel I's launches on the main path, each its split pass (the "
-    "__global__ function B1 launches); no main path calls B1's form "
-    "(seq_base, return_lse)"),
+    "B1's own launches on the main paths, summed over the ranks: phase 7's "
+    "cp decode steps (kernel I's split pass with the shard's row base, "
+    "also counted in I's, then M's raw merge, counted in M's)"),
     "q4_gemv_t8": "kernel A's launches on the main paths, at every T"}
 # every path decodes: a decode call of C, G, H, I or J is the split pass
 # and kernel M's merge (flash_merge), one launch each
@@ -291,12 +332,21 @@ LLAMA_PAGED = ({"q8_gemm", "q8_gemv", "flash_attention_paged",
 # the fused-FFN paths: the main path's kernels and K; the launches of one
 # decode step after the prompt, exactly
 GEMMA_FUSED = Q4_PATH | {"ffn_fused_xe"}
-GEMMA_FUSED_TOKEN = {"q4_gemv": 85, "flash_attention": 42,
-                     "flash_merge": 42, "ffn_fused_xe": 42}
+# the depth phases 3 and 4 run their models at (of 42 and 28 layers),
+# cut to make room for phase 7 within the run's time (PERF.md §4); phase
+# 2 holds every kernel at the full models' shapes and phase 7 runs
+# Llama-3.2-3B at full depth
+GEMMA_DEPTH = 5
+LLAMA_DEPTH = 5
+GEMMA_FUSED_TOKEN = {"q4_gemv": 2 * GEMMA_DEPTH + 1,
+                     "flash_attention": GEMMA_DEPTH,
+                     "flash_merge": GEMMA_DEPTH,
+                     "ffn_fused_xe": GEMMA_DEPTH}
 LLAMA_I8_FUSED = Q8_I8_PATH | {"ffn_fused_xe"}
-LLAMA_I8_FUSED_TOKEN = {"q8_gemv_i8": 56, "q8_gemv": 1,
-                        "flash_attention_i8": 28, "flash_merge": 28,
-                        "ffn_fused_xe": 28}
+LLAMA_I8_FUSED_TOKEN = {"q8_gemv_i8": 2 * LLAMA_DEPTH, "q8_gemv": 1,
+                        "flash_attention_i8": LLAMA_DEPTH,
+                        "flash_merge": LLAMA_DEPTH,
+                        "ffn_fused_xe": LLAMA_DEPTH}
 # batched: a prefill tail of 9..16 rows takes L, of up to 8 rows K; a step
 # with fewer than 9 rows left takes K
 GEMMA_PAGED_FUSED = ({"q4_gemv", "q4_gemm", "flash_attention_paged",
@@ -480,9 +530,10 @@ def check_gemm_exact(torch, kern, fn, q, s, shape, t, gen):
                            f"bit for bit {one_hot}, two calls equal {same}")
 
 
-def check_matmul_kernels(torch, timer, peak, model, quant):
+def check_matmul_kernels(torch, timer, peak, model, quant, timed=True):
     """The matmul kernels of one weight type against their plain versions
-    at every shape of `model`'s main path; returns per-case results.
+    at every shape of `model`'s main path; returns per-case results
+    (`timed` False: held, not timed: a rank's local shapes).
     "q4": A (all five shapes, T 1, 4, 5 and 8) and B (layer shapes,
     GEMM_T).
     "q8": D (layer shapes, T 1, 4 and 5), E (all five, the same T) and F
@@ -529,6 +580,7 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             plan = [("q8_gemv_i8", t) for t in GEMV_T] if layer else []
             plan += [("q8_gemv", t) for t in GEMV_T]
             plan += [("q8_gemm", t) for t in GEMM_T] if layer else []
+        clock = timer if timed else (lambda fn: None)
         for kern, t in plan:
             fn, plain_fn, tol_rel, xbytes, rate, per_mac = kernels[kern]
             x = torch.randn(t, k, device="cuda", generator=gen)
@@ -552,11 +604,11 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             row = "q4_gemv_t8" if kern == "q4_gemv" and t == 8 else kern
             case = dict(kernel=row, model=model["name"], shape=name, T=t,
                         O=o, K=k, max_abs_err=err, tol=tol,
-                        err_over_tol=err / tol, ms=timer(run),
-                        plain_ms=timer(plain), library_ms=timer(lib),
+                        err_over_tol=err / tol, ms=clock(run),
+                        plain_ms=clock(plain), library_ms=clock(lib),
                         bound_ms=b_ms, bound_by=b_by)
             extra = ""
-            if kern == "q8_gemv_i8":
+            if kern == "q8_gemv_i8" and timed:
                 # second yardstick: the library's int8 product, x padded to
                 # the 17 rows it takes at least (timed only)
                 xi = torch.randint(-127, 128, (max(t, 17), k),
@@ -573,9 +625,10 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
             if kern in ("q4_gemm", "q8_gemm"):
                 check_gemm_exact(torch, kern, fn, q, s, name, t, gen)
             log(f"  {kern:10s} {name:10s} T={t:3d}: max_abs_err {err:.3e} "
-                f"(tol {tol:.3e})  kernel {case['ms']:.4f} ms  plain "
-                f"{case['plain_ms']:.4f}  library {case['library_ms']:.4f}"
-                f"{extra}  bound {b_ms:.4f} ({b_by})")
+                f"(tol {tol:.3e})  kernel {fmt_ms(case['ms'])} ms  plain "
+                f"{fmt_ms(case['plain_ms'])}  library "
+                f"{fmt_ms(case['library_ms'])}{extra}  bound {b_ms:.4f} "
+                f"({b_by})")
             if not err <= tol:
                 raise RuntimeError(f"{kern} {name} T={t}: error {err} > {tol}")
             cases.append(case)
@@ -585,7 +638,8 @@ def check_matmul_kernels(torch, timer, peak, model, quant):
     return cases
 
 
-def check_ffn_kernels(torch, timer, peak, model, quant):
+def check_ffn_kernels(torch, timer, peak, model, quant, timed=True,
+                      only=("ffn_fused_xe", "ffn_fused")):
     """K (T 1, 5, 8) and L (T 9, 12, 16) against their plain versions at one
     layer's FFN of `model` ("q4": Gemma-2-9B, tanh-GELU; "q8":
     Llama-3.2-3B, silu); returns per-case results.  Tolerance 1e-3 of the
@@ -605,7 +659,8 @@ def check_ffn_kernels(torch, timer, peak, model, quant):
     from lmrs_tpu_torch.kernels.q8_gemm import dequant_bf16 as dequant_q8
 
     d, h = model["D"], model["HID"]
-    act = "gelu" if model is GEMMA else "silu"
+    act = "gelu" if model["name"].startswith("gemma") else "silu"
+    clock = timer if timed else (lambda fn: None)
     gen = torch.Generator(device="cuda").manual_seed(8)
     make = random_q4 if quant == "q4" else random_q8
     dequant = dequant_q4 if quant == "q4" else dequant_q8
@@ -624,6 +679,8 @@ def check_ffn_kernels(torch, timer, peak, model, quant):
     for kern, (fn, plain_fn) in (("ffn_fused_xe", (ffn_fused_xe,
                                                    ffn_fused_xe_plain)),
                                  ("ffn_fused", (ffn_fused, ffn_fused_plain))):
+        if kern not in only:
+            continue
         for t in FFN_T[kern]:
             x = torch.randn(t, d, device="cuda", generator=gen)
             xb = x.to(torch.bfloat16)
@@ -641,11 +698,11 @@ def check_ffn_kernels(torch, timer, peak, model, quant):
                                   peak["mem"])
             case = dict(kernel=kern, model=model["name"], shape="ffn", T=t,
                         D=d, H=h, act=act, max_abs_err=err, tol=tol,
-                        err_over_tol=err / tol, ms=timer(run),
-                        plain_ms=timer(plain),
-                        library_ms=timer(lambda: lib_chain(xb)),
+                        err_over_tol=err / tol, ms=clock(run),
+                        plain_ms=clock(plain),
+                        library_ms=clock(lambda: lib_chain(xb)),
                         bound_ms=b_ms, bound_by=b_by)
-            if kern == "ffn_fused_xe":
+            if kern == "ffn_fused_xe" and timed:
                 # the timer's window holds host time for short calls: K's
                 # two launches on the profiler's clock too, as the span from
                 # the first one's start to the second one's end (device_ms;
@@ -655,11 +712,11 @@ def check_ffn_kernels(torch, timer, peak, model, quant):
                 case["busy_ms"], case["device_ms"] = profile_calls(
                     torch, run, ("ffn_xe_kernel",), timer.flush.zero_)
             log(f"  {kern:12s} {model['name']} ffn T={t:2d}: max_abs_err "
-                f"{err:.3e} (tol {tol:.3e})  kernel {case['ms']:.4f} ms"
+                f"{err:.3e} (tol {tol:.3e})  kernel {fmt_ms(case['ms'])} ms"
                 + (f" (device span {case['device_ms']:.4f}, busy "
                    f"{case['busy_ms']:.4f})" if "device_ms" in case else "")
-                + f"  plain {case['plain_ms']:.4f}  library "
-                f"{case['library_ms']:.4f}  bound {b_ms:.4f} ({b_by})")
+                + f"  plain {fmt_ms(case['plain_ms'])}  library "
+                f"{fmt_ms(case['library_ms'])}  bound {b_ms:.4f} ({b_by})")
             if not err <= tol:
                 raise RuntimeError(f"{kern} {model['name']} T={t}: error "
                                    f"{err} > {tol}")
@@ -1251,10 +1308,12 @@ def sharded_lse(torch, q, shards, pos, kw, plain=False):
     return tuple(torch.stack([p[j] for p in parts], dim=1) for j in range(3))
 
 
-def check_cp_partials(torch, timer, peak, model):
+def check_cp_partials(torch, timer, peak, model, n_shards=N_SHARDS,
+                      timed=True):
     """B1, the cp partials form of kernel I, at `model`'s geometry: phase
-    2's per-slot bf16 cache (8 slots at BATCH_POS, S = 6,144) cut into 4
-    shards of 1,536 rows, T 1 and 5.  Each shard's raw pieces against the
+    2's per-slot bf16 cache (8 slots at BATCH_POS, S = 6,144) cut into
+    `n_shards` shards (4 of 1,536 rows; 2 of 3,072 put Gemma's window edge
+    inside shard 0 for the slots past 4,096), T 1 and 5.  Each shard's raw pieces against the
     plain version (acc within `flash_attention_batched_tol(...,
     return_lse=True)` on rows with a live key, m within 1e-5, l within
     1e-4 relative; m == _MASK_NEG exactly where the shard holds no live
@@ -1276,7 +1335,7 @@ def check_cp_partials(torch, timer, peak, model):
     (k, v, _, _), _, row_bytes = batched_cache(torch, model, "bf16",
                                                BATCH_POS)
     pos = torch.tensor(BATCH_POS, dtype=torch.int32, device="cuda")
-    shards = cut_shards(k, v)
+    shards = cut_shards(k, v, n_shards=n_shards)
     gen = torch.Generator(device="cuda").manual_seed(9)
     cases = []
     for t_q in (1, 5):
@@ -1304,7 +1363,7 @@ def check_cp_partials(torch, timer, peak, model):
         r_plain = ((merged - want).abs() / tol_i).max().item()
         dead = int((~live).sum())
         log(f"  flash_attention_batched_lse {model['name']} bf16 "
-            f"{N_SHARDS} shards T={t_q}: shards vs plain: acc err/tol "
+            f"{n_shards} shards T={t_q}: shards vs plain: acc err/tol "
             f"{ratio:.3f}, {dead} rows with no live key at m == _MASK_NEG "
             f"{ok}; merged by M vs I err/tol {r_i:.3f}, vs plain "
             f"{r_plain:.3f}")
@@ -1313,13 +1372,13 @@ def check_cp_partials(torch, timer, peak, model):
                                f"{ok}, merged vs I {r_i}, vs plain "
                                f"{r_plain}")
         case = dict(kernel="flash_attention_batched_lse",
-                    model=model["name"], shape=f"bf16 {N_SHARDS} shards",
+                    model=model["name"], shape=f"bf16 {n_shards} shards",
                     T=t_q, B=b, max_abs_err=(acc - pacc).abs()[live].max()
                     .item(), err_over_tol=ratio,
                     merged_vs_i_err_over_tol=r_i,
                     merged_vs_plain_err_over_tol=r_plain,
                     rows_without_live_key=dead)
-        if t_q == 1:
+        if t_q == 1 and timed:
             rows_read = pairs = 0
             for p in BATCH_POS:
                 r, pr = attention_work(t_q, p, window)
@@ -2891,6 +2950,380 @@ def offline_phase(torch, work: Path):
     return paths
 
 
+# the mesh paths (phase 7): kernel sets summed over every rank of a run
+MESH_TP = Q8_PATH
+MESH_TP_I8 = Q8_I8_PATH
+# cp: a prefill chunk's attention is plain torch ops (the JAX package's
+# attention_cp is XLA), a decode step's is B1 (kernel I's split pass with
+# the shard's row base, its own count, then M's raw merge); no C
+MESH_CP = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_batched",
+           "flash_attention_batched_lse", "flash_merge"}
+# the paged mesh and dp schedulers: a prompt tail of up to 8 rows and the
+# 8-row decode steps take D, the classifier E, prefill chunks F
+MESH_PAGED = {"q8_gemv_i8", "q8_gemv", "q8_gemm", "flash_attention_paged",
+              "flash_merge"}
+P7_NEW = 32
+P7_NOTE = ("ranks time-sharing one card over gloo: correctness, not a "
+           "scaling figure")
+
+
+def mesh_counts(stats):
+    """The launch counts of a mesh run summed over its ranks, and the
+    kernels each rank launched."""
+    per_rank = stats["launches"]
+    total = {k: sum(r[k] for r in per_rank) for k in per_rank[0]}
+    return total, [{k for k, n in r.items() if n} for r in per_rank]
+
+
+def mesh_report(torch, label, mesh, expect, t0, extra=None):
+    """Read a mesh run's per-rank stats (set to 0 by mesh.reset_stats()
+    just before it), check the kernel set of the sum against `expect`,
+    log the peak memory per rank, and return the result record."""
+    torch.cuda.synchronize()
+    stats = mesh.stats()
+    total, per_rank = mesh_counts(stats)
+    launched = {k for k, n in total.items() if n}
+    res = dict(launches=total, launches_per_rank=stats["launches"],
+               peak_memory_gb_per_rank=[b / 1e9 for b in
+                                        stats["peak_bytes"]],
+               collectives_per_rank=stats["collectives"],
+               collective_s_per_rank=stats["collective_s"],
+               seconds=time.perf_counter() - t0, note=P7_NOTE,
+               **(extra or {}))
+    log(f"  {label}: launches summed over {len(per_rank)} ranks {total}; "
+        f"peak memory per rank "
+        f"{[round(g, 2) for g in res['peak_memory_gb_per_rank']]} GB; "
+        f"collectives per rank {stats['collectives']} "
+        f"({[round(s, 2) for s in stats['collective_s']]} s host)")
+    if launched != expect:
+        raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(expect)}")
+    return res, per_rank
+
+
+def decode_step_collectives(torch, engine, prompt):
+    """The collectives of one decode step after `prompt` on rank 0 and
+    their host ms, the ms of the step (host clock, synchronized)."""
+    mesh = engine.mesh
+    engine.reset()
+    tok = int(torch.argmax(engine.prefill(prompt)))
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    engine.decode_step(tok)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0)
+    st = mesh.stats()
+    return dict(collectives=st["collectives"][0],
+                collective_ms=1e3 * st["collective_s"][0], step_ms=step_ms)
+
+
+def mesh_generate(torch, label, mesh, cfg, prompt, n, want, ref_engine,
+                  expect, cache_dtype=None, spec_k=0, twice=False):
+    """A mesh Engine on `mesh`: greedy (`twice`: twice across reset(),
+    identical), against the one-device engine's greedy tokens `want` up to
+    the first near-tie (NEAR_TIE_W8A8: the mesh sums partial products in another
+    order, and a last-bit difference can flip a W8A8 quantizer's rounding
+    step); the kernel set summed over the ranks exact."""
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    engine = Engine(cfg, mesh.params, mesh=mesh,
+                    cache_dtype=cache_dtype or torch.bfloat16)
+    gen = GenerationConfig(temperature=0.0, max_new_tokens=n,
+                           speculative_k=spec_k)
+    t0 = time.perf_counter()
+    mesh.reset_stats()
+    toks = engine.generate(prompt, gen)
+    m = engine.metrics
+    engine.reset()
+    again = engine.generate(prompt, gen) if twice else toks
+    res, per_rank = mesh_report(torch, label, mesh, expect, t0, dict(
+        ttft_ms=1e3 * m.ttft_seconds, decode_tok_s=m.tokens_per_second,
+        prefill_tok_s=m.prefill_tokens_per_second))
+    log(f"    TTFT {res['ttft_ms']:.1f} ms, prefill "
+        f"{res['prefill_tok_s']:.1f} tok/s, decode "
+        f"{res['decode_tok_s']:.2f} tok/s ({P7_NOTE}); tokens {toks[:10]}...")
+    if again != toks:
+        raise RuntimeError(f"{label}: greedy differs across reset()")
+    if spec_k and not 0 < m.spec_accepted < m.spec_proposed:
+        raise RuntimeError(f"{label}: speculative accepted {m.spec_accepted}"
+                           f" of {m.spec_proposed}: both branches must run")
+    res["greedy_tokens_compared"] = check_greedy(
+        torch, label, ref_engine, prompt, toks, want, NEAR_TIE_W8A8)
+    return res, engine, toks, per_rank
+
+
+def mesh_wave(torch, label, server, prompts, sampling, refs, ref_engine,
+              expect):
+    """One wave through a BackendServer's scheduler(s): all at once, every
+    greedy stream against the one-device Engine's (NEAR_TIE_W8A8); the
+    kernel set of the run exact (summed over the server's mesh's ranks, or
+    this process's counts for the dp replicas).  Under --dp every request
+    first takes a conversation lease through the backend's own lease path,
+    as a connection does when it opens, then submits its turn on the
+    leased replica's thread; returns the result record and the replica
+    each lease went to."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+
+    mesh = server.mesh
+    t0 = time.perf_counter()
+    if mesh is not None:
+        mesh.reset_stats()
+    reset_launches()
+    placed = []
+    if server.router is not None:       # dp: the replicas' threads at once
+        import threading
+
+        leases = [server.lease() for _ in prompts]
+        if any(lease is None for _, lease in leases):
+            raise RuntimeError(f"{label}: no free slot for a lease")
+        placed = [server.threads.index(thread) for thread, _ in leases]
+        events, reqs = [], []
+        for p, (t, tp), (thread, lease) in zip(prompts, sampling, leases):
+            ev = threading.Event()
+            reqs.append(thread.submit(p, max_new_tokens=P7_NEW,
+                                      temperature=t, top_p=tp, lease=lease,
+                                      on_done=lambda o, e=ev: e.set()))
+            events.append(ev)
+        for e in events:
+            if not e.wait(600):
+                raise RuntimeError(f"{label}: a request did not finish")
+        wall = max(r.done_time for r in reqs) - t0
+        for r in reqs:
+            if r.error is not None or len(r.out) != P7_NEW:
+                raise RuntimeError(f"request {r.id}: error {r.error!r}, "
+                                   f"{len(r.out)} tokens")
+        for thread, lease in leases:
+            thread.call(lambda s=thread.sched, z=lease:
+                        s.end_conversation(z))
+    else:
+        reqs, wall = serve_wave(server.scheduler, prompts, sampling, P7_NEW)
+    m = wave_metrics(reqs, wall)
+    if mesh is not None:
+        res, _ = mesh_report(torch, label, mesh, expect, t0, m)
+    else:
+        torch.cuda.synchronize()
+        counts = launches()
+        launched = {k for k, n in counts.items() if n}
+        res = dict(launches=counts, seconds=time.perf_counter() - t0, **m)
+        if launched != expect:
+            raise RuntimeError(f"{label}: kernels launched "
+                               f"{sorted(launched)}, expected "
+                               f"{sorted(expect)}")
+    log(f"    wave of {len(reqs)}: {m['tokens']} tokens in {wall:.2f} s = "
+        f"{m['aggregate_tok_s']:.1f} tok/s aggregate, TTFT "
+        f"{[round(x['ttft_ms']) for x in m['per_request']]} ms ({P7_NOTE})")
+    res["greedy_tokens_compared"] = sum(
+        check_greedy(torch, label, ref_engine, r.prompt, r.out,
+                     refs[tuple(r.prompt)], NEAR_TIE_W8A8)
+        for r, (t, _) in zip(reqs, sampling) if t == 0.0)
+    return res, placed
+
+
+def server_on_mesh(BackendServer, path, work, **kw):
+    """BackendServer(--batch with --tp or --cp) on the phase's file: it
+    starts the mesh of its ranks itself, as `serve.backend --tp` does."""
+    t0 = time.perf_counter()
+    server = BackendServer(str(path), str(work / "tok.bin"), max_ctx=2048,
+                           max_new_tokens=P7_NEW, **kw)
+    log(f"  BackendServer({kw}) up in {time.perf_counter() - t0:.1f} s; "
+        f"load s per rank "
+        f"{[round(s, 2) for s in server.mesh.load_seconds]}")
+    return server
+
+
+def parallel_phase(torch, work: Path):
+    """Phase 7: tensor, context and data parallelism on Llama-3.2-3B Q8_0
+    at full width and depth, every rank a process of its own on this one
+    card over gloo (module note)."""
+    from lmrs_tpu_torch.config import QuantType, llama32_3b
+    from lmrs_tpu_torch.io.lmrs import read_lmrs
+    from lmrs_tpu_torch.io.params import params_from_lmrs
+    from lmrs_tpu_torch.io.synthetic import write_synthetic_lmrs
+    from lmrs_tpu_torch.parallel.distributed import Mesh, choose_backend
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+    from lmrs_tpu_torch.serve.backend import BackendServer
+
+    t_phase = time.perf_counter()
+    mode = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+    log(f"  compute mode {mode}; backend "
+        f"{choose_backend(torch.device('cuda'), 2)} for the 2 and 4 ranks "
+        f"of this phase on {torch.cuda.device_count()} card(s)")
+    if "Exclusive_Process" in mode:
+        raise RuntimeError("compute mode Exclusive_Process: a second "
+                           "process cannot open a context on the card")
+    path = work / "parallel.lmrs"
+    write_synthetic_lmrs(str(path), llama32_3b(quant=QuantType.Q8_0), seed=0)
+    synthetic_tokenizer(work / "tok.bin", LLAMA["V"])
+    f = read_lmrs(str(path))
+    cfg = f.cfg
+    params = params_from_lmrs(f, device="cuda")
+    rng = torch.Generator().manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (1024,), generator=rng).tolist()
+    rng = torch.Generator().manual_seed(1)
+    long = torch.randint(0, cfg.vocab_size, (5000,), generator=rng).tolist()
+    greedy = GenerationConfig(temperature=0.0, max_new_tokens=P7_NEW)
+    ref = {}
+    ref_engines = {}
+    for what, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+        ref_engines[what] = Engine(cfg, params, cache_dtype=dtype)
+        ref[what] = ref_engines[what].generate(prompt, greedy)
+    one = ref_engines["bf16"]
+    one.reset()
+    ref["long"] = one.generate(long, greedy)
+    log(f"  one-device references: {ref['bf16'][:8]}... (int8 "
+        f"{ref['int8'][:8]}..., 5,000-token prompt {ref['long'][:8]}...)")
+    paths, shapes = {}, {}
+
+    # ---- tp = 2: Engine (bf16, int8, speculative), session, scheduler
+    t0 = time.perf_counter()
+    mesh = Mesh.start(f, tp=2)
+    shapes["tp=2"] = dict(load_s_per_rank=mesh.load_seconds,
+                          start_s=time.perf_counter() - t0)
+    log(f"  tp=2 mesh up in {shapes['tp=2']['start_s']:.1f} s; load s per "
+        f"rank {[round(s, 2) for s in mesh.load_seconds]}")
+    try:
+        label = "llama3.2-3b Q8_0 tp=2 bf16 cache"
+        res, engine, toks, _ = mesh_generate(
+            torch, label, mesh, cfg, prompt, P7_NEW, ref["bf16"], one,
+            MESH_TP, twice=True)
+        res["decode_step"] = decode_step_collectives(torch, engine, prompt)
+        log(f"    one decode step: {res['decode_step']}")
+        paths[label] = res
+        label = "llama3.2-3b Q8_0 tp=2 bf16 cache, speculative k=4"
+        paths[label], _, _, _ = mesh_generate(
+            torch, label, mesh, cfg, prompt, P7_NEW, ref["bf16"], one,
+            MESH_TP, spec_k=4)
+        # a session saved on tp = 2, continued on one device
+        gen16 = GenerationConfig(temperature=0.0, max_new_tokens=16)
+        engine.reset()
+        engine.generate(prompt, gen16)
+        spath = work / "tp2_session.npz"
+        t0 = time.perf_counter()
+        engine.save_session(str(spath))
+        save_s = time.perf_counter() - t0
+        saved_pos = engine.pos
+        single = Engine(cfg, params)
+        single.load_session(str(spath))
+        spath.unlink()
+        want = engine.generate(prompt[:8], gen16)
+        got = single.generate(prompt[:8], gen16)
+        log(f"  tp=2 session: saved in {save_s:.2f} s at pos {saved_pos}, "
+            f"continued on one device {got[:8]}...")
+        if got != want:
+            raise RuntimeError(f"tp=2 session continues {got} on one device,"
+                               f" {want} on tp=2")
+        res["session_to_one_device"] = dict(save_s=save_s, pos=saved_pos,
+                                            continued=got)
+        engine.close()
+        del single
+        label = "llama3.2-3b Q8_0 tp=2 int8 cache"
+        paths[label], engine, _, _ = mesh_generate(
+            torch, label, mesh, cfg, prompt, P7_NEW, ref["int8"],
+            ref_engines["int8"], MESH_TP_I8, cache_dtype=torch.int8)
+        engine.close()
+    finally:
+        mesh.shutdown()
+
+    # ---- the mesh scheduler: BackendServer(batch=8, tp=2), its own mesh
+    rng = torch.Generator().manual_seed(7)
+    wave = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in (128, 150, 192, 200, 256, 130, 170, 240)]
+    sampling = [(0.0, 0.9)] * 6 + [(0.7, 0.9)] * 2
+    refs = {}
+    for p in wave[:6]:
+        one.reset()
+        refs[tuple(p)] = one.generate(p, greedy)
+    server = server_on_mesh(BackendServer, path, work, batch=8, tp=2)
+    try:
+        label = "llama3.2-3b Q8_0 tp=2 batch 8, paged bf16 pool"
+        paths[label], _ = mesh_wave(torch, label, server, wave, sampling,
+                                    refs, one, MESH_PAGED)
+    finally:
+        server.shutdown()
+
+    # ---- cp = 2: Engine on a 5,000-token prompt, then the scheduler
+    t0 = time.perf_counter()
+    mesh = Mesh.start(f, cp=2)
+    shapes["cp=2"] = dict(load_s_per_rank=mesh.load_seconds,
+                          start_s=time.perf_counter() - t0)
+    log(f"  cp=2 mesh up in {shapes['cp=2']['start_s']:.1f} s")
+    try:
+        label = "llama3.2-3b Q8_0 cp=2 bf16 cache, 5,000-token prompt"
+        res, engine, _, per_rank = mesh_generate(
+            torch, label, mesh, cfg, long, P7_NEW, ref["long"], one, MESH_CP)
+        if not all("flash_attention_batched_lse" in r for r in per_rank) \
+                or any("flash_attention" in r for r in per_rank):
+            raise RuntimeError(f"{label}: B1 must launch on both ranks and "
+                               f"C on neither: {per_rank}")
+        res["decode_step"] = decode_step_collectives(torch, engine, long)
+        log(f"    one decode step: {res['decode_step']}")
+        paths[label] = res
+        engine.close()
+    finally:
+        mesh.shutdown()
+    # BackendServer(batch=4, cp=2): no paged pool under cp
+    server = server_on_mesh(BackendServer, path, work, batch=4, cp=2)
+    try:
+        if server.scheduler.sched.paged:
+            raise RuntimeError("--batch with --cp took the paged pool")
+        label = "llama3.2-3b Q8_0 cp=2 batch 4, per-slot bf16 cache"
+        paths[label], _ = mesh_wave(torch, label, server, wave[:4],
+                                    sampling[:4], refs, one, MESH_CP)
+    finally:
+        server.shutdown()
+
+    # ---- tp 2 x cp 2: four ranks
+    t0 = time.perf_counter()
+    mesh = Mesh.start(f, tp=2, cp=2)
+    shapes["tp=2 x cp=2"] = dict(load_s_per_rank=mesh.load_seconds,
+                                 start_s=time.perf_counter() - t0)
+    log(f"  tp=2 x cp=2 mesh up in {shapes['tp=2 x cp=2']['start_s']:.1f} s")
+    try:
+        label = "llama3.2-3b Q8_0 tp=2 x cp=2 bf16 cache"
+        res, engine, _, _ = mesh_generate(torch, label, mesh, cfg, prompt, 16,
+                                          ref["bf16"][:16], one, MESH_CP)
+        res["decode_step"] = decode_step_collectives(torch, engine, prompt)
+        log(f"    one decode step: {res['decode_step']}")
+        paths[label] = res
+        engine.close()
+    finally:
+        mesh.shutdown()
+
+    # ---- dp = 2 over tp = 1: two replicas on this card behind the router
+    server = BackendServer(str(path), str(work / "tok.bin"), batch=8, dp=2,
+                           max_ctx=2048, max_new_tokens=P7_NEW)
+    try:
+        label = "llama3.2-3b Q8_0 dp=2 batch 8, paged bf16 pools"
+        paths[label], placed = mesh_wave(torch, label, server, wave,
+                                         sampling, refs, one, MESH_PAGED)
+        counts = [sched.tokens_emitted for sched in server.router.replicas]
+        per_replica = [placed.count(i) for i in range(2)]
+        log(f"    leases placed on replicas {placed}; tokens per replica "
+            f"{counts}")
+        if per_replica != [4, 4] or counts != [4 * P7_NEW, 4 * P7_NEW]:
+            raise RuntimeError(f"{label}: the router placed {per_replica} "
+                               f"requests, {counts} tokens")
+        paths[label]["requests_per_replica"] = per_replica
+    finally:
+        server.shutdown()
+    del server
+    torch.cuda.empty_cache()
+
+    # ---- the chat CLI with --tp 2
+    cli_counts = drive_cli("llama3.2-3b Q8_0 --tp 2", path, work / "tok.bin",
+                           MESH_TP, ("--tp", "2"))
+    del params, one, ref_engines
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 7 ran {phase_s:.1f} s; mesh shapes {json.dumps(shapes)}")
+    for p in paths.values():
+        p.setdefault("phase_s", phase_s)
+    return paths, {"llama3.2-3b Q8_0 --tp 2": cli_counts}
+
+
 def load_model(torch, work: Path, cfg):
     """Write the synthetic .lmrs of `cfg` (seed 0) and load it onto the
     card; returns (path, config as read, params, load seconds)."""
@@ -2950,6 +3383,7 @@ def main() -> int:
                 .splitlines() if "registers" in ln]
         log(f"  {name}: {regs[0] if regs else 'built earlier'}")
 
+    cases, row_independent = [], {}
     # ---- 2. kernels against their plain versions
     timer = Timer(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2981,7 +3415,24 @@ def main() -> int:
     log("phase 2: the cp partials (B1) on 4 sequence shards, and kernel M "
         "on the split pass's workspaces (Gemma-2-9B)")
     cases += check_cp_partials(torch, timer, peak, GEMMA)
+    cases += check_cp_partials(torch, timer, peak, GEMMA, n_shards=2,
+                               timed=False)
     cases += check_merge(torch, timer, peak, GEMMA)
+    log("phase 2: the matmul and fused-FFN kernels at a rank's local "
+        "shapes under tp (held, not timed): A, B, K at Gemma-2-9B "
+        "tp=2; D, E, F, L at Llama-3.2-3B tp=2 and tp=4")
+    cases += check_matmul_kernels(torch, timer, peak,
+                                  local_model(GEMMA, 2), "q4",
+                                  timed=False)
+    cases += check_ffn_kernels(torch, timer, peak, local_model(GEMMA, 2),
+                               "q4", timed=False, only=("ffn_fused_xe",))
+    for tp in (2, 4):
+        cases += check_matmul_kernels(torch, timer, peak,
+                                      local_model(LLAMA, tp), "q8",
+                                      timed=False)
+        cases += check_ffn_kernels(torch, timer, peak,
+                                   local_model(LLAMA, tp), "q8",
+                                   timed=False, only=("ffn_fused",))
     log("phase 2: is a row of a T=5 call (A: and T=8) the row computed "
         "alone?")
     row_independent = check_row_independence(torch)
@@ -3003,12 +3454,14 @@ def main() -> int:
     try:
         from lmrs_tpu_torch.config import QuantType, gemma2_9b, llama32_3b
 
+        paths, cli_counts = {}, {}
+        tok_path = work / "tokenizer.bin"
         # ---- 3. the Q4_0 main path at full width and depth, bf16 then
         # int4 KV cache (plain, then speculative), and its CLI
         log("phase 3: Gemma-2-9B Q4_0 main path")
         model, cfg, params, load_s = load_model(
-            torch, work, gemma2_9b(quant=QuantType.Q4_0))
-        paths = {}
+            torch, work, gemma2_9b(quant=QuantType.Q4_0).replace(
+                n_layers=GEMMA_DEPTH))
         label = "gemma2-9b Q4_0 bf16 cache"
         res, engine, prompt, plain = drive_main_path(
             torch, label, cfg, params, torch.bfloat16, Q4_PATH)
@@ -3036,10 +3489,9 @@ def main() -> int:
             torch, label, engine, prompt, plain, Q4_I4_PATH)
         del params, engine
         torch.cuda.empty_cache()
-        tok_path = work / "tokenizer.bin"
         synthetic_tokenizer(tok_path, GEMMA["V"])
-        cli_counts = {"gemma2-9b Q4_0 bf16 cache": drive_cli(
-            "gemma2-9b Q4_0", model, tok_path, Q4_PATH)}
+        cli_counts["gemma2-9b Q4_0 bf16 cache"] = drive_cli(
+            "gemma2-9b Q4_0", model, tok_path, Q4_PATH)
         log("phase 3b: Gemma-2-9B Q4_0 batched serving (BackendServer, "
             "batch 8)")
         paths.update(batched_phase_gemma(torch, model, tok_path, cfg))
@@ -3049,7 +3501,8 @@ def main() -> int:
         # int4 engine speculation and a session; an f32 cache; its CLI
         log("phase 4: Llama-3.2-3B Q8_0 main path")
         model, cfg, params, load_s = load_model(
-            torch, work, llama32_3b(quant=QuantType.Q8_0))
+            torch, work, llama32_3b(quant=QuantType.Q8_0).replace(
+                n_layers=LLAMA_DEPTH))
         greedy = {}
         for what, cache_dtype, expect in (
                 ("bf16", torch.bfloat16, Q8_PATH),
@@ -3134,10 +3587,18 @@ def main() -> int:
         log("phase 6: Llama-3.2-1B offline path (export, perplexity, "
             "tokenizer, desktop)")
         paths.update(offline_phase(torch, work))
+
+        # ---- 7. Llama-3.2-3B Q8_0 on meshes of ranks on this card: tp,
+        # cp, tp x cp, the mesh schedulers, dp replicas, the --tp CLI
+        log("phase 7: Llama-3.2-3B Q8_0 tensor, context and data "
+            "parallelism")
+        p7_paths, p7_cli = parallel_phase(torch, work)
+        paths.update(p7_paths)
+        cli_counts.update(p7_cli)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 7. results: one unit of work per kernel, (model, shape, T, count)
+    # ---- 8. results: one unit of work per kernel, (model, shape, T, count)
     g, ll = GEMMA["name"], LLAMA["name"]
     unit = {
         "q4_gemv": ("gemma2-9b decode token: 42 x (wqkv, wo, w13, w2) + "

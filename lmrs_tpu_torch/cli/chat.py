@@ -12,7 +12,7 @@ Usage:
         [--tokenizer tokenizer.bin] [--temperature 0.7] [--top-p 0.9]
         [--seed N] [--max-new-tokens N] [--show-metrics] [--device cpu]
         [--cache-dtype bfloat16|float32|int8|int4] [--spec-k K]
-        [--image img.png] [--num-crops 1]
+        [--image img.png] [--num-crops 1] [--tp N] [--cp M]
 
 Runs on the GPU unless --device names another device.  --show-metrics
 prints, after each reply, its speed and the CUDA kernel launches since
@@ -20,9 +20,10 @@ the program started (0 on the CPU, where the plain versions run), and with
 --spec-k the share of drafted tokens that were accepted.  --spec-k K turns
 on prompt-lookup speculative decoding with K drafted tokens per step.  Q8_0
 layer weights decode with int8 activations (W8A8) unless the environment
-sets LMRS_W8A8=0, the JAX package's own switch.  The flags of the JAX
-package's CLI that this package does not cover yet (--tp, --cp) are
-accepted and raise.
+sets LMRS_W8A8=0, the JAX package's own switch.  --tp N / --cp M run the
+model on a (tp, cp) mesh of ranks (`parallel.tp.make_mesh_engine`: N*M
+processes, this one rank 0; the launch counts are then every rank's,
+summed); --image with --cp is refused, as the JAX CLI refuses it.
 """
 
 from __future__ import annotations
@@ -80,18 +81,19 @@ def build_argparser() -> argparse.ArgumentParser:
                         "decode the file)")
     p.add_argument("--num-crops", dest="num_crops", type=int, default=1,
                    help="most HD crops of the image besides its global view")
-    # accepted for the JAX CLI's surface; not ported yet
-    p.add_argument("--tp", type=int, default=1)
-    p.add_argument("--cp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron sharding; one "
+                        "process a rank)")
+    p.add_argument("--cp", type=int, default=1,
+                   help="context-parallel ranks (the KV cache's sequence "
+                        "sharded)")
     return p
 
 
 def main(argv: Optional[List[str]] = None) -> None:
     args = build_argparser().parse_args(argv)
-    from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
+    from lmrs_tpu_torch.config import resolve_device
 
-    if args.tp > 1 or args.cp > 1:
-        raise unsupported("--tp / --cp", "A15 torch.distributed tp/cp")
     device = resolve_device(args.device)
     print(LOGO)
 
@@ -101,10 +103,8 @@ def main(argv: Optional[List[str]] = None) -> None:
 
     from lmrs_tpu_torch.io.lmrs import read_lmrs
     from lmrs_tpu_torch.io.params import params_from_lmrs
-    from lmrs_tpu_torch.kernels import launches
-    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
-    from lmrs_tpu_torch.tokenizer import (EXTRA_STOP_TOKENS, StreamDecoder,
-                                          Tokenizer)
+    from lmrs_tpu_torch.runtime.engine import Engine
+    from lmrs_tpu_torch.tokenizer import Tokenizer
 
     tokenizer = Tokenizer.from_file(args.tokenizer)
     f = read_lmrs(args.model)
@@ -115,11 +115,41 @@ def main(argv: Optional[List[str]] = None) -> None:
     if cfg.quant.value:
         print(f"Using {cfg.quant.name} quantization.")
     print(f"Loading weights onto {device}...")
-    params = params_from_lmrs(f, device=device)
-    engine = Engine(cfg, params, device=device,
-                    cache_dtype=args.cache_dtype,
-                    w8a8=os.environ.get("LMRS_W8A8", "1") == "1")
-    print("Done.\n")
+    w8a8 = os.environ.get("LMRS_W8A8", "1") == "1"
+    mesh = None
+    if args.tp > 1 or args.cp > 1:
+        if args.image and args.cp > 1:
+            sys.exit("--image with --cp is not supported yet (image-prefix "
+                     "prefill under cp)")
+        # the same Engine API over a (tp, cp) mesh of ranks
+        from lmrs_tpu_torch.parallel.tp import make_mesh_engine
+
+        # under cp a prefill chunk divides the shard's rows
+        engine = make_mesh_engine(
+            f, tp=args.tp, cp=args.cp, device=device,
+            cache_dtype=args.cache_dtype, w8a8=w8a8,
+            prefill_chunk=min(256, cfg.seq_len // args.cp))
+        mesh, params = engine.mesh, engine.params
+        print(f"Done (mesh: tp={args.tp} cp={args.cp}).\n")
+    else:
+        params = params_from_lmrs(f, device=device)
+        engine = Engine(cfg, params, device=device,
+                        cache_dtype=args.cache_dtype, w8a8=w8a8)
+        print("Done.\n")
+    try:
+        _chat(args, tokenizer, f, cfg, params, engine, mesh, device)
+    finally:
+        if mesh is not None:
+            mesh.shutdown()
+
+
+def _chat(args, tokenizer, f, cfg, params, engine, mesh, device) -> None:
+    """The conversation loop of `main`."""
+    from lmrs_tpu_torch.config import ModelType
+    from lmrs_tpu_torch.kernels import launches
+    from lmrs_tpu_torch.runtime.engine import GenerationConfig
+    from lmrs_tpu_torch.tokenizer import EXTRA_STOP_TOKENS, StreamDecoder
+
     image_turn = False
     if args.image:
         if not cfg.multimodal:
@@ -130,7 +160,8 @@ def main(argv: Optional[List[str]] = None) -> None:
         print("Preprocessing the image...")
         embeds = encode_image_to_embeds(
             vision_params_from_lmrs(f, device=device), params, cfg,
-            args.image, args.num_crops)
+            args.image, args.num_crops,
+            embed=None if mesh is None else mesh.embed)
         print("Filling KV Cache...\n")
         engine.prefill_embeds(embeds, want_logits=False)
         image_turn = True
@@ -188,7 +219,12 @@ def main(argv: Optional[List[str]] = None) -> None:
                 print(f"Speculative: {m.spec_accepted}/{m.spec_proposed} "
                       f"drafts accepted "
                       f"({m.spec_accepted / m.spec_proposed:.0%})")
-            print(f"Kernel launches since start: {json.dumps(launches())}")
+            counts = launches()
+            if mesh is not None:
+                counts = {name: sum(r[name] for r in
+                                    mesh.stats()["launches"])
+                          for name in counts}
+            print(f"Kernel launches since start: {json.dumps(counts)}")
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 The `.lmrs` binary header carries the shape hyperparameters; several
 per-family constants (Gemma's softcaps, sliding window and unit-offset
 norms, Llama-3's RoPE rescale, Phi-3.5's longrope) are explicit fields
-here.  Same fields and presets as `lmrs_tpu.config`, minus the multi-chip
-knobs this package does not have yet.
+here.  Same fields and presets as `lmrs_tpu.config`; a rank's LOCAL
+config under tensor and context parallelism is `local_config`'s.
 """
 
 from __future__ import annotations
@@ -110,6 +110,15 @@ class ModelConfig:
     # so the CLI and the backend keep it off.  It implies the fast bf16
     # numerics for the FFN: a Q8_0 layer's FFN then takes no W8A8.
     fuse_ffn: bool = False
+    # A rank's LOCAL config (`local_config`) names the parallel axes, as
+    # the JAX package's does: with tp_axis set the head counts and
+    # hidden_dim above are the rank's share of tp, with cp_axis set the KV
+    # cache is the rank's sequence shard (cp_degree shards), and the
+    # forward pass places the collectives (`models.transformer`).  None,
+    # None and 1 on one device.
+    tp_axis: Optional[str] = None
+    cp_axis: Optional[str] = None
+    cp_degree: int = 1
 
     # ---- derived sizes ----
     @property
@@ -269,12 +278,42 @@ PRESETS = {
 }
 
 
-def unsupported(what: str, roadmap_entry: str) -> NotImplementedError:
-    """The error every entry point raises for a feature this package does
-    not cover yet; it names the ROADMAP.md entry that will add it."""
-    return NotImplementedError(
-        f"{what} is not ported to lmrs_tpu_torch yet "
-        f"(ROADMAP.md, {roadmap_entry})")
+def check_divisible(cfg: ModelConfig, tp: int) -> None:
+    """Raise unless tp divides what tensor parallelism splits: the kv
+    heads, the scale groups of the att and hidden axes (the row-parallel
+    wo and w2 split at group edges) and the vocabulary (the embedding and
+    classifier rows)."""
+    reasons = []
+    if cfg.n_kv_heads % tp:
+        reasons.append(f"n_kv_heads {cfg.n_kv_heads} % tp")
+    if (cfg.att_dim // cfg.group_size) % tp:
+        reasons.append("att groups % tp")
+    if (cfg.hidden_dim // cfg.group_size) % tp:
+        reasons.append("hidden groups % tp")
+    if cfg.vocab_size % tp:
+        reasons.append("vocab % tp")
+    if reasons:
+        raise ValueError(f"tp={tp} incompatible: {', '.join(reasons)}")
+
+
+def local_config(cfg: ModelConfig, tp: int = 1, cp: int = 1) -> ModelConfig:
+    """The LOCAL config one rank runs the shared forward with: head counts
+    and hidden_dim divided by tp, the axes "tp" and "cp" named where their
+    degree is above 1 and cp's degree recorded (the JAX
+    `parallel.tp.local_config`), so that `models.transformer` places the
+    collectives itself (one forward for one rank and for many).  Raises for a tp that does not divide the model,
+    and for a context that cp does not divide."""
+    if tp < 1 or cp < 1:
+        raise ValueError(f"tp={tp}, cp={cp}: both must be >= 1")
+    if tp > 1:
+        check_divisible(cfg, tp)
+    if cfg.seq_len % cp:
+        raise ValueError(f"cp={cp} does not divide seq_len {cfg.seq_len}")
+    return cfg.replace(n_heads=cfg.n_heads // tp,
+                       n_kv_heads=cfg.n_kv_heads // tp,
+                       hidden_dim=cfg.hidden_dim // tp,
+                       tp_axis="tp" if tp > 1 else None,
+                       cp_axis="cp" if cp > 1 else None, cp_degree=cp)
 
 
 def resolve_device(device=None):

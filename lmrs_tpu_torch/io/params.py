@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from lmrs_tpu_torch.config import (ModelConfig, ModelType, QuantType,
-                                   resolve_device, unsupported)
+                                   resolve_device)
 from lmrs_tpu_torch.io.lmrs import LmrsFile, _tensor_layout
 from lmrs_tpu_torch.kernels.ffn_fused import ffn_split_perm
 from lmrs_tpu_torch.models.transformer import (KVCache, LayerWeights,
@@ -123,12 +123,11 @@ def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
     already in the runtime layout, so they are copied as they are, but for
     the w13 rows of a load with `fuse_ffn` (`cfg.fuse_ffn`), which are put
     back in their logical order.  Float (NONE) weights have no ".s".
-    K-major tiles are refused."""
+    The JAX package's K-major decode tiles (`lmrs_tpu.kernels.vpu_matvec.
+    kmajor_params`) are taken too: `row_major_arrays` undoes them first."""
     device = resolve_device(device)
     gs = cfg.group_size
-    if arrays["embed.q"].ndim != 2 or arrays["layers.wqkv.q"].ndim != 3:
-        raise unsupported("K-major weight tiles",
-                          "A18 K-major parameter input")
+    arrays = row_major_arrays(cfg, arrays)
     per_byte = 2 if cfg.quant == QuantType.Q4_0 else 1
     # a JAX load with fuse_ffn stores Q4 w13 rows in its fused kernel's
     # split order; this package keeps the logical [gate; up] order
@@ -164,6 +163,36 @@ def params_from_jax(cfg: ModelConfig, arrays: Dict[str, np.ndarray],
         final_norm=_to_device(arrays["final_norm"], device), lm_head=lm_head,
         rope_cos=_to_device(arrays["rope_cos"], device),
         rope_sin=_to_device(arrays["rope_sin"], device))
+
+
+def row_major_arrays(cfg: ModelConfig,
+                     arrays: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+    """`params_from_jax`'s arrays with the JAX package's K-major tiles
+    (`kmajor_params`: a quantized (L, O, Kb) tensor, or (O, Kb) with L = 1,
+    stored as (L, O_pad / o_t, Kb, o_t), O padded with zero-scale rows up
+    to a whole tile) put back in row-major (L, O, Kb) order, the padding
+    rows cut: the row-major bytes, bit for bit.  Row-major arrays pass
+    unchanged; a quantized tensor of any other rank raises."""
+    if arrays["embed.q"].ndim == 2 and arrays["layers.wqkv.q"].ndim == 3:
+        return arrays
+    att, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    rows = {"embed": cfg.vocab_size, "lm_head": cfg.vocab_size,
+            "layers.wqkv": att + 2 * kv, "layers.wo": cfg.dim,
+            "layers.w13": 2 * cfg.hidden_dim, "layers.w2": cfg.dim}
+    out = dict(arrays)
+    for prefix, n in rows.items():
+        for key in (f"{prefix}.q", f"{prefix}.s"):
+            if key not in arrays:
+                continue
+            a = np.asarray(arrays[key])
+            if a.ndim != 4:
+                raise ValueError(f"{key}: K-major tiles are (L, O/o_t, Kb, "
+                                 f"o_t), got {a.shape}")
+            lead, n_o, kb, o_t = a.shape
+            a = a.transpose(0, 1, 3, 2).reshape(lead, n_o * o_t, kb)[:, :n]
+            out[key] = np.ascontiguousarray(
+                a if prefix.startswith("layers.") else a[0])
+    return out
 
 
 def kvcache_from_numpy(arrays: Dict[str, np.ndarray], dtype: torch.dtype,

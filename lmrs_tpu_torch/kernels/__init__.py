@@ -37,7 +37,13 @@ WRAPPERS = {"q4_gemv": q4_gemv, "q4_gemm": q4_gemm,
 def reset_launches() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    flash_attention_batched.lse_launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Each wrapper's launches, and B1's (kernel I's launches in the cp
+    partials form, also counted in I's) as "flash_attention_batched_lse"."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts["flash_attention_batched_lse"] = \
+        flash_attention_batched.lse_launches
+    return counts

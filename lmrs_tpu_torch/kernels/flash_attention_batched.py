@@ -16,7 +16,8 @@ partials form (the JAX `flash_decode_batched(..., seq_base=,
 return_lse=True)`): the split pass on one sequence shard, merged without
 the division.  The wrapper launches the kernel for CUDA tensors (or
 raises) and runs the plain version for CPU tensors;
-`flash_attention_batched.launches` counts kernel launches.  Shared with
+`flash_attention_batched.launches` counts kernel launches, and
+`.lse_launches` those of them in the cp partials form (B1).  Shared with
 kernel J (`kernels.flash_attention_paged`): the geometry checks, the cache
 type numbers and the C entry point.
 """
@@ -208,7 +209,11 @@ def flash_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
             what="flash_attention_batched",
             out=None if return_lse else torch.empty_like(qf))
         flash_attention_batched.launches += 1
-        return flash_merge(*res, raw=True) if return_lse else res
+        if return_lse:
+            # B1, the cp partials form: its own count beside I's
+            flash_attention_batched.lse_launches += 1
+            return flash_merge(*res, raw=True)
+        return res
     out = torch.empty_like(qf)
     err = entry()(
         qf.data_ptr(), k_cache[0, layer].data_ptr(),
@@ -227,3 +232,4 @@ def flash_attention_batched(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_attention_batched.launches = 0
+flash_attention_batched.lse_launches = 0

@@ -244,13 +244,16 @@ def processor_forward(params: ProcessorParams, cfg: ProcessorConfig,
 
 def encode_image_to_embeds(vision, text_params, text_cfg,
                            image: Union[np.ndarray, str, os.PathLike],
-                           num_crops: int) -> torch.Tensor:
+                           num_crops: int, embed=None) -> torch.Tensor:
     """An image (an (H, W, 3) uint8 array, or a file that `load_image`
     decodes) -> the (N, D) f32 rows [image prefix, image, image suffix]
     for `Engine.prefill_embeds` or `BatchScheduler.prefill_embeds`, on the
     text parameters' device.  `vision` is the (VisionConfig, VisionParams,
     ProcessorConfig, ProcessorParams) of
-    `io.params.vision_params_from_lmrs`."""
+    `io.params.vision_params_from_lmrs`.  `embed` maps (n,) token ids on
+    the device to their (n, D) rows (default `embed_tokens` on the text
+    parameters; a mesh's `Mesh.embed`, whose ranks each hold a block of
+    the table)."""
     from lmrs_tpu_torch.models.transformer import embed_tokens
     from lmrs_tpu_torch.models.vision import vision_forward
 
@@ -266,8 +269,10 @@ def encode_image_to_embeds(vision, text_params, text_cfg,
         img = processor_forward(pparams, pcfg, feats, w_crop, h_crop)
 
         def rows(ids):
-            return embed_tokens(text_params, text_cfg, torch.as_tensor(
-                ids, dtype=torch.long, device=device)).float()
+            ids = torch.as_tensor(ids, dtype=torch.long, device=device)
+            if embed is not None:
+                return embed(ids).float()
+            return embed_tokens(text_params, text_cfg, ids).float()
 
         return torch.cat([rows(PHI_IMAGE_PREFIX_IDS), img,
                           rows(PHI_IMAGE_SUFFIX_IDS)])

@@ -15,6 +15,30 @@ Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
 GeGLU; Llama-3's RoPE rescale and SwiGLU; Phi-3's longrope and separate
 lm_head.
+
+One forward serves one rank and many.  Under a rank's LOCAL config
+(`config.local_config`) and its communicator (`parallel.comm.Comm`) the
+same functions place the collectives where the JAX package's shard_map
+forward places them:
+- tp (weights Megatron-sharded, `parallel.tp`): the vocab-sharded
+  embedding (masked local gather, then a sum), a sum after wo and after the
+  FFN's down product (the fused FFN's too), and the vocab-sharded logits
+  gathered before the final softcap;
+- cp (the cache's sequence axis sharded): each shard takes the rows it
+  owns of a write (row-exact, so a window may straddle a shard edge), and
+  attention merges the shards' online-softmax partials: a max, then one
+  sum of acc*w and l*w.  A decode call's partials are kernel B1
+  (`flash_attention_batched(..., seq_base=, return_lse=True)`, kernel I's
+  split pass and kernel M's raw merge); a prefill chunk's (G*T > 64) and an
+  int4 cache's are plain torch ops, as the JAX package computes
+  `attention_cp` in XLA;
+- the sequence-parallel prefill (cp, T > 1, cp | T): each rank projects
+  its own T/cp rows; the q/k/v row tiles are gathered for the cache write
+  and the merge, the rank keeps its own rows for wo and the FFN, and the
+  rows are gathered before the classifier.
+Only the ranks of cp index 0 run the classifier: the others hold the same
+rows and nobody reads their logits.  `forward` and `forward_batched` take
+token ids (an integer tensor, embedded here) or float rows.
 """
 
 from __future__ import annotations
@@ -35,12 +59,15 @@ from lmrs_tpu_torch.kernels.flash_attention_batched import \
 from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
 from lmrs_tpu_torch.kernels.flash_attention_i8 import flash_attention_i8
 from lmrs_tpu_torch.kernels.flash_attention_paged import flash_attention_paged
+from lmrs_tpu_torch.kernels.flash_merge import decode_split
+from lmrs_tpu_torch.ops.attention import attention_batched_partials
 from lmrs_tpu_torch.ops.activations import gelu_tanh, silu
 from lmrs_tpu_torch.ops.matmul import qmatmul
 from lmrs_tpu_torch.ops.norms import rmsnorm
 from lmrs_tpu_torch.ops.rope import apply_rope
 from lmrs_tpu_torch.quant import (QTensor, quantize_kv_rows,
-                                  quantize_kv_rows_q4, unpack_q4)
+                                  quantize_kv_rows_q4, unpack_kv_q4,
+                                  unpack_q4)
 
 
 @dataclasses.dataclass
@@ -158,12 +185,61 @@ def init_kv_pool(cfg: ModelConfig, device, n_pages: int, page_size: int,
                   (cfg.n_layers, n_pages, cfg.n_kv_heads, page_size))
 
 
+def slot_view(cache: KVCache, i: int) -> KVCache:
+    """Slot i's (L, rows, row) block of a per-slot cache: a single-stream
+    cache whose writes land in the batched one."""
+    return KVCache(cache.k[i], cache.v[i],
+                   None if cache.k_scale is None else cache.k_scale[i],
+                   None if cache.v_scale is None else cache.v_scale[i])
+
+
+def new_cache(cfg_l: ModelConfig, device, kind: int, dtype, a: int,
+              b: int) -> KVCache:
+    """A rank's shard of a cache: kind 0 single-stream of `a` local rows,
+    1 per-slot (`a` slots of `b` local rows), 2 a page pool (`a` pages of
+    `b` rows)."""
+    if kind == 0:
+        return init_kv_cache(cfg_l, device, dtype, seq_len=a)
+    if kind == 1:
+        return init_batched_kv_cache(cfg_l, device, a, b, dtype)
+    return init_kv_pool(cfg_l, device, a, b, dtype)
+
+
+def copy_rows(cache: KVCache, kind: int, src: int, dst: int, n: int,
+              cp_rank: int = 0) -> None:
+    """The scheduler's prefix forks.  kind 0: per-slot cache, slot dst
+    takes slot src's global rows [0, n) (each cp shard its own part of
+    them); kind 1: a page pool, page dst takes page src's first n rows."""
+    c = cache
+    if kind == 0:
+        s_loc = c.k.shape[2]
+        r = min(max(n - cp_rank * s_loc, 0), s_loc)
+        c.k[dst, :, :r] = c.k[src, :, :r]
+        c.v[dst, :, :r] = c.v[src, :, :r]
+        if c.k_scale is not None:
+            c.k_scale[dst, :, :, :r] = c.k_scale[src, :, :, :r]
+            c.v_scale[dst, :, :, :r] = c.v_scale[src, :, :, :r]
+        return
+    c.k[:, dst, :n] = c.k[:, src, :n]
+    c.v[:, dst, :n] = c.v[:, src, :n]
+    if c.k_scale is not None:
+        c.k_scale[:, dst, :, :n] = c.k_scale[:, src, :, :n]
+        c.v_scale[:, dst, :, :n] = c.v_scale[:, src, :, :n]
+
+
 def embed_tokens(params: TransformerParams, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+                 tokens: torch.Tensor, comm=None) -> torch.Tensor:
     """Gather and dequantize embedding rows; (T,) int -> (T, D) float32.
     The table stays quantized on the device.  Gemma scales embeddings by
-    sqrt(dim)."""
+    sqrt(dim), after the tp sum.  Under tp the table is this rank's block
+    of rows: a masked local gather, then a sum over tp."""
     emb = params.embed
+    ok = None
+    if cfg.tp_axis is not None:
+        vloc = emb.q.shape[0]
+        local = tokens - comm.tp_rank * vloc
+        ok = (local >= 0) & (local < vloc)
+        tokens = local.clamp(0, vloc - 1)
     if emb.qtype == QuantType.NONE:
         x = emb.q[tokens].float()
     else:
@@ -173,6 +249,8 @@ def embed_tokens(params: TransformerParams, cfg: ModelConfig,
         gs = emb.group_size
         g = vals.reshape(*vals.shape[:-1], vals.shape[-1] // gs, gs)
         x = (g * emb.s[tokens][..., None]).reshape(*tokens.shape, cfg.dim)
+    if ok is not None:
+        x = comm.sum(torch.where(ok[..., None], x, 0.0), "tp")
     if cfg.embed_scale_by_sqrt_dim:
         x = x * math.sqrt(cfg.dim)
     return x
@@ -183,16 +261,128 @@ def _attn_kw(cfg: ModelConfig) -> dict:
                 softcap=cfg.attn_logit_softcap, window=cfg.sliding_window)
 
 
+def _rows(params: TransformerParams, cfg: ModelConfig, x: torch.Tensor,
+          comm) -> torch.Tensor:
+    """(T, D) float32 rows of x: token ids are embedded, rows taken."""
+    if x.dtype.is_floating_point:
+        return x
+    return embed_tokens(params, cfg, x, comm)
+
+
+def is_packed4(cfg: ModelConfig, cache: KVCache) -> bool:
+    """An int4 cache is int8 storage of half the row width."""
+    return 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
+
+
+def _gather_qkv(q, k, v, comm):
+    """The sequence-parallel prefill's row tiles of q, k and v gathered
+    over cp in one collective (shard order is row order)."""
+    t = q.shape[0]
+    packed = torch.cat([q.reshape(t, -1), k.reshape(t, -1),
+                        v.reshape(t, -1)], dim=1)
+    full = comm.gather_rows(packed, "cp")
+    nq, nk = q[0].numel(), k[0].numel()
+    n = full.shape[0]
+    return (full[:, :nq].reshape(n, *q.shape[1:]),
+            full[:, nq:nq + nk].reshape(n, *k.shape[1:]),
+            full[:, nq + nk:].reshape(n, *v.shape[1:]))
+
+
+def cp_partials(cfg: ModelConfig, q: torch.Tensor, cache: KVCache,
+                layer: int, pos: torch.Tensor, seq_base: int):
+    """One sequence shard's online-softmax pieces (acc, m, l) of q (B, T,
+    H, hd) over the shard's rows of `layer` in a per-slot cache (B, L,
+    S_loc, row), pos (B,) int32 global positions: kernel B1 for a decode
+    call (G*T <= 64, a float or int8 cache), plain torch ops for a
+    prefill chunk and for an int4 cache."""
+    b, t_q, n_heads, hd = q.shape
+    packed4 = is_packed4(cfg, cache)
+    if not packed4 and decode_split(n_heads, cfg.n_kv_heads, t_q):
+        return flash_attention_batched(
+            q, cache.k, cache.v, layer, pos, k_scale=cache.k_scale,
+            v_scale=cache.v_scale, seq_base=seq_base, return_lse=True,
+            **_attn_kw(cfg))
+    s_loc, kh = cache.k.shape[2], cfg.n_kv_heads
+    k, v = cache.k[:, layer], cache.v[:, layer]
+    if packed4:
+        k, v = unpack_kv_q4(k, kh, hd), unpack_kv_q4(v, kh, hd)
+    ks = None if cache.k_scale is None else cache.k_scale[:, layer]
+    vs = None if cache.v_scale is None else cache.v_scale[:, layer]
+    return attention_batched_partials(
+        q, k.reshape(b, s_loc, kh, hd), v.reshape(b, s_loc, kh, hd), pos,
+        seq_base=seq_base, scale=cfg.attn_scale,
+        softcap=cfg.attn_logit_softcap, window=cfg.sliding_window,
+        k_scale=ks, v_scale=vs)
+
+
+def cp_merge(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+             comm) -> torch.Tensor:
+    """Merge the cp shards' partials: m_g = max m over cp, w = exp(m -
+    m_g), out = sum acc w / sum l w, the two sums packed into one
+    all-reduce.  A shard with no live key for a row (m = float32 min)
+    weighs 0."""
+    m_g = comm.max(m, "cp")
+    w = torch.exp(m - m_g)
+    n = acc.numel()
+    tot = comm.sum(torch.cat([(acc * w[..., None]).reshape(-1),
+                              (l * w).reshape(-1)]), "cp")
+    return tot[:n].view_as(acc) / tot[n:].view_as(l)[..., None]
+
+
+def cp_write(cache: KVCache, layer: int, pos: int, rows: torch.Tensor,
+             scales, seq_base: int) -> None:
+    """Write the rows of global positions pos..pos+T-1 that this sequence
+    shard owns (its rows seq_base..seq_base+S_loc-1): row-exact, so a
+    window may straddle the shard edge; rows past every shard are
+    dropped."""
+    t_q = rows.shape[1]
+    s_loc = cache.k.shape[1]
+    lo, hi = max(pos, seq_base), min(pos + t_q, seq_base + s_loc)
+    if lo >= hi:
+        return
+    src, dst = slice(lo - pos, hi - pos), slice(lo - seq_base, hi - seq_base)
+    cache.k[layer, dst] = rows[0, src]
+    cache.v[layer, dst] = rows[1, src]
+    if scales is not None:
+        cache.k_scale[layer, :, dst] = scales[0, src].t()
+        cache.v_scale[layer, :, dst] = scales[1, src].t()
+
+
+def _single_view(cache: KVCache) -> KVCache:
+    """A single-stream cache (L, S, row) as one slot of a per-slot cache
+    (1, L, S, row), kernel I's layout."""
+    un = lambda a: None if a is None else a.unsqueeze(0)  # noqa: E731
+    return KVCache(un(cache.k), un(cache.v), un(cache.k_scale),
+                   un(cache.v_scale))
+
+
 def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
            cache: KVCache, layer: int, cos: torch.Tensor, sin: torch.Tensor,
-           pos: int, w8a8: bool) -> torch.Tensor:
+           pos: int, w8a8: bool, comm=None, sp: bool = False,
+           pos_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One decoder layer over T tokens at positions pos..pos+T-1; writes
     the layer's K/V rows (and, for an int8 or int4 cache, their scales)
-    into the cache."""
-    t_q = x.shape[0]
-    q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
+    into the cache.  Under cp the cache is this rank's sequence shard, and
+    with `sp` x holds this rank's row tile of the chunk (cos and sin the
+    whole chunk's) and pos_dev is pos as a (1,) int32 device tensor."""
+    t_l = x.shape[0]
+    if sp:
+        r0 = comm.cp_rank * t_l
+        q, k, v = _qkv(cfg, x, lw, cos[r0:r0 + t_l], sin[r0:r0 + t_l], w8a8)
+        q, k, v = _gather_qkv(q, k, v, comm)
+    else:
+        q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
+    t_q = q.shape[0]
     # the cache stores rotated keys
     rows, scales = _quantize_kv(cfg, cache, k, v)
+    if cfg.cp_degree > 1:
+        base = comm.cp_rank * cache.k.shape[1]
+        cp_write(cache, layer, pos, rows, scales, base)
+        att = cp_merge(*cp_partials(cfg, q[None], _single_view(cache), layer,
+                                    pos_dev, base), comm)[0]
+        if sp:
+            att = att[r0:r0 + t_l]
+        return _layer_post(cfg, x, lw, att, w8a8, comm)
     cache.k[layer, pos:pos + t_q] = rows[0]
     cache.v[layer, pos:pos + t_q] = rows[1]
     if scales is None:
@@ -201,12 +391,11 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     else:
         cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
         cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
-        # an int4 cache is int8 storage of half the row width
-        packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
-        flash = flash_attention_i4 if packed4 else flash_attention_i8
+        flash = flash_attention_i4 if is_packed4(cfg, cache) \
+            else flash_attention_i8
         att = flash(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
                     layer, pos, **_attn_kw(cfg))
-    return _layer_post(cfg, x, lw, att, w8a8)
+    return _layer_post(cfg, x, lw, att, w8a8, comm)
 
 
 def _qkv(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
@@ -239,23 +428,27 @@ def _quantize_kv(cfg: ModelConfig, cache: KVCache, k: torch.Tensor,
     if cache.k.dtype != torch.int8:
         rows = torch.stack([k, v]).reshape(2, t_q, -1).to(cache.k.dtype)
         return rows, None
-    packed4 = 2 * cache.k.shape[-1] == cfg.n_kv_heads * cfg.cache_head_dim
-    quantize = quantize_kv_rows_q4 if packed4 else quantize_kv_rows
+    quantize = quantize_kv_rows_q4 if is_packed4(cfg, cache) \
+        else quantize_kv_rows
     # K and V quantize in one pass
     return quantize(torch.stack([k, v]))
 
 
 def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
-                att: torch.Tensor, w8a8: bool) -> torch.Tensor:
+                att: torch.Tensor, w8a8: bool, comm=None) -> torch.Tensor:
     """The layer after attention, shared by one sequence and a batch:
     output projection, residual, norms and the GLU FFN over all rows (one
     fused kernel when `cfg.fuse_ffn` is on, the weights are quantized and
-    there are at most 16 rows)."""
+    there are at most 16 rows).  Under tp wo and the down product are
+    row-parallel: their outputs are summed over tp."""
     t_q = x.shape[0]
     gemma = cfg.model_type == ModelType.GEMMA
+    tp = cfg.tp_axis is not None
     if cfg.cache_head_dim != cfg.head_dim:
         att = att[..., :cfg.head_dim]
     o = qmatmul(att.reshape(t_q, cfg.att_dim), lw.wo, w8a8=w8a8)
+    if tp:
+        o = comm.sum(o, "tp")
 
     if gemma:
         # post-attention norm before the residual add, then pre-FFN norm
@@ -278,6 +471,8 @@ def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
         gate, up = gu[:, :cfg.hidden_dim], gu[:, cfg.hidden_dim:]
         ff = qmatmul((gelu_tanh(gate) if gemma else silu(gate)) * up, lw.w2,
                      w8a8=w8a8)
+    if tp:
+        ff = comm.sum(ff, "tp")
     if gemma:
         return x + rmsnorm(ff, lw.post_ffn_norm, cfg.rms_norm_eps, True)
     return x + ff
@@ -286,43 +481,62 @@ def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
 def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
             x: torch.Tensor, pos: int,
             logit_idx: Union[int, str, None] = None,
-            w8a8: bool = True) -> Optional[torch.Tensor]:
-    """Run all layers over x (T, D) float32 at positions pos..pos+T-1,
-    writing their K/V rows into `cache` in place.  Returns the (V,) float32
-    logits of row `logit_idx`, the (T, V) logits of every row for
-    `logit_idx="all"` (a speculative verify window), or None.  `w8a8` picks
-    the numerics of Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`);
-    the classifier never quantizes its activations."""
-    if x.ndim != 2:
-        raise ValueError(f"forward takes the (T, D) rows of one sequence, "
-                         f"got {tuple(x.shape)}; forward_batched serves a "
-                         f"batch")
+            w8a8: bool = True, comm=None) -> Optional[torch.Tensor]:
+    """Run all layers over x, (T, D) float32 rows or (T,) token ids, at
+    positions pos..pos+T-1, writing their K/V rows into `cache` in place.
+    Returns the (V,) float32 logits of row `logit_idx`, the (T, V) logits
+    of every row for `logit_idx="all"` (a speculative verify window), or
+    None (always None on a rank of cp index > 0).  `w8a8` picks the
+    numerics of Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`); the
+    classifier never quantizes its activations.  Under a local config
+    `comm` is the rank's communicator (module note)."""
+    if x.ndim != (2 if x.dtype.is_floating_point else 1):
+        raise ValueError(f"forward takes the (T, D) rows or (T,) token ids "
+                         f"of one sequence, got {tuple(x.shape)}; "
+                         f"forward_batched serves a batch")
     t_q = x.shape[0]
-    if pos + t_q > cache.k.shape[1]:
+    cp = cfg.cp_degree
+    if pos + t_q > cp * cache.k.shape[1]:
         raise ValueError(f"context overflow: rows [{pos}, {pos + t_q}) past "
-                         f"the cache's {cache.k.shape[1]}")
+                         f"the cache's {cp * cache.k.shape[1]}")
+    x = _rows(params, cfg, x, comm)
     cos = params.rope_cos[pos:pos + t_q]
     sin = params.rope_sin[pos:pos + t_q]
+    sp = cp > 1 and t_q > 1 and t_q % cp == 0
+    if sp:
+        t_l = t_q // cp
+        x = x[comm.cp_rank * t_l:(comm.cp_rank + 1) * t_l]
+    pos_dev = None if cp == 1 else torch.tensor([pos], dtype=torch.int32,
+                                                device=x.device)
     for layer, lw in enumerate(params.layers):
-        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos, w8a8)
+        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos, w8a8, comm, sp,
+                   pos_dev)
     if logit_idx is None:
+        return None
+    if sp:
+        x = comm.gather_rows(x, "cp")
+    if comm is not None and comm.cp_rank:
         return None
 
     every = isinstance(logit_idx, str)
     if every and logit_idx != "all":
         raise ValueError(f"logit_idx is a row or 'all', got {logit_idx!r}")
     logits = _classify(params, cfg,
-                       x if every else x[logit_idx:logit_idx + 1])
+                       x if every else x[logit_idx:logit_idx + 1], comm)
     return logits if every else logits[0]
 
 
 def _classify(params: TransformerParams, cfg: ModelConfig,
-              x: torch.Tensor) -> torch.Tensor:
+              x: torch.Tensor, comm=None) -> torch.Tensor:
     """Final norm, classifier and final softcap of (N, D) rows -> (N, V)
-    float32 logits.  The classifier never quantizes its activations."""
+    float32 logits.  The classifier never quantizes its activations.
+    Under tp it is this rank's block of vocabulary rows, and the blocks are
+    gathered before the softcap, which sees global indices."""
     xl = rmsnorm(x, params.final_norm, cfg.rms_norm_eps, cfg.norm_unit_offset)
     cls = params.embed if cfg.tied_lm_head else params.lm_head
     logits = qmatmul(xl, cls, classifier=True)
+    if cfg.tp_axis is not None:
+        logits = comm.gather_last(logits, "tp")
     if cfg.final_logit_softcap is not None:
         cap = cfg.final_logit_softcap
         if cfg.parity_gemma_softcap_bug:
@@ -334,20 +548,70 @@ def _classify(params: TransformerParams, cfg: ModelConfig,
     return logits
 
 
+def _cp_write_batched(cache: KVCache, layer: int, dest, rows: torch.Tensor,
+                      scales) -> None:
+    """The per-slot form of `cp_write` with the positions on the device: a
+    read-modify-write of each slot's t_q-row window anchored inside the
+    shard, at `dest` = (slots, local rows, source row, owned) from
+    `_cp_write_index`; a window row the shard does not own keeps the row
+    it had."""
+    slots, dst, src, own = dest
+    for plane, new in ((cache.k, rows[0]), (cache.v, rows[1])):
+        plane[slots, layer, dst] = torch.where(
+            own[:, None], new[src], plane[slots, layer, dst])
+    if scales is not None:
+        for plane, new in ((cache.k_scale, scales[0]),
+                           (cache.v_scale, scales[1])):
+            plane[slots, layer, :, dst] = torch.where(
+                own[:, None], new[src], plane[slots, layer, :, dst])
+
+
+def _cp_write_index(cache: KVCache, pos: torch.Tensor, t_q: int,
+                    seq_base: int):
+    """Where a cp shard's per-slot writes land (the JAX `_upd_cp` algebra):
+    slot b's window is anchored at local row idx = clamp(pos - base, 0,
+    S_loc - t_q); local row idx + m takes the chunk's row idx + m - (pos -
+    base), where that lies in 0..t_q-1.  Needs t_q <= S_loc."""
+    b = pos.shape[0]
+    dev = pos.device
+    s_loc = cache.k.shape[2]
+    if t_q > s_loc:
+        raise ValueError(f"cp write window T={t_q} exceeds the shard's "
+                         f"{s_loc} rows")
+    lp = pos.long() - seq_base
+    idx = lp.clamp(0, s_loc - t_q)
+    dst = idx[:, None] + torch.arange(t_q, device=dev)[None]      # (B, t)
+    j = dst - lp[:, None]
+    own = (j >= 0) & (j < t_q)
+    slots = torch.arange(b, device=dev)[:, None].expand(b, t_q)
+    src = slots * t_q + j.clamp(0, t_q - 1)
+    return (slots.reshape(-1), dst.reshape(-1), src.reshape(-1),
+            own.reshape(-1))
+
+
 def _layer_batched(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
                    cache: KVCache, layer: int, cos: torch.Tensor,
                    sin: torch.Tensor, pos: torch.Tensor, t_q: int,
                    dest, table: Optional[torch.Tensor],
-                   w8a8: bool) -> torch.Tensor:
+                   w8a8: bool, comm=None) -> torch.Tensor:
     """One decoder layer over B slots of t_q rows each, x (B*t_q, D) slot
     by slot.  Writes each slot's K/V rows (and scales) with one indexed
     write per plane, at `dest`: (slot, row) index tensors of the per-slot
     cache, or (page, row in page) ones of the pool when `table` is given;
     then attention runs kernel I or J.  The matmuls and the rest of the
-    layer run on all rows at once."""
+    layer run on all rows at once.  Under cp (a per-slot cache only) the
+    writes are `_cp_write_batched`'s and attention is `cp_partials`
+    merged over cp."""
     n = x.shape[0]
     q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
     rows, scales = _quantize_kv(cfg, cache, k, v)
+    qb = q.reshape(n // t_q, t_q, cfg.n_heads, cfg.cache_head_dim)
+    if cfg.cp_degree > 1:
+        _cp_write_batched(cache, layer, dest, rows, scales)
+        att = cp_merge(*cp_partials(cfg, qb, cache, layer, pos,
+                                    comm.cp_rank * cache.k.shape[2]), comm)
+        return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1),
+                           w8a8, comm)
     i0, i1 = dest
     if table is None:
         cache.k[i0, layer, i1] = rows[0]
@@ -361,14 +625,14 @@ def _layer_batched(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
         if scales is not None:
             cache.k_scale[layer, i0, :, i1] = scales[0]
             cache.v_scale[layer, i0, :, i1] = scales[1]
-    qb = q.reshape(n // t_q, t_q, cfg.n_heads, cfg.cache_head_dim)
     kw = dict(_attn_kw(cfg), k_scale=cache.k_scale, v_scale=cache.v_scale)
     if table is None:
         att = flash_attention_batched(qb, cache.k, cache.v, layer, pos, **kw)
     else:
         att = flash_attention_paged(qb, cache.k, cache.v, table, layer, pos,
                                     **kw)
-    return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1), w8a8)
+    return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1), w8a8,
+                       comm)
 
 
 def _write_index(cache: KVCache, pos: torch.Tensor, t_q: int,
@@ -396,8 +660,10 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
                     t_q: int = 1, table: Optional[torch.Tensor] = None,
                     logit_idx: Optional[int] = None,
                     w8a8: bool = True,
-                    want_logits: bool = True) -> Optional[torch.Tensor]:
-    """One step of B independent sequences: x (B*t_q, D) float32 holds t_q
+                    want_logits: bool = True,
+                    comm=None) -> Optional[torch.Tensor]:
+    """One step of B independent sequences: x (B*t_q, D) float32 (or
+    (B*t_q,) token ids) holds t_q
     rows per slot, slot by slot, at positions pos[b]..pos[b]+t_q-1 (pos a
     (B,) int32 tensor on the device, never read on the host).  The cache is
     per-slot ((B, L, S, row), `init_batched_kv_cache`) or, with `table` (a
@@ -408,9 +674,11 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
 
     All matmuls run on the B*t_q rows at once, so the weights stream once
     per step whatever B is; only the cache writes and attention are per
-    slot."""
+    slot.  Under a local config `comm` is the rank's communicator; a cp
+    shard's cache is its block of every slot's rows (no page pool)."""
     b = pos.shape[0]
-    if x.ndim != 2 or x.shape[0] != b * t_q:
+    if x.ndim != (2 if x.dtype.is_floating_point else 1) \
+            or x.shape[0] != b * t_q:
         raise ValueError(f"forward_batched takes ({b} * {t_q}, D) rows, "
                          f"got {tuple(x.shape)}")
     if table is None and cache.k.dim() == 4 and cache.k.shape[0] != b:
@@ -420,12 +688,19 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
     # rope rows of dead lanes past the table's end are never read
     rows = rows.reshape(-1).clamp(max=params.rope_cos.shape[0] - 1)
     cos, sin = params.rope_cos[rows], params.rope_sin[rows]
-    dest = _write_index(cache, pos, t_q, table)
+    if cfg.cp_degree > 1:
+        if table is not None:
+            raise ValueError("a page pool does not shard over cp")
+        dest = _cp_write_index(cache, pos, t_q,
+                               comm.cp_rank * cache.k.shape[2])
+    else:
+        dest = _write_index(cache, pos, t_q, table)
+    x = _rows(params, cfg, x, comm)
     for layer, lw in enumerate(params.layers):
         x = _layer_batched(cfg, x, lw, cache, layer, cos, sin, pos, t_q,
-                           dest, table, w8a8)
-    if not want_logits:
+                           dest, table, w8a8, comm)
+    if not want_logits or (comm is not None and comm.cp_rank):
         return None
     if logit_idx is not None:
         x = x[logit_idx:logit_idx + 1]
-    return _classify(params, cfg, x)
+    return _classify(params, cfg, x, comm)

@@ -133,13 +133,22 @@ def quantize_kv_rows_q4(x: torch.Tensor):
     amax = x.abs().amax(dim=-1)
     c7 = _const(amax, 7.0)
     inv = torch.where(amax > 0, c7 / amax, torch.zeros_like(amax))
-    q = torch.round(x * inv[..., None]).clamp(-8, 7).to(torch.int32)
+    q = torch.round(x * inv[..., None]).clamp(-8, 7)
+    return pack_kv_q4(q), amax / c7
+
+
+def pack_kv_q4(q: torch.Tensor) -> torch.Tensor:
+    """int4 values (..., KH, hd) in [-8, 7] (any dtype holding integers)
+    -> (..., KH * hd / 2) int8 biased nibble bytes, in the packing
+    `q4_cache_pair_mode` picks for KH and hd; `unpack_kv_q4`'s inverse."""
+    kh, hd = q.shape[-2:]
+    q = q.to(torch.int32)
     if q4_cache_pair_mode(kh, hd):
         qlo, qhi = q[..., 0::2, :], q[..., 1::2, :]          # head pairs
     else:
         qlo, qhi = q[..., :hd // 2], q[..., hd // 2:]
     v = (16 * qhi + qlo + 8).to(torch.int8)
-    return v.reshape(*x.shape[:-2], kh * hd // 2), amax / c7
+    return v.reshape(*q.shape[:-2], kh * hd // 2)
 
 
 def unpack_kv_q4(vals: torch.Tensor, kh: int, hd: int) -> torch.Tensor:

@@ -10,6 +10,14 @@ else once at the end.  With `speculative_k` > 0 a step is one lookup ->
 verify -> accept pass (`runtime.speculative.verify_step`) and the host
 reads the accepted count once per step.  TTFT and tok/s are taken after the
 device finished (`torch.cuda.synchronize()`).
+
+With `mesh` (a `parallel.distributed.Mesh`, as `parallel.tp.
+make_mesh_engine` builds it) the engine drives a (tp, cp) mesh of ranks
+with the same API: each forward is one mesh call (token ids or embedding
+rows, the position), the KV cache is sharded over the ranks (kv heads on
+tp, the sequence on cp), `params` and `cache` are rank 0's shards, and
+sampling, the history and sessions stay here.  Under cp a prefill chunk
+must divide the shard's S/cp rows, as in the JAX engine.
 """
 
 from __future__ import annotations
@@ -24,7 +32,7 @@ import torch
 from lmrs_tpu_torch.config import ModelConfig, resolve_device
 from lmrs_tpu_torch.io.params import kvcache_from_numpy
 from lmrs_tpu_torch.models.transformer import (CacheDtype, TransformerParams,
-                                               embed_tokens, forward,
+                                               cache_dtype_of, forward,
                                                init_kv_cache)
 from lmrs_tpu_torch.ops.sampling import sample
 from lmrs_tpu_torch.runtime.speculative import verify_step
@@ -72,12 +80,15 @@ class Engine:
     the conversation's tokens by position (-1 where unknown) for the
     prompt-lookup drafts.  `w8a8` picks the numerics of Q8_0 layer
     weights at T <= 8: int8 activations and integer dots (the default, as
-    the JAX package's LMRS_W8A8=1), or f32 activations."""
+    the JAX package's LMRS_W8A8=1), or f32 activations.  `mesh`: the
+    engine drives a mesh of ranks (module note)."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams,
                  device=None, cache_dtype: CacheDtype = torch.bfloat16,
-                 prefill_chunk: int = 256, w8a8: bool = True):
-        self.device = resolve_device(device)
+                 prefill_chunk: int = 256, w8a8: bool = True, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         self.cfg = cfg
         self.params = params
         if params.final_norm.device.type != self.device.type:
@@ -85,7 +96,21 @@ class Engine:
                              f"the engine runs on {self.device}")
         # a chunk longer than the context would slice past the rope tables
         self.prefill_chunk = min(prefill_chunk, cfg.seq_len)
-        self.cache = init_kv_cache(cfg, self.device, cache_dtype)
+        cache_dtype = cache_dtype_of(cache_dtype)
+        if mesh is None:
+            self.cache = init_kv_cache(cfg, self.device, cache_dtype)
+        else:
+            s_loc = cfg.seq_len // mesh.cp
+            if mesh.cp > 1 and (self.prefill_chunk > s_loc
+                                or s_loc % self.prefill_chunk):
+                # the JAX engine's fixed chunk grid under cp
+                raise ValueError(f"cp prefill_chunk {self.prefill_chunk} "
+                                 f"must divide the local cache block "
+                                 f"{s_loc}")
+            self._cid, self.cache = mesh.new_cache(0, cache_dtype, s_loc)
+        row = cfg.n_kv_heads * cfg.cache_head_dim
+        self._cache_shape = (cfg.n_layers, cfg.seq_len,
+                             row // 2 if cache_dtype == "int4" else row)
         self.w8a8 = w8a8
         self.pos = 0
         self._hist = torch.full((cfg.seq_len,), -1, dtype=torch.long,
@@ -109,6 +134,21 @@ class Engine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def close(self) -> None:
+        """Give back a mesh engine's cache shards on every rank (a one-
+        device engine's cache goes with the engine)."""
+        if self.mesh is not None and self._cid is not None:
+            self.mesh.free_cache(self._cid)
+            self._cid = None
+
+    def _forward(self, x: torch.Tensor, pos: int, logit_idx):
+        """The model over x (token ids or rows) at `pos`: here, or one
+        call of the mesh."""
+        if self.mesh is not None:
+            return self.mesh.forward(self._cid, x, pos, logit_idx, self.w8a8)
+        return forward(self.params, self.cfg, self.cache, x, pos, logit_idx,
+                       w8a8=self.w8a8)
+
     # ------------------------------------------------------------------
     def prefill(self, tokens: Sequence[int],
                 want_logits: bool = True) -> Optional[torch.Tensor]:
@@ -119,9 +159,8 @@ class Engine:
         tok = torch.as_tensor(list(tokens), dtype=torch.long,
                               device=self.device)
         self._hist[self.pos:self.pos + n] = tok
-        return self._prefill_rows(
-            n, lambda off, m: embed_tokens(self.params, self.cfg,
-                                           tok[off:off + m]), want_logits)
+        return self._prefill_rows(n, lambda off, m: tok[off:off + m],
+                                  want_logits)
 
     def prefill_embeds(self, x: torch.Tensor,
                        want_logits: bool = True) -> Optional[torch.Tensor]:
@@ -146,17 +185,16 @@ class Engine:
     def _prefill_rows(self, n: int, rows, want_logits: bool
                       ) -> Optional[torch.Tensor]:
         """The chunked prefill of n rows, `rows(off, m)` giving the (m, D)
-        embeddings of rows off..off+m-1."""
+        embeddings (or the m token ids) of rows off..off+m-1."""
         t0 = time.perf_counter()
         logits = None
         with torch.no_grad():
             for off in range(0, n, self.prefill_chunk):
                 m = min(self.prefill_chunk, n - off)
                 last = off + m == n
-                logits = forward(self.params, self.cfg, self.cache,
-                                 rows(off, m), self.pos,
-                                 m - 1 if last and want_logits else None,
-                                 w8a8=self.w8a8)
+                logits = self._forward(
+                    rows(off, m), self.pos,
+                    m - 1 if last and want_logits else None)
                 self.pos += m
         self._sync()
         self.metrics.prefill_tokens += n
@@ -171,9 +209,7 @@ class Engine:
             token = torch.tensor([token], dtype=torch.long, device=self.device)
         self._note(token)
         with torch.no_grad():
-            x = embed_tokens(self.params, self.cfg, token)
-            logits = forward(self.params, self.cfg, self.cache, x, self.pos,
-                             0, w8a8=self.w8a8)
+            logits = self._forward(token, self.pos, 0)
         self.pos += 1
         return logits
 
@@ -265,8 +301,8 @@ class Engine:
                and self.pos + k + 2 < self.cfg.seq_len):
             with torch.no_grad():
                 n_acc_dev, emitted = verify_step(
-                    self.params, self.cfg, self.cache, self._hist, self.pos,
-                    k, gen.temperature, gen.top_p, rng, w8a8=self.w8a8)
+                    self._forward, self.cfg, self._hist, self.pos, k,
+                    gen.temperature, gen.top_p, rng)
                 # all k + 1 may be written: the history past the new `pos`
                 # is never read (the lookup masks idx < pos - 1)
                 self._hist[self.pos + 1:self.pos + k + 2] = emitted
@@ -296,19 +332,35 @@ class Engine:
     # of either package loads in the other.
     def save_session(self, path: str) -> None:
         """Write the conversation to `path` (numpy appends .npz).  A bf16
-        cache is stored as its int16 bit pattern: numpy has no bfloat16."""
+        cache is stored as its int16 bit pattern: numpy has no bfloat16.
+        A mesh engine gathers the shards' live rows [0, pos) into the
+        global layout (the rows past pos are written as zeros), so that
+        the file loads on any mesh or one device."""
         def host(a: torch.Tensor) -> np.ndarray:
             if a.dtype == torch.bfloat16:
                 a = a.view(torch.int16)
             return a.cpu().numpy()
 
-        extra = {}
+        planes = dict(k=self.cache.k, v=self.cache.v)
         if self.cache.k_scale is not None:
-            extra = dict(k_scale=host(self.cache.k_scale),
-                         v_scale=host(self.cache.v_scale))
-        np.savez(path, k=host(self.cache.k), v=host(self.cache.v),
-                 pos=self.pos, hist=host(self._hist).astype(np.int32),
-                 sig=np.asarray(self._session_sig(), np.int64), **extra)
+            planes.update(k_scale=self.cache.k_scale,
+                          v_scale=self.cache.v_scale)
+        if self.mesh is None:
+            arrays = {name: host(a) for name, a in planes.items()}
+        else:
+            arrays = {}
+            for name, a in self.mesh.gather_cache(self._cid,
+                                                  self.pos).items():
+                live = host(a)
+                full = np.zeros(
+                    self._cache_shape if name in ("k", "v") else
+                    (self.cfg.n_layers, self.cfg.n_kv_heads,
+                     self.cfg.seq_len), live.dtype)
+                full[(slice(None),) * (1 if name in ("k", "v") else 2)
+                     + (slice(0, self.pos),)] = live
+                arrays[name] = full
+        np.savez(path, pos=self.pos, hist=host(self._hist).astype(np.int32),
+                 sig=np.asarray(self._session_sig(), np.int64), **arrays)
 
     def load_session(self, path: str) -> None:
         """Resume the conversation of `path`.  Refuses a file of another
@@ -318,11 +370,10 @@ class Engine:
             data = {key: f[key] for key in f.files}
         if list(data["sig"]) != list(self._session_sig()):
             raise ValueError("session file does not match this model config")
-        if data["k"].shape != tuple(self.cache.k.shape):
+        if data["k"].shape != self._cache_shape:
             raise ValueError(
                 f"session cache shape {data['k'].shape} does not match this "
-                f"engine's {tuple(self.cache.k.shape)} (cache dtype "
-                f"mismatch?)")
+                f"engine's {self._cache_shape} (cache dtype mismatch?)")
         quantized = self.cache.k_scale is not None
         if "k_scale" in data and not quantized:
             raise ValueError("session was saved from an int8 KV cache; "
@@ -330,9 +381,16 @@ class Engine:
         if "k_scale" not in data and quantized:
             raise ValueError("session was saved from a float KV cache; "
                              "this engine uses an int8 cache")
-        self.cache = kvcache_from_numpy(data, self.cache.k.dtype,
-                                        self.device)
+        loaded = kvcache_from_numpy(data, self.cache.k.dtype, self.device)
         self.pos = int(data["pos"])
+        if self.mesh is None:
+            self.cache = loaded
+        else:
+            n = self.pos
+            self.mesh.scatter_cache(self._cid, [
+                a[:, :n] if i < 2 else a[:, :, :n]
+                for i, a in enumerate((loaded.k, loaded.v, loaded.k_scale,
+                                       loaded.v_scale)) if a is not None])
         # restore (or invalidate) the token history: the prompt lookup
         # drafts from it, and another conversation's tokens below the
         # loaded pos would make every draft a wrong one

@@ -33,14 +33,11 @@ and the host reads the chunk's tokens once at its end.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig
-from lmrs_tpu_torch.models.transformer import (KVCache, TransformerParams,
-                                               embed_tokens, forward,
-                                               forward_batched)
 from lmrs_tpu_torch.ops.sampling import processed_probs
 
 
@@ -108,21 +105,20 @@ def rejection_accept(probs: torch.Tensor, draft: torch.Tensor,
     return ok, emitted
 
 
-def verify_step(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
-                h: torch.Tensor, pos: int, k: int, temperature: float,
-                top_p: float, generator: Optional[torch.Generator] = None,
-                w8a8: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+def verify_step(run: Callable, cfg: ModelConfig, h: torch.Tensor, pos: int,
+                k: int, temperature: float, top_p: float,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One lookup -> verify -> accept step at position `pos` (cache rows
     < pos are valid, h[pos] is known but not cached).  Runs ONE T = k+1
-    forward over [h[pos], draft], writing cache rows pos..pos+k, and
-    returns (n_acc 0-d long, emitted (k+1,) long), both on the device:
+    forward over [h[pos], draft], `run(token ids, pos, "all")` (the
+    engine's forward, on one device or a mesh: `make_spec_chunk_mesh`'s
+    counterpart), writing cache rows pos..pos+k, and returns (n_acc 0-d long, emitted (k+1,) long), both on the device:
     emitted[:n_acc] are the accepted drafts and emitted[n_acc] the
     correction or bonus token, so the step yields n_acc + 1 tokens.  The
     caller needs pos + k + 1 <= seq_len."""
     draft = lookup_draft(h, pos, k, cfg.vocab_size - 1)
-    toks_in = torch.cat([h[pos:pos + 1], draft])
-    x = embed_tokens(params, cfg, toks_in)
-    logits = forward(params, cfg, cache, x, pos, "all", w8a8=w8a8)
+    logits = run(torch.cat([h[pos:pos + 1], draft]), pos, "all")
     if temperature == 0.0:
         # greedy: the longest prefix with draft[i] == argmax[i]; the first
         # mismatching row emits its argmax
@@ -150,16 +146,16 @@ def lookup_draft_batched(h: torch.Tensor, p: torch.Tensor, k: int,
     return h.gather(1, take).clamp(0, vmax)
 
 
-def spec_chunk_batched(params: TransformerParams, cfg: ModelConfig,
-                       cache: KVCache, h: torch.Tensor, tokens: torch.Tensor,
-                       pos: torch.Tensor, n_steps: int, k: int,
-                       temperatures: Sequence[float], top_ps: Sequence[float],
-                       generator: Optional[torch.Generator] = None,
-                       table: Optional[torch.Tensor] = None,
-                       w8a8: bool = True):
+def spec_chunk_batched(run: Callable, cfg: ModelConfig, h: torch.Tensor,
+                       tokens: torch.Tensor, pos: torch.Tensor, n_steps: int,
+                       k: int, temperatures: Sequence[float],
+                       top_ps: Sequence[float],
+                       generator: Optional[torch.Generator] = None):
     """`n_steps` batched verify steps from tokens (B,) at positions pos (B,)
     (device tensors; h (B, S) is each slot's token history, updated in
-    place).  Each step runs ONE forward of t_q = k+1 rows per slot; greedy
+    place).  Each step runs ONE forward of t_q = k+1 rows per slot,
+    `run(token ids (B*(k+1),), pos, k + 1)` (the scheduler's batched
+    forward, on one device or a mesh); greedy
     slots accept their longest draft prefix equal to the argmaxes, slots
     with temperature > 0 accept by rejection sampling against
     `processed_probs` (one `rejection_accept` each).  An all-greedy batch
@@ -182,10 +178,7 @@ def spec_chunk_batched(params: TransformerParams, cfg: ModelConfig,
     for _ in range(n_steps):
         draft = lookup_draft_batched(h, p, k, cfg.vocab_size - 1)  # (B, k)
         tin = torch.cat([toks[:, None], draft], dim=1)
-        x = embed_tokens(params, cfg, tin.reshape(-1))
-        logits = forward_batched(params, cfg, cache, x, p, t_q=k + 1,
-                                 table=table, w8a8=w8a8)
-        logits = logits.reshape(b, k + 1, -1)
+        logits = run(tin.reshape(-1), p, k + 1).reshape(b, k + 1, -1)
         emit = torch.argmax(logits, dim=-1)                       # (B, k+1)
         ok = draft == emit[:, :-1]
         for i in sampled:

@@ -33,6 +33,15 @@ conversation leases a slot and the turns of all connections decode
 together.  --batch pages the KV cache by default (`auto_pool_tokens`
 rows); --no-paged keeps the contiguous per-slot cache.
 
+--tp N / --cp M run the model on a (tp, cp) mesh of ranks
+(`parallel.distributed.Mesh`): each connection's Engine, or with --batch
+the one scheduler, drives the mesh.  --dp R (with --batch) serves R
+scheduler replicas behind the least-loaded router (`serve.replicas`), each
+stepped by a SchedulerThread of its own; a conversation stays on the
+replica that holds its KV.  The JAX backend's checks hold: --dp needs
+--batch and refuses --cp, --pool-tokens needs --batch and refuses --cp,
+and under --cp the automatic paged pool stays off.
+
 `BackendServer.handle` takes any connection object with an async `send()`
 and async iteration over incoming messages, so the protocol runs without
 a network; only `serve()` imports the `websockets` package.
@@ -41,7 +50,7 @@ Usage:
     python -m lmrs_tpu_torch.serve.backend --model m.lmrs --tokenizer
         tokenizer.bin [--ip 127.0.0.1] [--port 5000] [--batch N]
         [--cache-dtype int8] [--spec-k K] [--device cpu]
-        [--multimodal] [--num-crops N]
+        [--multimodal] [--num-crops N] [--tp N] [--cp M] [--dp R]
 """
 
 from __future__ import annotations
@@ -57,7 +66,7 @@ from typing import List, Optional
 
 from lmrs_tpu_torch.cli.chat import (LLAMA_SYSTEM_PREFIX, LLAMA_SYSTEM_SUFFIX,
                                      PHI_TURN_SUFFIX)
-from lmrs_tpu_torch.config import ModelType, resolve_device, unsupported
+from lmrs_tpu_torch.config import ModelType, resolve_device
 
 # prompt rows per prefill chunk, single-stream and batched: one chunk per
 # scheduler tick, so a 1,024-token prompt is admitted in four ticks
@@ -83,12 +92,15 @@ class BackendServer:
                  spec_k: int = 0, pool_tokens: Optional[int] = None,
                  page_size: int = 512, dp: int = 1, no_paged: bool = False,
                  device=None):
-        if tp > 1 or cp > 1 or dp > 1:
-            raise unsupported("--tp / --cp / --dp",
-                              "A15 torch.distributed tp/cp")
-        if pool_tokens is not None and batch == 0:
+        if pool_tokens is not None and (batch == 0 or cp > 1):
             raise ValueError("--pool-tokens (paged KV cache) requires "
-                             "--batch")
+                             "--batch; --cp is not supported (pages are "
+                             "head-sharded, not sequence-sharded)")
+        if dp > 1 and batch <= 0:
+            raise ValueError("--dp requires --batch (the router multiplies "
+                             "the batched scheduler)")
+        if dp > 1 and cp > 1:
+            raise ValueError("--dp with --cp is not supported")
         from lmrs_tpu_torch.io.lmrs import read_lmrs
         from lmrs_tpu_torch.io.params import (params_from_lmrs,
                                               vision_params_from_lmrs)
@@ -103,7 +115,17 @@ class BackendServer:
             raise ValueError("Current model doesn't support multimodality.")
         self.multimodal = multimodal
         self.num_crops = num_crops
-        self.params = params_from_lmrs(self.file, device=self.device)
+        self.tp, self.cp = tp, cp
+        # --tp/--cp: the mesh every engine or the scheduler drives
+        self.mesh = None
+        if dp == 1 and tp * cp > 1:
+            from lmrs_tpu_torch.parallel.distributed import Mesh
+
+            self.mesh = Mesh.start(self.file, tp=tp, cp=cp,
+                                   device=self.device.type)
+            self.params = self.mesh.params
+        elif dp == 1:
+            self.params = params_from_lmrs(self.file, device=self.device)
         # the vision encoder and projector, loaded once for all images
         self.vision = (vision_params_from_lmrs(self.file, device=self.device)
                        if multimodal else None)
@@ -119,6 +141,9 @@ class BackendServer:
         # one generation at a time in engine mode
         self.gpu_lock = asyncio.Lock()
         self.scheduler = None
+        self.router = None
+        # batch mode: one SchedulerThread, or one a replica under --dp
+        self.threads = []
         if batch > 0:
             from lmrs_tpu_torch.serve.scheduler import (BatchScheduler,
                                                         SchedulerThread,
@@ -127,18 +152,39 @@ class BackendServer:
 
             # paged by default where the pool can serve the config
             if (pool_tokens is None and not no_paged
-                    and paged_supported(self.cfg, self.cache_dtype)):
+                    and paged_supported(self.cfg, self.cache_dtype, cp)):
                 pool_tokens = auto_pool_tokens(
                     batch, min(max_ctx or self.cfg.seq_len,
                                self.cfg.seq_len), page_size)
-            sched = BatchScheduler(
-                self.cfg, self.params, max_batch=batch, max_ctx=max_ctx,
-                cache_dtype=self.cache_dtype, temperature=temperature,
-                top_p=top_p, seed=seed if seed is not None else 0,
-                speculative_k=spec_k, pool_tokens=pool_tokens,
-                page_size=page_size, device=self.device,
-                prefill_chunk=min(PREFILL_CHUNK, page_size), w8a8=self.w8a8)
-            self.scheduler = SchedulerThread(sched)
+            kw = dict(max_batch=batch, max_ctx=max_ctx,
+                      cache_dtype=self.cache_dtype, temperature=temperature,
+                      top_p=top_p, seed=seed if seed is not None else 0,
+                      speculative_k=spec_k, pool_tokens=pool_tokens,
+                      page_size=page_size,
+                      prefill_chunk=min(PREFILL_CHUNK, page_size),
+                      w8a8=self.w8a8)
+            if dp > 1:
+                import torch
+
+                from lmrs_tpu_torch.serve.replicas import ReplicaRouter
+
+                # replicas go round the visible GPUs (one GPU serves both
+                # replicas of --dp 2)
+                n_dev = (torch.cuda.device_count()
+                         if self.device.type == "cuda" else 1)
+                self.router = ReplicaRouter(
+                    self.file, dp=dp, tp=tp,
+                    devices=[torch.device(self.device.type, i % n_dev)
+                             if self.device.type == "cuda" else self.device
+                             for i in range(dp * tp)], **kw)
+                self.params = self.router.replicas[0].params
+                self.threads = self.router.start_threads()
+            else:
+                sched = BatchScheduler(self.cfg, self.params,
+                                       device=self.device, mesh=self.mesh,
+                                       **kw)
+                self.threads = [SchedulerThread(sched)]
+            self.scheduler = self.threads[0]
 
     def warmup(self):
         """Build and load the CUDA kernels before taking traffic: the only
@@ -150,8 +196,14 @@ class BackendServer:
                 cuda.library(name)
 
     def shutdown(self):
-        if self.scheduler is not None:
-            self.scheduler.shutdown()
+        if self.router is not None:
+            self.router.close()         # its threads, then its meshes
+        else:
+            for thread in self.threads:
+                thread.shutdown()
+                thread.sched.close()
+        if self.mesh is not None:
+            self.mesh.shutdown()
 
     def _prompt(self, text: str, first_turn: bool,
                 image_turn: bool = False) -> List[int]:
@@ -207,12 +259,17 @@ class BackendServer:
             await ws.send(_response("STATUS", IMAGE_UNREADABLE))
         return img
 
-    def _encode_image(self, img):
-        """The image's embedding rows."""
+    def _encode_image(self, img, sched=None):
+        """The image's embedding rows, the wrapper tokens' rows from the
+        text weights of `sched` (the scheduler that takes them) or of the
+        server (a mesh embeds them on its ranks)."""
         from lmrs_tpu_torch.models.phi3v import encode_image_to_embeds
 
-        return encode_image_to_embeds(self.vision, self.params, self.cfg,
-                                      img, self.num_crops)
+        params, mesh = ((self.params, self.mesh) if sched is None
+                        else (sched.params, sched.mesh))
+        return encode_image_to_embeds(
+            self.vision, params, self.cfg, img, self.num_crops,
+            embed=None if mesh is None else mesh.embed)
 
     async def _ingest_image(self, ws, engine, image_b64: str) -> bool:
         """Single stream: encode the image and prefill its rows into the
@@ -236,7 +293,8 @@ class BackendServer:
                                                     want_logits=False))
         return True
 
-    async def _ingest_image_batched(self, ws, lease, image_b64: str) -> bool:
+    async def _ingest_image_batched(self, ws, thread, lease,
+                                    image_b64: str) -> bool:
         """Batched: encode the image and prefill its rows into the leased
         slot, both on the scheduler's thread between decode chunks.  False
         (after its status) when the image cannot be read, its rows and a
@@ -244,7 +302,6 @@ class BackendServer:
         (the slot keeps its rows and pages)."""
         from lmrs_tpu_torch.serve.scheduler import PoolExhausted
 
-        thread = self.scheduler
         sched = thread.sched
         img = await self._decode_image(ws, image_b64)
         if img is None:
@@ -253,7 +310,7 @@ class BackendServer:
 
         def encode_and_fill():
             """None, or the status that says why the rows did not go in."""
-            embeds = self._encode_image(img)
+            embeds = self._encode_image(img, sched)
             if (sched.slots[lease.slot_idx].pos + embeds.shape[0] + 1
                     >= sched.S):
                 return CONTEXT_FULL
@@ -289,14 +346,27 @@ class BackendServer:
     # ------------------------------------------------------------------
     async def handle(self, ws):
         """One connection = one conversation."""
-        from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
-        from lmrs_tpu_torch.tokenizer import StreamDecoder
+        from lmrs_tpu_torch.runtime.engine import Engine
 
         if self.scheduler is not None:
             return await self.handle_batched(ws)
+        # under cp a prefill chunk divides the shard's rows
         engine = Engine(self.cfg, self.params, device=self.device,
                         cache_dtype=self.cache_dtype,
-                        prefill_chunk=PREFILL_CHUNK, w8a8=self.w8a8)
+                        prefill_chunk=min(PREFILL_CHUNK,
+                                          self.cfg.seq_len // self.cp),
+                        w8a8=self.w8a8, mesh=self.mesh)
+        try:
+            await self._converse(ws, engine)
+        finally:
+            async with self.gpu_lock:
+                engine.close()
+
+    async def _converse(self, ws, engine):
+        """The turns of one connection on its own Engine."""
+        from lmrs_tpu_torch.runtime.engine import GenerationConfig
+        from lmrs_tpu_torch.tokenizer import StreamDecoder
+
         gen = GenerationConfig(temperature=self.temperature,
                                top_p=self.top_p, seed=self.seed,
                                max_new_tokens=self.max_new_tokens,
@@ -341,18 +411,30 @@ class BackendServer:
                 await ws.send(_response("OUTPUT", tail))
             await ws.send(_response("OUTPUT", "<eos>"))
 
+    def lease(self):
+        """(SchedulerThread, lease) of a new conversation in batch mode: a
+        slot of the one scheduler, or under --dp of the replica the router
+        places it on (`ReplicaRouter.new_conversation`); the lease is None
+        when every slot is taken."""
+        if self.router is not None:
+            rlease = self.router.new_conversation()
+            if rlease is None:
+                return None, None
+            return self.router.threads[rlease.replica], rlease.lease
+        thread = self.scheduler
+        return thread, thread.call(thread.sched.new_conversation)
+
     async def handle_batched(self, ws):
         """Continuous-batching connection handler: the conversation leases
         one scheduler slot, and its turns decode together with the other
         connections'."""
         from lmrs_tpu_torch.tokenizer import StreamDecoder
 
-        thread = self.scheduler
-        sched = thread.sched
-        lease = thread.call(sched.new_conversation)
+        thread, lease = self.lease()
         if lease is None:
             await ws.send(_response("STATUS", CAPACITY))
             return
+        sched = thread.sched
         stop_tokens = self._stop_tokens()
         first_turn = True
         if self.multimodal:
@@ -365,7 +447,7 @@ class BackendServer:
                 text, image = msg
                 image_turn = image is not None
                 if image_turn and not await self._ingest_image_batched(
-                        ws, lease, image):
+                        ws, thread, lease, image):
                     await ws.send(_response("OUTPUT", "<eos>"))
                     continue
                 prompt_tokens = self._prompt(text, first_turn, image_turn)
@@ -447,11 +529,14 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--page-size", dest="page_size", type=int, default=512,
                    help="rows per page of the paged KV pool")
     p.add_argument("--tp", type=int, default=1,
-                   help="not ported yet (ROADMAP.md A15)")
+                   help="tensor-parallel ranks (Megatron sharding; one "
+                        "process a rank)")
     p.add_argument("--cp", type=int, default=1,
-                   help="not ported yet (ROADMAP.md A15)")
+                   help="context-parallel ranks (the KV cache's sequence "
+                        "sharded)")
     p.add_argument("--dp", type=int, default=1,
-                   help="not ported yet (ROADMAP.md A15)")
+                   help="data-parallel scheduler replicas behind a least-"
+                        "loaded router (requires --batch)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; cpu runs the kernels' "
                         "plain versions)")

@@ -30,6 +30,16 @@ Counterpart of `lmrs_tpu/serve/scheduler.py`, on one device.
   pool; prompt-lookup speculation verifies k drafts per slot per step
   (`runtime.speculative.spec_chunk_batched`).
 
+With `mesh` (a `parallel.distributed.Mesh`, as `parallel.tp.
+make_mesh_scheduler` builds it) the same scheduler drives a (tp, cp) mesh
+of ranks, the JAX scheduler's mesh mode: every forward is one mesh call
+(token ids or rows, positions, the page table), the cache is sharded (kv
+heads on tp: the page pool with J on the local heads, or the per-slot
+cache with I; the per-slot cache's sequence on cp, its writes row-exact
+and its attention B1 merged over cp), prefix forks are mesh calls, and the
+host side (slots, pages, sampling, the history) stays here.  A page pool
+does not shard over cp.
+
 PyTorch runs eagerly, so the JAX scheduler's compile-avoidance (attention
 buckets, one program per padded chunk, warm-up sweeps) has no counterpart
 here; prefill chunks are padded to a power of two only because the padding
@@ -51,10 +61,9 @@ import torch
 from lmrs_tpu_torch.config import ModelConfig, resolve_device
 from lmrs_tpu_torch.models.transformer import (CacheDtype, KVCache,
                                                TransformerParams,
-                                               cache_dtype_of, embed_tokens,
+                                               cache_dtype_of, copy_rows,
                                                forward, forward_batched,
-                                               init_batched_kv_cache,
-                                               init_kv_pool)
+                                               new_cache, slot_view)
 from lmrs_tpu_torch.ops.sampling import (sample_argmax, sample_batched,
                                          sample_multinomial, sample_topp)
 from lmrs_tpu_torch.quant import q4_cache_supported
@@ -65,11 +74,12 @@ class PoolExhausted(RuntimeError):
     """The paged KV pool has no free pages for a required allocation."""
 
 
-def paged_supported(cfg: ModelConfig, cache_dtype=torch.bfloat16) -> bool:
-    """Whether the paged pool can serve this config: the backend's --batch
-    pages by default when it holds and keeps the contiguous cache
-    otherwise."""
-    if cfg.cache_head_dim % 128:
+def paged_supported(cfg: ModelConfig, cache_dtype=torch.bfloat16,
+                    cp: int = 1) -> bool:
+    """Whether the paged pool can serve this config on a mesh of `cp`
+    sequence shards: the backend's --batch pages by default when it holds
+    and keeps the contiguous cache otherwise (always under cp)."""
+    if cp > 1 or cfg.cache_head_dim % 128:
         return False
     if cache_dtype_of(cache_dtype) == "int4":
         return q4_cache_supported(cfg.n_kv_heads, cfg.cache_head_dim)
@@ -121,7 +131,8 @@ class _Slot:
     lease: Optional["Lease"] = None
     # a request whose prompt is being prefilled, one chunk per tick
     pending: Optional[Request] = None
-    pending_x: Optional[torch.Tensor] = None     # prompt embeddings (N, D)
+    # the prompt's token ids (N,), or an image's embeddings (N, D)
+    pending_x: Optional[torch.Tensor] = None
     pending_off: int = 0
     # the token at each cached row (feeds the admission prefix cache),
     # valid through min(len, pos)
@@ -146,7 +157,8 @@ class BatchScheduler:
     device.  Arguments as `lmrs_tpu.serve.scheduler.BatchScheduler`'s,
     without the mesh; `cache_dtype` is torch.bfloat16, torch.float32,
     torch.int8 or "int4" (or their names), `pool_tokens` turns on the
-    paged pool, `w8a8` picks the Q8_0 layer numerics as `Engine`'s."""
+    paged pool, `w8a8` picks the Q8_0 layer numerics as `Engine`'s, and
+    `mesh` drives a mesh of ranks (module note)."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams,
                  max_batch: int = 8, max_ctx: Optional[int] = None,
@@ -156,8 +168,10 @@ class BatchScheduler:
                  seed: int = 0, prefix_cache_min: int = 32,
                  speculative_k: int = 0, page_size: int = 512,
                  pool_tokens: Optional[int] = None, device=None,
-                 w8a8: bool = True):
-        self.device = resolve_device(device)
+                 w8a8: bool = True, mesh=None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         if params.final_norm.device.type != self.device.type:
             raise ValueError(f"params lie on {params.final_norm.device}, "
                              f"the scheduler runs on {self.device}")
@@ -167,6 +181,12 @@ class BatchScheduler:
                              "(pass pool_tokens=...); use int8 for the "
                              "contiguous batched cache")
         self.paged = pool_tokens is not None
+        cp = 1 if mesh is None else mesh.cp
+        if cp > 1 and self.paged:
+            raise ValueError("--pool-tokens with --cp is not supported: "
+                             "pages shard on kv-head lanes, not the "
+                             "sequence (use a contiguous batched cache "
+                             "with --cp)")
         if self.paged:
             if cfg.cache_head_dim % 128:
                 raise ValueError("the paged cache needs the fast kernel "
@@ -209,6 +229,8 @@ class BatchScheduler:
         # conversation's dead region); near S those writes land here.
         # With speculation every step writes a (k+1)-row window.
         self._slack = max(decode_chunk * (speculative_k + 1), 8)
+        # under cp the per-slot rows split evenly over the shards
+        self._slack += -(self.S + self._slack) % cp
         if self.paged:
             self.psz = page_size
             # virtual pages cover S plus the in-chunk write overhang;
@@ -216,8 +238,8 @@ class BatchScheduler:
             self.maxp = -(-(self.S + self._slack
                             + max(prefill_chunk, decode_chunk)) // page_size)
             self.n_pages = max(1, -(-pool_tokens // page_size)) + 1
-            self.cache = init_kv_pool(cfg, self.device, self.n_pages,
-                                      page_size, cache_dtype)
+            self.cache = self._new_cache(2, cache_dtype, self.n_pages,
+                                         page_size)
             self._table = np.zeros((self.B, self.maxp), np.int32)
             self._table_dev = torch.zeros((self.B, self.maxp),
                                           dtype=torch.int32,
@@ -229,9 +251,8 @@ class BatchScheduler:
             self._page_refs = np.zeros(self.n_pages, np.int32)
             self.pages_peak = 0
         else:
-            self.cache = init_batched_kv_cache(cfg, self.device, self.B,
-                                               self.S + self._slack,
-                                               cache_dtype)
+            self.cache = self._new_cache(1, cache_dtype, self.B,
+                                         (self.S + self._slack) // cp)
         self.slots = [_Slot() for _ in range(self.B)]
         self.waiting: List[Request] = []
         self._ids = itertools.count()
@@ -251,6 +272,52 @@ class BatchScheduler:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the model: here, or one call of the mesh ----------------------
+    def _new_cache(self, kind: int, dtype, a: int, b: int) -> KVCache:
+        """The per-slot cache (kind 1: `a` slots of `b` rows) or the page
+        pool (kind 2: `a` pages of `b` rows); on a mesh every rank's shard
+        (rank 0's is returned)."""
+        if self.mesh is not None:
+            self._cid, cache = self.mesh.new_cache(kind, dtype, a, b)
+            return cache
+        return new_cache(self.cfg, self.device, kind, dtype, a, b)
+
+    def close(self) -> None:
+        """Give back a mesh scheduler's cache shards on every rank."""
+        if self.mesh is not None and self._cid is not None:
+            self.mesh.free_cache(self._cid)
+            self._cid = None
+
+    def _fwd_slot(self, slot_idx: int, xt: torch.Tensor, pos: int,
+                  logit_idx: Optional[int]) -> Optional[torch.Tensor]:
+        """The single-stream forward on slot i's block of the per-slot
+        cache."""
+        if self.mesh is not None:
+            return self.mesh.forward(self._cid, xt, pos, logit_idx,
+                                     self.w8a8, slot=slot_idx)
+        return forward(self.params, self.cfg, self._slot_view(slot_idx), xt,
+                       pos, logit_idx, w8a8=self.w8a8)
+
+    def _fwd_b(self, x: torch.Tensor, p: torch.Tensor, t_q: int = 1,
+               table: Optional[torch.Tensor] = None,
+               logit_idx: Optional[int] = None,
+               want_logits: bool = True) -> Optional[torch.Tensor]:
+        """The batched forward over the scheduler's cache."""
+        if self.mesh is not None:
+            return self.mesh.forward_batched(self._cid, x, p, t_q, table,
+                                             logit_idx, self.w8a8,
+                                             want_logits)
+        return forward_batched(self.params, self.cfg, self.cache, x, p,
+                               t_q=t_q, table=table, logit_idx=logit_idx,
+                               w8a8=self.w8a8, want_logits=want_logits)
+
+    def _copy(self, kind: int, src: int, dst: int, n: int) -> None:
+        """A prefix fork's copy (`models.transformer.copy_rows`)."""
+        if self.mesh is not None:
+            self.mesh.copy_rows(self._cid, kind, src, dst, n)
+        else:
+            copy_rows(self.cache, kind, src, dst, n)
 
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 256,
@@ -454,64 +521,50 @@ class BatchScheduler:
             pg = self._take_page()
             self._table[dst_idx, n_full] = pg
             slot.pages.append(pg)
-            src = donor.pages[n_full]
-            c = self.cache
-            c.k[:, pg, :r] = c.k[:, src, :r]
-            c.v[:, pg, :r] = c.v[:, src, :r]
-            if c.k_scale is not None:
-                c.k_scale[:, pg, :, :r] = c.k_scale[:, src, :, :r]
-                c.v_scale[:, pg, :, :r] = c.v_scale[:, src, :, :r]
+            self._copy(1, donor.pages[n_full], pg, r)
         self._table_dirty = True
         return True
 
     def _copy_prefix(self, src: int, dst: int, n_rows: int):
         """Contiguous prefix fork: copy rows [0, n_rows) of slot src."""
-        c = self.cache
-        c.k[dst, :, :n_rows] = c.k[src, :, :n_rows]
-        c.v[dst, :, :n_rows] = c.v[src, :, :n_rows]
-        if c.k_scale is not None:
-            c.k_scale[dst, :, :, :n_rows] = c.k_scale[src, :, :, :n_rows]
-            c.v_scale[dst, :, :, :n_rows] = c.v_scale[src, :, :, :n_rows]
+        self._copy(0, src, dst, n_rows)
 
     def _slot_view(self, i: int) -> KVCache:
         """Slot i's (L, S + slack, row) block of the contiguous cache: a
         single-stream cache whose writes land in the batched one."""
-        c = self.cache
-        return KVCache(c.k[i], c.v[i],
-                       None if c.k_scale is None else c.k_scale[i],
-                       None if c.v_scale is None else c.v_scale[i])
+        return slot_view(self.cache, i)
 
     def _prefill_call(self, slot_idx: int, xt: torch.Tensor, pos: int,
                       logit_idx: Optional[int],
                       real_rows: int) -> Optional[torch.Tensor]:
-        """One prefill chunk (xt padded) into the slot at `pos`; returns
-        the logits of row `logit_idx` (None: no classifier, no logits).
+        """One prefill chunk (xt padded: token ids or rows) into the slot at
+        `pos`; returns the logits of row `logit_idx` (None: no classifier,
+        no logits).
         Paged: raises PoolExhausted when
         the pool cannot cover the chunk's REAL rows; the pad overhang
         writes through unallocated table entries into the trash page, so
         padding never costs a page."""
         with torch.no_grad():
             if not self.paged:
-                return forward(self.params, self.cfg,
-                               self._slot_view(slot_idx), xt, pos,
-                               logit_idx, w8a8=self.w8a8)
+                return self._fwd_slot(slot_idx, xt, pos, logit_idx)
             if not self._ensure_pages(slot_idx, pos + real_rows):
                 raise PoolExhausted(f"slot {slot_idx}: no free pages for "
                                     f"prefill rows through "
                                     f"{pos + real_rows}")
             self._table_sync()
             p = torch.tensor([pos], dtype=torch.int32, device=self.device)
-            logits = forward_batched(
-                self.params, self.cfg, self.cache, xt, p, t_q=xt.shape[0],
+            logits = self._fwd_b(
+                xt, p, t_q=xt.shape[0],
                 table=self._table_dev[slot_idx:slot_idx + 1],
-                logit_idx=logit_idx, w8a8=self.w8a8,
-                want_logits=logit_idx is not None)
+                logit_idx=logit_idx, want_logits=logit_idx is not None)
             return None if logits is None else logits[0]
 
     def _prefill_chunk(self, slot_idx: int, x: torch.Tensor, off: int,
                        want_logits: bool = True):
-        """The next chunk of the rows x (N, D) from row `off` into the slot
-        at its pos, padded to `_pad_rows`; returns (the logits of the
+        """The next chunk of x, the N token ids or (N, D) rows, from row
+        `off` into the slot at its pos, padded to `_pad_rows` (pad tokens
+        are id 0, pad rows zero: rows past the chunk's, never read before
+        they are written again); returns (the logits of the
         chunk's last row, or None without `want_logits`, the chunk's real
         rows)."""
         pos = self.slots[slot_idx].pos
@@ -519,7 +572,9 @@ class BatchScheduler:
         pad = min(_pad_rows(chunk), self.S + self._slack - pos)
         xt = x[off:off + chunk]
         if chunk < pad:
-            xt = torch.nn.functional.pad(xt, (0, 0, 0, pad - chunk))
+            xt = torch.nn.functional.pad(
+                xt, (0, 0, 0, pad - chunk) if xt.ndim == 2
+                else (0, pad - chunk))
         return self._prefill_call(slot_idx, xt, pos,
                                   chunk - 1 if want_logits else None,
                                   chunk), chunk
@@ -591,11 +646,8 @@ class BatchScheduler:
                     req.on_done(req.out)
                 continue
             slot.pending = req
-            with torch.no_grad():
-                slot.pending_x = embed_tokens(
-                    self.params, self.cfg,
-                    torch.as_tensor(req.prompt, dtype=torch.long,
-                                    device=self.device))
+            slot.pending_x = torch.as_tensor(req.prompt, dtype=torch.long,
+                                             device=self.device)
             slot.pending_off = 0
             if slot.pos == 0 and self.prefix_cache_min:
                 n_cp, donor = self._best_prefix(req.prompt, slot_idx)
@@ -771,9 +823,7 @@ class BatchScheduler:
         outs = []
         with torch.no_grad():
             for _ in range(n):
-                x = embed_tokens(self.params, self.cfg, toks)
-                logits = forward_batched(self.params, self.cfg, self.cache,
-                                         x, p, table=table, w8a8=self.w8a8)
+                logits = self._fwd_b(toks, p, table=table)
                 toks = sample_batched(logits, temps_d, top_ps_d,
                                       self.generator, any_sampled)
                 p = p + 1
@@ -806,14 +856,13 @@ class BatchScheduler:
             row[:len(t)] = t
             self._h_dev[i].copy_(torch.from_numpy(row))
         self._h_dirty.clear()
+        table = self._table_dev if self.paged else None
         with torch.no_grad():
             out, n_out, accs = spec_chunk_batched(
-                self.params, self.cfg, self.cache, self._h_dev,
-                torch.from_numpy(tokens).to(dev),
+                lambda x, p, t_q: self._fwd_b(x, p, t_q, table), self.cfg,
+                self._h_dev, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(pos).to(dev), n, k, temps.tolist(),
-                top_ps.tolist(), self.generator,
-                table=self._table_dev if self.paged else None,
-                w8a8=self.w8a8)
+                top_ps.tolist(), self.generator)
             # one host read of the chunk: tokens, counts, accepted drafts
             flat = torch.cat([out.reshape(-1), n_out,
                               accs.reshape(-1)]).cpu().numpy()
@@ -845,6 +894,13 @@ class BatchScheduler:
             r.error = error
             if r.on_done is not None:
                 r.on_done(r.out)
+
+    def bind_thread(self):
+        """Make the scheduler's GPU the current device of the calling
+        thread (a thread that steps it: kernels launch on the current
+        device)."""
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
 
     def warmup(self):
         """Build and load the CUDA kernels before taking traffic (eager
@@ -923,6 +979,7 @@ class SchedulerThread:
 
     def _run(self):
         try:
+            self.sched.bind_thread()
             self._loop()
         except Exception as e:  # ends the requests, kept for the callers
             traceback.print_exc()

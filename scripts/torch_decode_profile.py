@@ -185,9 +185,8 @@ def profile_decode(torch, args, card, cfg, params, w8a8) -> dict:
             if k:
                 with torch.no_grad():
                     n_acc, emitted = verify_step(
-                        engine.params, engine.cfg, engine.cache,
-                        engine._hist, engine.pos, k, 0.0, 1.0,
-                        w8a8=engine.w8a8)
+                        engine._forward, engine.cfg, engine._hist,
+                        engine.pos, k, 0.0, 1.0)
                     engine._hist[engine.pos + 1:
                                  engine.pos + k + 2] = emitted
                 n = int(n_acc.item()) + 1     # the step's one host read

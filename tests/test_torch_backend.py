@@ -178,21 +178,53 @@ def test_context_full(artifacts, batch):
 
 
 def test_unsupported_options_raise(artifacts):
+    """The JAX backend's invalid combinations of --tp/--cp/--dp raise its
+    ValueErrors before any rank starts (`test_mesh_flags_serve` serves the
+    valid ones)."""
     model_path, tok_path = artifacts
-    for kw, entry in ((dict(tp=2), "A15"), (dict(cp=2), "A15"),
-                      (dict(dp=2, batch=2), "A15")):
-        with pytest.raises(NotImplementedError, match=entry):
+    for kw, match in ((dict(pool_tokens=512), "requires --batch"),
+                      (dict(pool_tokens=512, batch=2, cp=2),
+                       "--cp is not supported"),
+                      (dict(dp=2), "--dp requires --batch"),
+                      (dict(dp=2, batch=2, cp=2), "--dp with --cp"),
+                      (dict(tp=3), "tp=3 incompatible")):
+        with pytest.raises(ValueError, match=match):
             BackendServer(model_path, tok_path, device="cpu", **kw)
-    with pytest.raises(ValueError, match="requires --batch"):
-        BackendServer(model_path, tok_path, device="cpu", pool_tokens=512)
     # a text-only server answers the text of a message with an image, as
     # the JAX BackendServer does on the same model (greedy, text for text)
     image_msg = json.dumps({"text": "Hello there", "image": "AAAA"})
     (turns, status), = talk(server(artifacts), Conn([image_msg]))
     assert not status and turns == [jax_reply(artifacts, image_msg)]
-    with pytest.raises(NotImplementedError, match="A15"):
+    with pytest.raises(ValueError, match="--dp requires --batch"):
         main(["--model", model_path, "--tokenizer", tok_path, "--device",
-              "cpu", "--tp", "2"])
+              "cpu", "--tp", "2", "--dp", "2"])
+
+
+@pytest.mark.parametrize("mode", [dict(tp=2), dict(cp=2),
+                                  dict(batch=2, tp=2),
+                                  dict(batch=2, cp=2, no_paged=True),
+                                  dict(batch=2, dp=2)])
+def test_mesh_flags_serve(artifacts, single_replies, mode):
+    """--tp and --cp reach a mesh (two rank processes on the CPU) under
+    each connection's Engine or under the one scheduler, and --dp a router
+    of two scheduler replicas, each on its own SchedulerThread: two
+    conversations read the single-stream engine's greedy replies, text for
+    text."""
+    srv = server(artifacts, **mode)
+    try:
+        if mode.get("dp"):
+            assert srv.router is not None and len(srv.threads) == 2
+        else:
+            assert (srv.mesh.tp, srv.mesh.cp) == (mode.get("tp", 1),
+                                                  mode.get("cp", 1))
+        if mode.get("batch") and not mode.get("dp"):
+            assert srv.scheduler.sched.mesh is srv.mesh
+            assert srv.scheduler.sched.paged == (not mode.get("cp"))
+        (ta, sa), (tb, sb) = talk(srv, Conn(MSGS), Conn(MSGS))
+        assert ta == single_replies[0] and tb == single_replies[0]
+        assert not sa and not sb
+    finally:
+        srv.shutdown()
 
 
 def jax_reply(artifacts, msg):

@@ -1420,3 +1420,53 @@ def test_score_tokens_card_matches_cpu(cuda_device, quant, cache):
     assert {k for k, n in launches().items() if n > 0} == {gemm, flash}
     assert np.isfinite(got["cuda"])
     assert abs(got["cuda"] - got["cpu"]) <= cs.CUT_TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tp,cp", [(2, 1), (1, 2), (2, 2)])
+def test_mesh_engine_on_card(cuda_device, tmp_path, tp, cp):
+    """A tiny Llama Q8_0 (head_dim 64, a head dim the kernels are built
+    for) on a mesh of rank processes sharing the card over gloo, a
+    300-token prompt across cp's 256-row shard edge: greedy tokens equal
+    to the one-device engine's up to the first step whose top-2 margin is
+    below 1e-2 of the logit scale, teacher-forced logits within 1e-2 of
+    it (`tests/torch_mesh_cases.py`: W8A8 rounding steps and cp's
+    shard-max softmax rounding); the kernels summed over the ranks: tp
+    D, E, F, C, M; cp D, E, F, I and B1 (on every rank), M and no C."""
+    from lmrs_tpu_torch.config import QuantType, tiny_llama
+    from lmrs_tpu_torch.io.lmrs import read_lmrs, write_lmrs
+    from lmrs_tpu_torch.io.params import params_from_lmrs
+    from lmrs_tpu_torch.io.synthetic import random_weights
+    from lmrs_tpu_torch.parallel.tp import make_mesh_engine
+    from lmrs_tpu_torch.runtime.engine import Engine
+    from torch_mesh_cases import (ROUNDING_TOL, agree_until_tie,
+                                  assert_close, greedy, teacher_logits)
+
+    cfg = tiny_llama(quant=QuantType.Q8_0).replace(n_heads=4, head_dim=64,
+                                                    n_kv_heads=2)
+    path = str(tmp_path / "m.lmrs")
+    write_lmrs(path, cfg, random_weights(cfg, 4, 0.1))
+    f = read_lmrs(path)
+    prompt = [int(t) for t in np.random.default_rng(1).integers(3, 2000, 300)]
+    one = Engine(f.cfg, params_from_lmrs(f, "cuda"), prefill_chunk=64)
+    want = greedy(one, prompt, 12)
+    eng = make_mesh_engine(f, tp=tp, cp=cp, prefill_chunk=64)
+    try:
+        eng.mesh.reset_stats()
+        got = greedy(eng, prompt, 12)
+        per_rank = eng.mesh.stats()["launches"]
+        mine = teacher_logits(eng, prompt, want)
+    finally:
+        eng.mesh.shutdown()
+    ref = teacher_logits(one, prompt, want)
+    assert_close(mine, ref, ROUNDING_TOL)
+    agree_until_tie(got, want, ref, ROUNDING_TOL)
+    total = {k for r in per_rank for k, n in r.items() if n}
+    if cp == 1:
+        assert total == {"q8_gemv_i8", "q8_gemv", "q8_gemm",
+                         "flash_attention", "flash_merge"}
+    else:
+        assert total == {"q8_gemv_i8", "q8_gemv", "q8_gemm",
+                         "flash_attention_batched",
+                         "flash_attention_batched_lse", "flash_merge"}
+        assert all(r["flash_attention_batched_lse"] for r in per_rank)

@@ -75,7 +75,12 @@ def test_desktop_flags_are_the_backends():
 
 @pytest.mark.parametrize("flag", ["--tp", "--cp"])
 def test_desktop_tp_and_cp_are_not_ported_yet(artifacts, flag):  # noqa: F811
+    """--tp and --cp reach the backend: combined with --dp they raise the
+    JAX backend's ValueErrors (--dp needs --batch; --dp refuses --cp)
+    before any rank starts."""
     model_path, tok_path = artifacts
-    with pytest.raises(NotImplementedError, match="A15"):
+    extra, match = ((["--batch", "2"], "--dp with --cp") if flag == "--cp"
+                    else ([], "--dp requires --batch"))
+    with pytest.raises(ValueError, match=match):
         main(["--model", model_path, "--tokenizer", tok_path, flag, "2",
-              "--device", "cpu"])
+              "--dp", "2", "--device", "cpu"] + extra)

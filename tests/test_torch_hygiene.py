@@ -162,3 +162,37 @@ print(sorted(m for m in sys.modules if m.split(".")[0] in
                          env=dict(os.environ, PYTHONPATH=str(REPO)))
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+def test_mesh_ranks_import_no_jax(tmp_path):
+    """The spawned ranks of a mesh import no JAX either: with `jax` and
+    `lmrs_tpu` packages on the path that fail when imported (the spawned
+    processes inherit the path), a tp = 2 mesh starts on the CPU,
+    generates and stops."""
+    for name in ("jax", "lmrs_tpu"):
+        (tmp_path / name).mkdir()
+        (tmp_path / name / "__init__.py").write_text(
+            f"raise ImportError('{name} imported by a mesh rank')\n")
+    code = (
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "from lmrs_tpu_torch.config import tiny_llama, QuantType\n"
+        "from lmrs_tpu_torch.io.lmrs import write_lmrs\n"
+        "from lmrs_tpu_torch.io.synthetic import random_weights\n"
+        "from lmrs_tpu_torch.parallel.tp import make_mesh_engine\n"
+        "from lmrs_tpu_torch.runtime.engine import GenerationConfig\n"
+        "cfg = tiny_llama(quant=QuantType.Q8_0)\n"
+        f"path = {str(tmp_path / 'm.lmrs')!r}\n"
+        "write_lmrs(path, cfg, random_weights(cfg, 0))\n"
+        "eng = make_mesh_engine(path, tp=2, device='cpu')\n"
+        "print(eng.generate([1, 2, 3], GenerationConfig(temperature=0.0, "
+        "max_new_tokens=3)))\n"
+        "eng.mesh.shutdown()\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=str(tmp_path),
+                         env=dict(os.environ, PYTHONPATH=os.pathsep.join(
+                             [str(tmp_path), str(REPO)])))
+    assert out.returncode == 0, out.stderr
+    assert "imported by a mesh rank" not in out.stderr
+    assert "mesh: tp=2 cp=1" in out.stdout
+    assert out.stdout.strip().splitlines()[-1].startswith("[")

@@ -171,11 +171,28 @@ def test_q8_and_float_params_match_jax_byte_for_byte(tmp_path, family,
     _check_params_match_jax(tmp_path, family, quant)
 
 
-def test_params_refuse_what_the_slice_does_not_cover(tmp_path):
-    for quant, dtype in ((QuantType.Q4_0, np.uint8), (QuantType.Q8_0,
-                                                     np.int8)):
-        cfg = tiny_config(ModelType.LLAMA, quant)
-        arrays = {"embed.q": np.zeros((1, 2, 16, 128), dtype),
-                  "layers.wqkv.q": np.zeros((1, 1, 2, 16, 128), dtype)}
-        with pytest.raises(NotImplementedError, match="K-major"):
-            params_from_jax(cfg, arrays, device="cpu")
+@pytest.mark.parametrize("family", [ModelType.LLAMA, ModelType.PHI])
+@pytest.mark.parametrize("quant", [QuantType.Q4_0, QuantType.Q8_0])
+def test_params_refuse_what_the_slice_does_not_cover(tmp_path, family,
+                                                     quant):
+    """The JAX package's K-major decode tiles (`kmajor_params`, with a tile
+    that pads the rows: Phi's lm_head and a 96-row tile) carried through
+    params_from_jax equal the row-major carry bit for bit; tiles of a
+    rank that is neither layout still raise."""
+    from lmrs_tpu.io.lmrs import read_lmrs as jax_read
+    from lmrs_tpu.io.params import params_from_lmrs as jax_params
+    from lmrs_tpu.kernels.vpu_matvec import kmajor_params
+
+    cfg = tiny_config(family, quant, vocab_size=608)
+    path = str(tmp_path / "m.lmrs")
+    tl.write_lmrs(path, cfg, random_weights(cfg, 4))
+    jp = jax_params(jax_read(path), stack_layers=True, fuse_qkv=True)
+    rows = jax_param_arrays(jp)
+    tiles = jax_param_arrays(kmajor_params(jp, o_tile=128, donate=False))
+    assert tiles["layers.wqkv.q"].ndim == 4 and tiles["embed.q"].ndim == 4
+    assert tiles["embed.q"].shape[1] * 128 > cfg.vocab_size  # padded rows
+    _assert_params_equal(params_from_jax(cfg, tiles, device="cpu"),
+                         params_from_jax(cfg, rows, device="cpu"))
+    bad = dict(tiles, **{"layers.wo.q": tiles["layers.wo.q"][0]})
+    with pytest.raises(ValueError, match="K-major"):
+        params_from_jax(cfg, bad, device="cpu")

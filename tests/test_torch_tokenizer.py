@@ -91,7 +91,8 @@ def test_chat_cli_answers_on_cpu(tmp_path):
                            "q8_gemv_i8", "q8_gemv", "q8_gemm",
                            "flash_attention_i8", "flash_attention_i4",
                            "flash_attention_batched", "flash_attention_paged",
-                           "ffn_fused_xe", "ffn_fused", "flash_merge"}
+                           "ffn_fused_xe", "ffn_fused", "flash_merge",
+                           "flash_attention_batched_lse"}
     assert not any(counts.values())
     assert "jax" not in out.stderr.lower()
     # --spec-k: the same greedy reply, and the acceptance rate is printed
@@ -112,11 +113,23 @@ def test_chat_cli_answers_on_cpu(tmp_path):
 
     assert reply(spec.stdout) == reply(out.stdout)
     assert "Speculative: " in spec.stdout and "drafts accepted" in spec.stdout
-    # what is not ported yet still raises, naming its ROADMAP entry
-    for flags, entry in ((["--tp", "2"], "A15"), (["--cp", "2"], "A15")):
-        bad = subprocess.run(base + flags, input="", capture_output=True,
-                             text=True, timeout=120, env=env)
-        assert bad.returncode != 0 and entry in bad.stderr
+    # --tp 2 and --cp 2 run the same model on a mesh of two ranks (two
+    # processes on the CPU): the greedy reply of the one-device CLI, and
+    # the launch counts of both ranks; an indivisible tp raises
+    for flags in (["--tp", "2"], ["--cp", "2"]):
+        mesh = subprocess.run(
+            base + flags + ["--temperature", "0", "--max-new-tokens", "8",
+                            "--show-metrics"],
+            input="hello world\n", capture_output=True, text=True,
+            timeout=120, env=env, cwd=str(tmp_path))
+        assert mesh.returncode == 0, mesh.stderr
+        assert f"mesh: tp={flags[1] if flags[0] == '--tp' else 1}" \
+            in mesh.stdout
+        assert reply(mesh.stdout) == reply(out.stdout)
+        assert "jax" not in mesh.stderr.lower()
+    bad = subprocess.run(base + ["--tp", "3"], input="", capture_output=True,
+                         text=True, timeout=120, env=env)
+    assert bad.returncode != 0 and "tp=3 incompatible" in bad.stderr
 
 
 def test_chat_cli_q8_int8_cache_on_cpu(tmp_path):
