@@ -156,18 +156,28 @@ Phases (any failure ends the run with a non-zero exit):
    ranks, a 1,024-token prompt, 16 tokens.  dp = 2: BackendServer(batch=8,
    dp=2), both replicas on this card, each request leased through the
    backend's own lease path (the router), 4 placed on each.  The chat CLI
-   with --tp 2.  Every greedy stream equals the one-device Engine's up
-   to a near-tie (1e-2 of the logit scale); per mesh shape: load s per
-   rank, TTFT, decode tok/s, peak memory per rank, a decode step's
-   collectives and their host ms (ranks time-sharing one card: not a
+   with --tp 2.  The mesh Engines decode in mesh chunks of 8 steps (one
+   call a chunk; every rank samples, and the ranks' tokens are held
+   against each other once a chunk).  Every greedy stream equals the
+   one-device Engine's up to a near-tie (1e-2 of the logit scale); per
+   mesh shape: load s per rank, TTFT, decode tok/s, peak memory per rank,
+   a decode step's collectives and their host ms, and a decode chunk's
+   collectives and broadcasts a token (ranks time-sharing one card: not a
    scaling figure).
-8. One JSON line of per-kernel results (launches over every path above,
+8. The decode chunk at full depth: phase 7's Llama-3.2-3B Q8_0 (28 layers)
+   on one device, bf16 cache, 65 tokens after a 1,024-token prompt with
+   decode_chunk 1 and 8, each read at the end and streamed, in two turns:
+   decode tok/s and host ms a token in the chunks' dispatch, all eight
+   runs' tokens equal; speculative k = 4 in chunks of 8 verify steps:
+   tokens a verify step and decode tok/s.
+9. One JSON line of per-kernel results (launches over every path above,
    summed over a mesh's ranks), the card's name and power limit, and the
    last line {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -818,7 +828,9 @@ def check_flash_kernel(torch, timer, peak, model, cache):
     bound function (flash_attention_tol and its int8 / int4 forms); then,
     untimed, T 1 and 5 with the last live row on and next to a split
     boundary (pos = 3*SPLIT - 1, 3*SPLIT) and, under a window, with the
-    window's first row there (pos = window + 2*SPLIT - 1, + 2*SPLIT)."""
+    window's first row there (pos = window + 2*SPLIT - 1, + 2*SPLIT), each
+    also with its position on the device (a (1,) int32 tensor) and host
+    bounds up to 4 splits above it: bit for bit the host-position call."""
     import torch.nn.functional as F
 
     H, KH, HD, CHD = model["H"], model["KH"], model["HD"], cache_hd(model)
@@ -847,10 +859,25 @@ def check_flash_kernel(torch, timer, peak, model, cache):
                 raise RuntimeError(f"{name} T={t_q} pos={pos} (split "
                                    f"boundary): error {ratio} of the "
                                    f"tolerance")
+            # the decode chunk's form: the position on the device, the
+            # split axis sized from host bounds around it
+            p_dev = torch.tensor([pos], dtype=torch.int32, device="cuda")
+            for bounds in ((pos, pos), (pos, pos + 4 * split),
+                           (pos - split, pos + 2 * split)):
+                dev = kernel_fn(q, *tensors, 0, p_dev, pos_range=bounds,
+                                **kw)
+                if not torch.equal(dev, got):
+                    raise RuntimeError(
+                        f"{name} T={t_q} pos={pos}: the device position "
+                        f"with bounds {bounds} differs from the host "
+                        f"position by {(dev - got).abs().max().item()}")
+            log(f"  {name:19s} pos={pos:5d} T={t_q}: device position "
+                f"(bounds up to pos + {4 * split}) bit for bit the host's")
             cases.append(dict(kernel=name, model=model["name"],
                               shape=f"split edge pos{pos}", T=t_q,
                               max_abs_err=diff.max().item(),
-                              err_over_tol=ratio))
+                              err_over_tol=ratio,
+                              device_position_bit_for_bit=True))
     for t_q in (1, 5, 256):
         for pos in (1100, 6000):
             q = head_rows(torch, model, (t_q, H), gen)
@@ -1511,9 +1538,10 @@ def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
     """One main path: Engine.generate greedy on a 1,024-token prompt for 64
     new tokens twice across reset() (identical tokens), then one top-p
     generation, with the launch counts set to 0 just before and read just
-    after.  Exactly the kernels of `expect` must have launched.  Returns
-    (the launch counts and the runs' metrics, the engine, the prompt, the
-    greedy tokens)."""
+    after: the decode runs in chunks of 8 steps (the Engine's default).
+    Exactly the kernels of `expect` must have launched.  Then
+    `chunk_checks`.  Returns (the launch counts and the runs' metrics, the
+    engine, the prompt, the greedy tokens)."""
     from lmrs_tpu_torch.kernels import launches, reset_launches
     from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
 
@@ -1558,7 +1586,47 @@ def drive_main_path(torch, label, cfg, params, cache_dtype, expect):
                                    prefill_tok_s=m.prefill_tokens_per_second,
                                    decode_tok_s=m.tokens_per_second)
                         for name, m in runs})
+    result.update(chunk_checks(torch, label, engine, prompt, toks_a))
     return result, engine, prompt, toks_a
+
+
+def chunk_checks(torch, label, engine, prompt, toks):
+    """The decode chunk on `engine`, after its path's run (these launches
+    are not the path's): the path's greedy tokens `toks`, decoded in
+    chunks of engine.decode_chunk steps with the position on the device,
+    bit for bit a decode_step + argmax loop's (host positions); and the
+    launches of one chunk of n steps exactly n times those of one
+    decode_step."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.runtime.engine import decode_chunk
+
+    engine.reset()
+    loop = [int(torch.argmax(engine.prefill(prompt)))]
+    for _ in range(len(toks) - 1):
+        loop.append(int(torch.argmax(engine.decode_step(loop[-1]))))
+    if loop != toks:
+        raise RuntimeError(f"{label}: the chunk path's greedy tokens {toks} "
+                           f"differ from the decode_step loop's {loop}")
+    per_token = per_token_launches(torch, engine, prompt)
+    n = engine.decode_chunk
+    engine.reset()
+    tok = torch.argmax(engine.prefill(prompt)).reshape(1)
+    torch.cuda.synchronize()
+    reset_launches()
+    with torch.no_grad():
+        decode_chunk(engine._run, tok, engine.pos, n, 0.0, 1.0)
+    torch.cuda.synchronize()
+    chunk = {k: c for k, c in launches().items() if c}
+    log(f"  {label}: greedy chunks of {n} = the decode_step loop bit for "
+        f"bit ({len(loop)} tokens); launches of one decode step "
+        f"{per_token}, of one chunk {chunk}")
+    if chunk != {k: n * c for k, c in per_token.items()}:
+        raise RuntimeError(f"{label}: a chunk of {n} steps launched "
+                           f"{chunk}, not {n} x {per_token}")
+    engine.reset()
+    return dict(chunk_tokens_equal_step_loop=len(loop),
+                launches_per_decode_token=per_token,
+                launches_per_chunk=chunk)
 
 
 def greedy_margins(torch, engine, prompt, n, embeds=None):
@@ -1593,9 +1661,12 @@ NEAR_TIE_FUSED = 1e-2
 
 def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
     """Speculative decoding on `engine` (its own path: the launch counts
-    are set to 0 just before and read just after).  Greedy, k drafts per
-    verify step, as many tokens as `plain`, the engine's plain greedy
-    tokens: equal, or equal up to the first step whose top-2 margin in a
+    are set to 0 just before and read just after), in chunks of
+    engine.decode_chunk verify steps (`runtime.speculative.spec_chunk`).
+    Greedy, k drafts per verify step, as many tokens as `plain`, the
+    engine's plain greedy tokens, reading the device at most once a chunk
+    besides the first token (Tensor.item, .tolist and .cpu counted):
+    equal, or equal up to the first step whose top-2 margin in a
     plain run is below NEAR_TIE of the logit scale (a verify window runs
     the kernels at T = k+1, which may sum in another order than T = 1).
     Drafts must have been both accepted and rejected.  Then two sampled
@@ -1613,9 +1684,18 @@ def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
     n = len(plain)
     reset_launches()
     engine.reset()
-    toks = engine.generate(prompt, GenerationConfig(
-        temperature=0.0, max_new_tokens=n, speculative_k=k))
+    with host_reads(torch) as reads:
+        toks = engine.generate(prompt, GenerationConfig(
+            temperature=0.0, max_new_tokens=n, speculative_k=k))
     mg = engine.metrics
+    chunks = mg.spec_proposed // (engine.decode_chunk * k)
+    log(f"  {label}: speculative greedy read the device {len(reads)} times "
+        f"({sorted(set(reads))}) in {chunks} chunks of "
+        f"{engine.decode_chunk} verify steps")
+    if len(reads) > chunks + 1:
+        raise RuntimeError(f"{label}: {len(reads)} host reads in {chunks} "
+                           f"speculative chunks: one a chunk and the "
+                           f"first token's expected")
     engine.reset()
     toks_p = engine.generate(prompt, GenerationConfig(
         temperature=0.7, top_p=0.9, seed=0, max_new_tokens=n,
@@ -1643,7 +1723,7 @@ def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
     vocab = engine.cfg.vocab_size
     if len(toks_p) != n or not all(0 <= t < vocab for t in toks_p):
         raise RuntimeError(f"{label}: invalid speculative top-p tokens")
-    out = {}
+    out = {"host_reads": len(reads), "chunks": chunks}
     if toks_1[:n_eq] != toks[:n_eq]:
         raise RuntimeError(f"{label}: the one-token nucleus emits {toks_1}, "
                            f"speculative greedy {toks}")
@@ -1677,6 +1757,28 @@ def drive_speculative(torch, label, engine, prompt, plain, expect, k=4):
         raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
                            f"expected {sorted(expect)}")
     return dict(launches=counts, runs=out)
+
+
+@contextlib.contextmanager
+def host_reads(torch):
+    """Count the calls of Tensor.item, .tolist and .cpu made inside (each a
+    read of a tensor by the host)."""
+    names = ("item", "tolist", "cpu")
+    orig = {name: getattr(torch.Tensor, name) for name in names}
+    calls = []
+
+    def counted(name):
+        def read(self, *a, **kw):
+            calls.append(name)
+            return orig[name](self, *a, **kw)
+        return read
+    for name in names:
+        setattr(torch.Tensor, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name in names:
+            setattr(torch.Tensor, name, orig[name])
 
 
 def drive_session(torch, label, work, cfg, params, cache_dtype, prompt):
@@ -2063,12 +2165,10 @@ def drive_fused_path(torch, label, cfg, params, cache_dtype, expect,
     res["greedy_tokens_equal_to_unfused"] = check_greedy(
         torch, label, unfused_engine, prompt, toks, unfused_toks,
         NEAR_TIE_FUSED)
-    counts = per_token_launches(torch, engine, prompt)
-    log(f"  {label}: launches of one decode step {counts}")
+    counts = res["launches_per_decode_token"]     # chunk_checks'
     if counts != per_token:
         raise RuntimeError(f"{label}: one decode step launched {counts}, "
                            f"expected {per_token}")
-    res["launches_per_decode_token"] = counts
     return res, engine, prompt, toks
 
 
@@ -3001,27 +3101,52 @@ def mesh_report(torch, label, mesh, expect, t0, extra=None):
     return res, per_rank
 
 
-def decode_step_collectives(torch, engine, prompt):
-    """The collectives of one decode step after `prompt` on rank 0 and
-    their host ms, the ms of the step (host clock, synchronized)."""
+def decode_collectives(torch, engine, prompt):
+    """After one prefill of `prompt`: one decode step (one mesh call at a
+    host position) and then one decode chunk (engine.decode_chunk steps,
+    one mesh call), each read from rank 0's stats: the step's collectives,
+    their host ms and its ms; the chunk's collectives and broadcasts a
+    token, their host ms a token and its ms a token (host clock,
+    synchronized).  The reading call's own header broadcast is left out
+    of the chunk's figures (the step's figure keeps it)."""
+    from lmrs_tpu_torch.runtime.engine import GenerationConfig
+
     mesh = engine.mesh
     engine.reset()
     tok = int(torch.argmax(engine.prefill(prompt)))
     torch.cuda.synchronize()
     mesh.reset_stats()
     t0 = time.perf_counter()
-    engine.decode_step(tok)
+    logits = engine.decode_step(tok)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0)
     st = mesh.stats()
-    return dict(collectives=st["collectives"][0],
+    step = dict(collectives=st["collectives"][0],
                 collective_ms=1e3 * st["collective_s"][0], step_ms=step_ms)
+    n = engine.decode_chunk
+    tok = torch.argmax(logits).reshape(1)
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    t0 = time.perf_counter()
+    engine._decode_chunk(tok, engine.pos, n,
+                         GenerationConfig(temperature=0.0), None, 0)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    st = mesh.stats()
+    engine.reset()
+    chunk = dict(steps=n, collectives_per_token=(st["collectives"][0] - 1) / n,
+                 broadcasts=st["broadcasts"][0] - 1,
+                 collective_ms_per_token=1e3 * st["collective_s"][0] / n,
+                 ms_per_token=ms / n)
+    return step, chunk
 
 
 def mesh_generate(torch, label, mesh, cfg, prompt, n, want, ref_engine,
                   expect, cache_dtype=None, spec_k=0, twice=False):
-    """A mesh Engine on `mesh`: greedy (`twice`: twice across reset(),
-    identical), against the one-device engine's greedy tokens `want` up to
+    """A mesh Engine on `mesh`, decoding in mesh chunks of 8 steps (one
+    call a chunk, every rank sampling): greedy (`twice`: twice across
+    reset(), identical), against the one-device engine's greedy tokens
+    (its chunk path) `want` up to
     the first near-tie (NEAR_TIE_W8A8: the mesh sums partial products in another
     order, and a last-bit difference can flip a W8A8 quantizer's rounding
     step); the kernel set summed over the ranks exact."""
@@ -3189,8 +3314,10 @@ def parallel_phase(torch, work: Path):
         res, engine, toks, _ = mesh_generate(
             torch, label, mesh, cfg, prompt, P7_NEW, ref["bf16"], one,
             MESH_TP, twice=True)
-        res["decode_step"] = decode_step_collectives(torch, engine, prompt)
+        res["decode_step"], res["decode_chunk"] = decode_collectives(
+            torch, engine, prompt)
         log(f"    one decode step: {res['decode_step']}")
+        log(f"    one decode chunk: {res['decode_chunk']}")
         paths[label] = res
         label = "llama3.2-3b Q8_0 tp=2 bf16 cache, speculative k=4"
         paths[label], _, _, _ = mesh_generate(
@@ -3258,8 +3385,10 @@ def parallel_phase(torch, work: Path):
                 or any("flash_attention" in r for r in per_rank):
             raise RuntimeError(f"{label}: B1 must launch on both ranks and "
                                f"C on neither: {per_rank}")
-        res["decode_step"] = decode_step_collectives(torch, engine, long)
+        res["decode_step"], res["decode_chunk"] = decode_collectives(
+            torch, engine, long)
         log(f"    one decode step: {res['decode_step']}")
+        log(f"    one decode chunk: {res['decode_chunk']}")
         paths[label] = res
         engine.close()
     finally:
@@ -3285,8 +3414,10 @@ def parallel_phase(torch, work: Path):
         label = "llama3.2-3b Q8_0 tp=2 x cp=2 bf16 cache"
         res, engine, _, _ = mesh_generate(torch, label, mesh, cfg, prompt, 16,
                                           ref["bf16"][:16], one, MESH_CP)
-        res["decode_step"] = decode_step_collectives(torch, engine, prompt)
+        res["decode_step"], res["decode_chunk"] = decode_collectives(
+            torch, engine, prompt)
         log(f"    one decode step: {res['decode_step']}")
+        log(f"    one decode chunk: {res['decode_chunk']}")
         paths[label] = res
         engine.close()
     finally:
@@ -3315,13 +3446,114 @@ def parallel_phase(torch, work: Path):
     # ---- the chat CLI with --tp 2
     cli_counts = drive_cli("llama3.2-3b Q8_0 --tp 2", path, work / "tok.bin",
                            MESH_TP, ("--tp", "2"))
-    del params, one, ref_engines
+    del one, ref_engines
     torch.cuda.empty_cache()
     phase_s = time.perf_counter() - t_phase
     log(f"  phase 7 ran {phase_s:.1f} s; mesh shapes {json.dumps(shapes)}")
     for p in paths.values():
         p.setdefault("phase_s", phase_s)
-    return paths, {"llama3.2-3b Q8_0 --tp 2": cli_counts}
+    return (paths, {"llama3.2-3b Q8_0 --tp 2": cli_counts},
+            dict(cfg=cfg, params=params, prompt=prompt, ref=ref["bf16"]))
+
+
+# phase 8: the decode chunk at full depth (phase 7's Llama-3.2-3B Q8_0 on
+# one device): plain decode through chunks of 1 and of 8 steps, read at
+# the end or streamed, and speculation k = 4
+P8_NEW = 65
+
+
+def decode_phase(torch, cfg, params, prompt, ref):
+    """Phase 8: Llama-3.2-3B Q8_0 at full width and depth (28 layers),
+    phase 7's file and loaded params, one device, bf16 cache, a 1,024-token
+    prompt and 65 tokens a run.  Plain greedy decode with decode_chunk 1
+    and 8, each without streaming (one read at the end) and streaming
+    (on_token: a chunk is drained after the next is dispatched), in two
+    turns, the second in the reverse order: decode tok/s and host ms a
+    token (the host clock inside the engine's chunk
+    dispatch, which never waits for the device unless the launch queue is
+    full), every run's tokens equal and equal to phase 7's one-device
+    reference; then speculative greedy, k = 4, chunks of 8 verify steps:
+    tokens a verify step, decode tok/s, host ms a token, tokens equal to
+    plain greedy up to a near-tie (NEAR_TIE).  The launch counts are set
+    to 0 before the runs and read after: D, E, F, C and M exactly."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.runtime.engine import Engine, GenerationConfig
+
+    t_phase = time.perf_counter()
+    engine = Engine(cfg, params)
+    engine.warmup()
+    gen = GenerationConfig(temperature=0.0, max_new_tokens=P8_NEW)
+    spent = [0.0, 0]
+
+    def timed(fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spent[0] += time.perf_counter() - t0
+            spent[1] += a[2]          # the chunk's steps
+            return out
+        return call
+
+    engine._decode_chunk = timed(engine._decode_chunk)
+    engine._spec_chunk = timed(engine._spec_chunk)
+    runs, toks = {}, []
+    reset_launches()
+    # two turns, the second in the reverse order: the host clock spreads
+    # between runs, so each setting is read twice
+    order = [(n, streaming) for n in (1, 8) for streaming in (False, True)]
+    for n, streaming in order + order[::-1]:
+        engine.decode_chunk = n
+        engine.reset()
+        spent[:] = [0.0, 0]
+        seen = []
+        toks.append(engine.generate(
+            prompt, gen, on_token=seen.append if streaming else None))
+        m = engine.metrics
+        what = (f"decode_chunk {n}, "
+                f"{'streaming' if streaming else 'read at the end'}")
+        run = runs.setdefault(what, dict(decode_tok_s=[],
+                                         host_ms_per_token=[]))
+        run["decode_tok_s"].append(m.tokens_per_second)
+        run["host_ms_per_token"].append(1e3 * spent[0] / spent[1])
+        log(f"  {what}: decode {m.tokens_per_second:.2f} tok/s, host "
+            f"{run['host_ms_per_token'][-1]:.2f} ms a token in the "
+            f"dispatch ({spent[1]} steps dispatched)")
+        if streaming and seen != toks[-1]:
+            raise RuntimeError(f"phase 8 {what}: on_token saw {seen}")
+    if any(t != toks[0] for t in toks) or toks[0][:32] != ref:
+        raise RuntimeError(f"phase 8: the runs' greedy tokens differ: "
+                           f"{[t[:12] for t in toks]}, phase 7 {ref[:12]}")
+    k = 4
+    engine.decode_chunk = 8
+    engine.reset()
+    spent[:] = [0.0, 0]
+    spec = engine.generate(prompt, GenerationConfig(
+        temperature=0.0, max_new_tokens=P8_NEW, speculative_k=k))
+    m = engine.metrics
+    steps = m.spec_proposed // k
+    runs["speculative k=4, chunks of 8"] = dict(
+        decode_tok_s=m.tokens_per_second, tokens_per_verify_step=(
+            m.decode_tokens / steps), verify_steps=steps,
+        acceptance=m.spec_accepted / m.spec_proposed,
+        host_ms_per_token=1e3 * spent[0] / m.decode_tokens)
+    log(f"  speculative k=4: {m.decode_tokens / steps:.2f} tokens a verify "
+        f"step ({steps} steps), decode {m.tokens_per_second:.2f} tok/s, "
+        f"{m.spec_accepted}/{m.spec_proposed} drafts accepted")
+    torch.cuda.synchronize()
+    counts = launches()
+    n_eq = check_greedy(torch, "phase 8 speculative k=4", engine, prompt,
+                        spec, toks[0], NEAR_TIE)
+    launched = {name for name, c in counts.items() if c}
+    if launched != Q8_PATH:
+        raise RuntimeError(f"phase 8: kernels launched {sorted(launched)}, "
+                           f"expected {sorted(Q8_PATH)}")
+    del engine
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    log(f"  phase 8 ran {phase_s:.1f} s")
+    return {"llama3.2-3b Q8_0 28 layers, decode chunks (phase 8)": dict(
+        launches=counts, runs=runs, speculative_tokens_compared=n_eq,
+        phase_s=phase_s)}
 
 
 def load_model(torch, work: Path, cfg):
@@ -3592,13 +3824,20 @@ def main() -> int:
         # cp, tp x cp, the mesh schedulers, dp replicas, the --tp CLI
         log("phase 7: Llama-3.2-3B Q8_0 tensor, context and data "
             "parallelism")
-        p7_paths, p7_cli = parallel_phase(torch, work)
+        p7_paths, p7_cli, p7_model = parallel_phase(torch, work)
         paths.update(p7_paths)
         cli_counts.update(p7_cli)
+
+        # ---- 8. the decode chunk at full depth on one device
+        log("phase 8: Llama-3.2-3B Q8_0 at 28 layers: decode chunks of 1 "
+            "and 8 steps, read at the end and streamed; speculation")
+        paths.update(decode_phase(torch, **p7_model))
+        del p7_model
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
-    # ---- 8. results: one unit of work per kernel, (model, shape, T, count)
+    # ---- 9. results: one unit of work per kernel, (model, shape, T, count)
     g, ll = GEMMA["name"], LLAMA["name"]
     unit = {
         "q4_gemv": ("gemma2-9b decode token: 42 x (wqkv, wo, w13, w2) + "

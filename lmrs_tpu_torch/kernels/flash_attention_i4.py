@@ -9,23 +9,26 @@ writes them; `quant.q4_cache_pair_mode` says which two values share a byte.
 The kernel unpacks the bytes on their way into shared memory and then
 computes what kernel G computes on the integer values: no float or int8
 K/V is formed in device memory.  A decode call is flash-decoding, as for
-kernel C (the split pass, then kernel M: `kernels.flash_merge`).  The
-wrapper launches the kernel for CUDA tensors (or raises) and runs the
-plain version for CPU tensors; `flash_attention_i4.launches` counts kernel
+kernel C (the split pass, then kernel M: `kernels.flash_merge`), and
+takes its position from the host or the device, as C does.  The wrapper
+launches the kernel for CUDA tensors (or raises) and runs the plain
+version for CPU tensors; `flash_attention_i4.launches` counts kernel
 launches.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from lmrs_tpu_torch.kernels import cuda
-from lmrs_tpu_torch.kernels.flash_attention import check_geometry
+from lmrs_tpu_torch.kernels.flash_attention import (check_geometry,
+                                                    live_prefix,
+                                                    position_bounds)
 from lmrs_tpu_torch.kernels.flash_merge import (I4_HALF, I4_PAIR,
-                                                decode_single, decode_split)
+                                                decode_single)
 from lmrs_tpu_torch.ops.attention import attention
 from lmrs_tpu_torch.quant import q4_cache_pair_mode, unpack_kv_q4
 
@@ -43,18 +46,18 @@ def _plain(q, k_vals, v_vals, k_scale, v_scale, layer, pos, *, scale,
 
 def flash_attention_i4_plain(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, k_scale: torch.Tensor,
-                             v_scale: torch.Tensor, layer: int, pos: int, *,
+                             v_scale: torch.Tensor, layer: int, pos, *,
                              n_kv: int, scale: float,
                              softcap: Optional[float] = None,
                              window: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: `unpack_kv_q4` on the live rows [0, pos + T)
-    of the layer, then the einsum attention with the scales folded."""
+    of the layer, then the einsum attention with the scales folded (`pos`
+    a host int or a (1,) tensor)."""
     if q.is_cuda:
         cuda.plain_numerics()
     t_q, _, hd = q.shape
-    n = pos + t_q
-    k = unpack_kv_q4(k_cache[layer, :n], n_kv, hd)
-    v = unpack_kv_q4(v_cache[layer, :n], n_kv, hd)
+    k = unpack_kv_q4(live_prefix(k_cache[layer], pos, t_q), n_kv, hd)
+    v = unpack_kv_q4(live_prefix(v_cache[layer], pos, t_q), n_kv, hd)
     return _plain(q, k, v, k_scale, v_scale, layer, pos, scale=scale,
                   softcap=softcap, window=window)
 
@@ -92,20 +95,26 @@ def _entry():
 
 def flash_attention_i4(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, k_scale: torch.Tensor,
-                       v_scale: torch.Tensor, layer: int, pos: int, *,
+                       v_scale: torch.Tensor, layer: int, pos, *,
                        n_kv: int, scale: float,
                        softcap: Optional[float] = None,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       pos_range: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     """q (T, H, hd) float32 with RoPE applied; k_cache/v_cache (L, S,
     KH*hd/2) int8 nibble bytes and k_scale/v_scale (L, KH, S) f32 holding
-    rows [0, pos + T) of `layer` -> (T, H, hd) f32."""
+    rows [0, pos + T) of `layer` -> (T, H, hd) f32.  `pos` as for
+    `flash_attention.flash_attention` (a host int, or a device position
+    with its host bounds `pos_range`)."""
     if not q.is_cuda:
+        position_bounds(pos, pos_range)
         return flash_attention_i4_plain(q, k_cache, v_cache, k_scale,
                                         v_scale, layer, pos, n_kv=n_kv,
                                         scale=scale, softcap=softcap,
                                         window=window)
-    check_geometry("flash_attention_i4", q, k_cache, v_cache, layer, pos,
-                   n_kv, torch.int8, per_byte=2)
+    split = check_geometry("flash_attention_i4", q, k_cache, v_cache,
+                           layer, pos, n_kv, torch.int8, per_byte=2,
+                           pos_range=pos_range)
     t_q, n_heads, hd = q.shape
     n_layers, s_len, row = k_cache.shape
     for name, a in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -119,13 +128,13 @@ def flash_attention_i4(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError("flash_attention_i4 needs a 16-byte aligned q")
     pair = q4_cache_pair_mode(n_kv, hd)
     ctype = I4_PAIR if pair else I4_HALF
-    split = decode_split(n_heads, n_kv, t_q)
     if split:
         out = decode_single(qf, k_cache[layer], v_cache[layer],
                             k_scale[layer], v_scale[layer], n_kv=n_kv,
                             s_len=s_len, row=row, pos=pos, split=split,
                             scale=scale, softcap=softcap, window=window,
-                            ctype=ctype, what="flash_attention_i4")
+                            ctype=ctype, what="flash_attention_i4",
+                            pos_range=pos_range)
         flash_attention_i4.launches += 1
         return out
     out = torch.empty_like(qf)

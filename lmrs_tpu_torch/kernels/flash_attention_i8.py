@@ -8,8 +8,9 @@ The cache holds int8 rows (L, S, KH*hd) and f32 scales (L, KH, S), one per
 key scale multiplies the score column, the value scale folds into the
 softmax weight before its bf16 rounding, and both products run on the
 integer values: no float K/V is formed.  A decode call is flash-decoding,
-as for kernel C (the split pass, then kernel M: `kernels.flash_merge`).
-The wrapper launches the kernel for CUDA tensors (or raises) and runs the
+as for kernel C (the split pass, then kernel M: `kernels.flash_merge`),
+and takes its position from the host or the device, as C does.  The
+wrapper launches the kernel for CUDA tensors (or raises) and runs the
 plain version for CPU tensors; `flash_attention_i8.launches` counts kernel
 launches.
 """
@@ -17,34 +18,36 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from lmrs_tpu_torch.kernels import cuda
-from lmrs_tpu_torch.kernels.flash_attention import check_geometry
-from lmrs_tpu_torch.kernels.flash_merge import (I8, decode_single,
-                                                decode_split)
+from lmrs_tpu_torch.kernels.flash_attention import (check_geometry,
+                                                    live_prefix,
+                                                    position_bounds)
+from lmrs_tpu_torch.kernels.flash_merge import I8, decode_single
 from lmrs_tpu_torch.ops.attention import attention
 
 
 def flash_attention_i8_plain(q: torch.Tensor, k_cache: torch.Tensor,
                              v_cache: torch.Tensor, k_scale: torch.Tensor,
-                             v_scale: torch.Tensor, layer: int, pos: int, *,
+                             v_scale: torch.Tensor, layer: int, pos, *,
                              n_kv: int, scale: float,
                              softcap: Optional[float] = None,
                              window: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version: the einsum attention over the live rows
-    [0, pos + T) of the layer, scales folded as the kernel folds them."""
+    [0, pos + T) of the layer, scales folded as the kernel folds them
+    (`pos` a host int or a (1,) tensor)."""
     if q.is_cuda:
         cuda.plain_numerics()
     t_q, _, hd = q.shape
-    n = pos + t_q
-    k = k_cache[layer, :n].reshape(n, n_kv, hd)
-    v = v_cache[layer, :n].reshape(n, n_kv, hd)
-    return attention(q, k, v, pos, scale=scale, softcap=softcap,
-                     window=window, precision="fast",
-                     k_scale=k_scale[layer, :, :n],
+    k = live_prefix(k_cache[layer], pos, t_q)
+    v = live_prefix(v_cache[layer], pos, t_q)
+    n = k.shape[0]
+    return attention(q, k.reshape(n, n_kv, hd), v.reshape(n, n_kv, hd), pos,
+                     scale=scale, softcap=softcap, window=window,
+                     precision="fast", k_scale=k_scale[layer, :, :n],
                      v_scale=v_scale[layer, :, :n])
 
 
@@ -76,20 +79,26 @@ def _entry():
 
 def flash_attention_i8(q: torch.Tensor, k_cache: torch.Tensor,
                        v_cache: torch.Tensor, k_scale: torch.Tensor,
-                       v_scale: torch.Tensor, layer: int, pos: int, *,
+                       v_scale: torch.Tensor, layer: int, pos, *,
                        n_kv: int, scale: float,
                        softcap: Optional[float] = None,
-                       window: Optional[int] = None) -> torch.Tensor:
+                       window: Optional[int] = None,
+                       pos_range: Optional[Tuple[int, int]] = None
+                       ) -> torch.Tensor:
     """q (T, H, hd) float32 with RoPE applied; k_cache/v_cache (L, S,
     KH*hd) int8 and k_scale/v_scale (L, KH, S) f32 holding rows
-    [0, pos + T) of `layer` -> (T, H, hd) f32."""
+    [0, pos + T) of `layer` -> (T, H, hd) f32.  `pos` as for
+    `flash_attention.flash_attention` (a host int, or a device position
+    with its host bounds `pos_range`)."""
     if not q.is_cuda:
+        position_bounds(pos, pos_range)
         return flash_attention_i8_plain(q, k_cache, v_cache, k_scale,
                                         v_scale, layer, pos, n_kv=n_kv,
                                         scale=scale, softcap=softcap,
                                         window=window)
-    check_geometry("flash_attention_i8", q, k_cache, v_cache, layer, pos,
-                   n_kv, torch.int8)
+    split = check_geometry("flash_attention_i8", q, k_cache, v_cache,
+                           layer, pos, n_kv, torch.int8,
+                           pos_range=pos_range)
     t_q, n_heads, hd = q.shape
     n_layers, s_len, row = k_cache.shape
     for name, a in (("k_scale", k_scale), ("v_scale", v_scale)):
@@ -101,14 +110,13 @@ def flash_attention_i8(q: torch.Tensor, k_cache: torch.Tensor,
     qf = q.float().contiguous()
     if qf.data_ptr() % 16:
         raise ValueError("flash_attention_i8 needs a 16-byte aligned q")
-    split = decode_split(n_heads, n_kv, t_q)
     if split:
         out = decode_single(qf, k_cache[layer], v_cache[layer],
                             k_scale[layer], v_scale[layer], n_kv=n_kv,
                             s_len=s_len, row=row, pos=pos, split=split,
                             scale=scale,
                             softcap=softcap, window=window, ctype=I8,
-                            what="flash_attention_i8")
+                            what="flash_attention_i8", pos_range=pos_range)
         flash_attention_i8.launches += 1
         return out
     out = torch.empty_like(qf)

@@ -38,7 +38,7 @@ included.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -71,6 +71,20 @@ def n_splits_host(pos: int, t_q: int, s_len: int, window: Optional[int],
     [window start of query 0, pos + T - 1] touches."""
     lo = max(pos - window, 0) if window is not None else 0
     hi = min(pos + t_q - 1, s_len - 1)
+    return hi // split - lo // split + 1
+
+
+def n_splits_range(pos_lo: int, pos_hi: int, t_q: int, s_len: int,
+                   window: Optional[int], split: int) -> int:
+    """The split axis of a decode call of one sequence whose position
+    stays on the device, known on the host to lie in [pos_lo, pos_hi]: the
+    splits from the window start of pos_lo to pos_hi + T - 1.  A position
+    p of the range touches n_splits_host(p) of them, counted from the
+    split of its own window start, so its live splits come first and the
+    ones past them exit at once; kernel M stops at the last live split, so
+    the result is the host-position call's bit for bit."""
+    lo = max(pos_lo - window, 0) if window is not None else 0
+    hi = min(pos_hi + t_q - 1, s_len - 1)
     return hi // split - lo // split + 1
 
 
@@ -149,14 +163,20 @@ def split_pass(q: torch.Tensor, k, v, ks, vs, *, n_kv: int, s_len: int,
 
 
 def decode_single(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, ks,
-                  vs, *, n_kv: int, s_len: int, row: int, pos: int,
+                  vs, *, n_kv: int, s_len: int, row: int, pos,
                   split: int, scale: float, softcap: Optional[float],
-                  window: Optional[int], ctype: int,
-                  what: str) -> torch.Tensor:
+                  window: Optional[int], ctype: int, what: str,
+                  pos_range: Optional[Tuple[int, int]] = None
+                  ) -> torch.Tensor:
     """A decode call of C, G or H: the split pass over one sequence (q (T,
     H, hd) contiguous f32; k, v (ks, vs) one layer of the cache (scales)),
-    its grid sized from the host position, then kernel M -> (T, H, hd)."""
-    n = n_splits_host(pos, q.shape[0], s_len, window, split)
+    then kernel M -> (T, H, hd).  `pos` is a host int, whose splits size
+    the grid, or a (1,) int32 tensor on q's device with host bounds
+    `pos_range` = (lo, hi), which size it (`n_splits_range`)."""
+    if isinstance(pos, torch.Tensor):
+        n = n_splits_range(*pos_range, q.shape[0], s_len, window, split)
+    else:
+        n = n_splits_host(pos, q.shape[0], s_len, window, split)
     return split_pass(q, k, v, ks, vs, n_kv=n_kv, s_len=s_len, row=row,
                       pos=pos, seq_base=0, slot_stride=0,
                       scale_slot_stride=0, table=None, maxp=0, psz=0,

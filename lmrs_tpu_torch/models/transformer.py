@@ -37,15 +37,19 @@ forward places them:
   and the merge, the rank keeps its own rows for wo and the FFN, and the
   rows are gathered before the classifier.
 Only the ranks of cp index 0 run the classifier: the others hold the same
-rows and nobody reads their logits.  `forward` and `forward_batched` take
-token ids (an integer tensor, embedded here) or float rows.
+rows and nobody reads their logits, except in the mesh's decode chunks,
+where every rank samples (`forward(..., every_rank=True)`).  `forward` and
+`forward_batched` take token ids (an integer tensor, embedded here) or
+float rows.  `forward` takes its position from the host (an int) or from
+the device (a (1,) int32 tensor with host bounds, the decode chunks'
+form), `forward_batched` always from the device.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional, Union
+from typing import List, Optional, Tuple, Union
 
 import torch
 
@@ -53,7 +57,8 @@ from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
 from lmrs_tpu_torch.kernels.ffn_fused import MAX_T as FUSED_MAX_T
 from lmrs_tpu_torch.kernels.ffn_fused import MAX_T_XE as FUSED_XE_MAX_T
 from lmrs_tpu_torch.kernels.ffn_fused import ffn_fused, ffn_fused_xe
-from lmrs_tpu_torch.kernels.flash_attention import flash_attention
+from lmrs_tpu_torch.kernels.flash_attention import (flash_attention,
+                                                    position_bounds)
 from lmrs_tpu_torch.kernels.flash_attention_batched import \
     flash_attention_batched
 from lmrs_tpu_torch.kernels.flash_attention_i4 import flash_attention_i4
@@ -358,13 +363,18 @@ def _single_view(cache: KVCache) -> KVCache:
 
 def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
            cache: KVCache, layer: int, cos: torch.Tensor, sin: torch.Tensor,
-           pos: int, w8a8: bool, comm=None, sp: bool = False,
-           pos_dev: Optional[torch.Tensor] = None) -> torch.Tensor:
+           pos, at, w8a8: bool, comm=None, sp: bool = False,
+           pos_dev: Optional[torch.Tensor] = None,
+           pos_range: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """One decoder layer over T tokens at positions pos..pos+T-1; writes
     the layer's K/V rows (and, for an int8 or int4 cache, their scales)
-    into the cache.  Under cp the cache is this rank's sequence shard, and
-    with `sp` x holds this rank's row tile of the chunk (cos and sin the
-    whole chunk's) and pos_dev is pos as a (1,) int32 device tensor."""
+    into the cache at `at`: a slice of rows for a host position, the row
+    indices for a device one (under cp its `_cp_write_index`).  `pos` is
+    a host int, or a (1,) int32 device tensor with host bounds
+    `pos_range`.  Under cp the cache
+    is this rank's sequence shard, and with `sp` x holds this rank's row
+    tile of the chunk (cos and sin the whole chunk's); pos_dev is pos as a
+    (1,) int32 device tensor."""
     t_l = x.shape[0]
     if sp:
         r0 = comm.cp_rank * t_l
@@ -377,24 +387,27 @@ def _layer(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     rows, scales = _quantize_kv(cfg, cache, k, v)
     if cfg.cp_degree > 1:
         base = comm.cp_rank * cache.k.shape[1]
-        cp_write(cache, layer, pos, rows, scales, base)
+        if isinstance(at, slice):
+            cp_write(cache, layer, pos, rows, scales, base)
+        else:
+            _cp_write_batched(_single_view(cache), layer, at, rows, scales)
         att = cp_merge(*cp_partials(cfg, q[None], _single_view(cache), layer,
                                     pos_dev, base), comm)[0]
         if sp:
             att = att[r0:r0 + t_l]
         return _layer_post(cfg, x, lw, att, w8a8, comm)
-    cache.k[layer, pos:pos + t_q] = rows[0]
-    cache.v[layer, pos:pos + t_q] = rows[1]
+    cache.k[layer, at] = rows[0]
+    cache.v[layer, at] = rows[1]
     if scales is None:
         att = flash_attention(q, cache.k, cache.v, layer, pos,
-                              **_attn_kw(cfg))
+                              pos_range=pos_range, **_attn_kw(cfg))
     else:
-        cache.k_scale[layer, :, pos:pos + t_q] = scales[0].t()
-        cache.v_scale[layer, :, pos:pos + t_q] = scales[1].t()
+        cache.k_scale[layer, :, at] = scales[0].t()
+        cache.v_scale[layer, :, at] = scales[1].t()
         flash = flash_attention_i4 if is_packed4(cfg, cache) \
             else flash_attention_i8
         att = flash(q, cache.k, cache.v, cache.k_scale, cache.v_scale,
-                    layer, pos, **_attn_kw(cfg))
+                    layer, pos, pos_range=pos_range, **_attn_kw(cfg))
     return _layer_post(cfg, x, lw, att, w8a8, comm)
 
 
@@ -479,43 +492,65 @@ def _layer_post(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
 
 
 def forward(params: TransformerParams, cfg: ModelConfig, cache: KVCache,
-            x: torch.Tensor, pos: int,
+            x: torch.Tensor, pos: Union[int, torch.Tensor],
             logit_idx: Union[int, str, None] = None,
-            w8a8: bool = True, comm=None) -> Optional[torch.Tensor]:
+            w8a8: bool = True, comm=None,
+            pos_range: Optional[Tuple[int, int]] = None,
+            every_rank: bool = False) -> Optional[torch.Tensor]:
     """Run all layers over x, (T, D) float32 rows or (T,) token ids, at
     positions pos..pos+T-1, writing their K/V rows into `cache` in place.
     Returns the (V,) float32 logits of row `logit_idx`, the (T, V) logits
     of every row for `logit_idx="all"` (a speculative verify window), or
-    None (always None on a rank of cp index > 0).  `w8a8` picks the
-    numerics of Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`); the
-    classifier never quantizes its activations.  Under a local config
-    `comm` is the rank's communicator (module note)."""
+    None (None on a rank of cp index > 0 unless `every_rank`: the mesh's
+    decode chunks sample on every rank).  `w8a8` picks the numerics of
+    Q8_0 layer weights at T <= 8 (`ops.matmul.qmatmul`); the classifier
+    never quantizes its activations.  Under a local config `comm` is the
+    rank's communicator (module note).
+
+    `pos` is a host int, or a (1,) int32 tensor on the device with host
+    bounds `pos_range` = (lo, hi) on its value, the counterpart of the
+    JAX forward's static attn_len: the RoPE rows are gathered by index,
+    the K/V rows and scales written by index, and the decode calls of C,
+    G and H take the position from the device with their split axis
+    sized from the bounds, so nothing reads the position on the host; the
+    result is the host-position call's bit for bit.  A device position
+    serves decode steps and verify windows (one query block per kv head);
+    prefill chunks keep the host int."""
     if x.ndim != (2 if x.dtype.is_floating_point else 1):
         raise ValueError(f"forward takes the (T, D) rows or (T,) token ids "
                          f"of one sequence, got {tuple(x.shape)}; "
                          f"forward_batched serves a batch")
     t_q = x.shape[0]
     cp = cfg.cp_degree
-    if pos + t_q > cp * cache.k.shape[1]:
-        raise ValueError(f"context overflow: rows [{pos}, {pos + t_q}) past "
+    lo, hi = position_bounds(pos, pos_range)
+    if lo < 0 or hi + t_q > cp * cache.k.shape[1]:
+        raise ValueError(f"context overflow: rows [{lo}, {hi + t_q}) past "
                          f"the cache's {cp * cache.k.shape[1]}")
     x = _rows(params, cfg, x, comm)
-    cos = params.rope_cos[pos:pos + t_q]
-    sin = params.rope_sin[pos:pos + t_q]
+    if isinstance(pos, torch.Tensor):
+        pos_dev = pos
+        rows = pos.long() + torch.arange(t_q, device=pos.device)
+        cos, sin = params.rope_cos[rows], params.rope_sin[rows]
+        at = rows if cp == 1 else _cp_write_index(
+            _single_view(cache), pos, t_q, comm.cp_rank * cache.k.shape[1])
+    else:
+        pos_dev = None if cp == 1 else torch.tensor([pos], dtype=torch.int32,
+                                                    device=x.device)
+        cos = params.rope_cos[pos:pos + t_q]
+        sin = params.rope_sin[pos:pos + t_q]
+        at = slice(pos, pos + t_q)
     sp = cp > 1 and t_q > 1 and t_q % cp == 0
     if sp:
         t_l = t_q // cp
         x = x[comm.cp_rank * t_l:(comm.cp_rank + 1) * t_l]
-    pos_dev = None if cp == 1 else torch.tensor([pos], dtype=torch.int32,
-                                                device=x.device)
     for layer, lw in enumerate(params.layers):
-        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos, w8a8, comm, sp,
-                   pos_dev)
+        x = _layer(cfg, x, lw, cache, layer, cos, sin, pos, at, w8a8, comm,
+                   sp, pos_dev, pos_range)
     if logit_idx is None:
         return None
     if sp:
         x = comm.gather_rows(x, "cp")
-    if comm is not None and comm.cp_rank:
+    if comm is not None and comm.cp_rank and not every_rank:
         return None
 
     every = isinstance(logit_idx, str)

@@ -19,7 +19,7 @@ gets the same bits and a row's sum never depends on the rows beside it
 all-reduce is that already (a + b == b + a).
 
 `calls` and `seconds` count the collectives and their host time (rank 0's
-per-step metric).
+per-step metric), `broadcasts` the broadcasts among them.
 """
 
 from __future__ import annotations
@@ -59,6 +59,7 @@ class Comm:
         self.backend = backend
         self.calls = 0
         self.seconds = 0.0
+        self.broadcasts = 0
 
     def index(self, axis: str) -> int:
         return {"tp": self.tp_rank, "cp": self.cp_rank,
@@ -88,6 +89,7 @@ class Comm:
         opts.rootTensor = 0
         group = self.groups[axis]
         self._run(lambda: group.broadcast([t], opts))
+        self.broadcasts += 1
         return t
 
     def _stack(self, t: torch.Tensor, axis: str) -> torch.Tensor:

@@ -14,9 +14,19 @@ cache, keyed by a cache id: the non-batched backend gives each connection
 its own Engine over the shared weights.
 
 A call is one broadcast of a fixed header (the op, its integers, the
-shapes and types of up to three tensors), then one broadcast per tensor
-(token ids or embedding rows, positions, a page table), then the op itself
-on every rank (`Shard.run`).  Only rank 0 reads logits.
+shapes and types of up to four tensors, and one integer copied into it on
+the device), then one broadcast per tensor (token ids or embedding rows,
+positions, a page table, a history), then the op itself on every rank
+(`Shard.run`).  Only rank 0 reads logits, except in the decode and
+speculative chunks (`Mesh.decode_chunk`, `Mesh.spec_chunk`, the JAX
+`_make_mesh_fns._decode_chunk` and `make_spec_chunk_mesh`): one call a
+chunk, whose header carries the input token (a device integer, so that
+rank 0 reads nothing), the position, the step counts, the sampling
+settings and a seed.  Every rank runs the chunk on its shard with its
+forward's logits, which are whole on every rank after the tp gather, and
+samples from a generator seeded alike; once a chunk the ranks hold their
+token buffers against each other in one all-reduce (`agree`) and raise on
+a difference, so that no rank goes on with another stream unseen.
 
 `Mesh.start` starts the other ranks itself (`torch.multiprocessing`,
 spawn; the CUDA kernels are built first so that the ranks load them and do
@@ -41,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import struct
 import threading
 import time
 import traceback
@@ -58,9 +69,11 @@ from lmrs_tpu_torch.parallel.comm import Comm
 
 # ops
 (FORWARD, FORWARD_B, NEW_CACHE, FREE, COPY, SAVE, LOAD, STATS, RESET, STOP,
- EMBED) = range(1, 12)
+ EMBED, DECODE_CHUNK, SPEC_CHUNK) = range(1, 14)
 MAX_TENSORS = 4
-HEADER = 2 + 5 * MAX_TENSORS + 12
+MAX_INTS = 11
+# the header's last slot carries a device integer (a chunk's input token)
+HEADER = 2 + 5 * MAX_TENSORS + MAX_INTS + 1
 DTYPES = [torch.float32, torch.int64, torch.int32, torch.int8]
 CACHE_CODES = [torch.bfloat16, torch.float32, torch.int8, "int4"]
 NO_LOGITS, ALL_LOGITS = -2, -1
@@ -197,8 +210,45 @@ class Shard:
         self.caches: Dict[int, KVCache] = {}
         self.load_s = 0.0
 
-    def run(self, op: int, ints: List[int], tensors: List[torch.Tensor]):
+    def _run(self, cid: int, w8a8: int):
+        """The forward of cache `cid` at a device position with its host
+        bounds, logits on every rank: the chunks' `run`."""
+        cache = self.caches[cid]
+
+        def run(x, p, logit_idx, pos_range):
+            return forward(self.params, self.cfg_l, cache, x, p, logit_idx,
+                           w8a8=bool(w8a8), comm=self.comm,
+                           pos_range=pos_range, every_rank=True)
+        return run
+
+    def _generator(self, temperature: float, seed: int):
+        if temperature == 0.0:
+            return None
+        return torch.Generator(device=self.comm.device).manual_seed(seed)
+
+    def run(self, op: int, ints: List[int], tensors: List[torch.Tensor],
+            carry: Optional[torch.Tensor] = None):
         comm, cfg_l = self.comm, self.cfg_l
+        if op == DECODE_CHUNK:
+            from lmrs_tpu_torch.runtime.engine import decode_chunk
+
+            cid, pos, n, temp, top_p, seed, w8a8 = ints[:7]
+            temp, top_p = _float(temp), _float(top_p)
+            toks = decode_chunk(self._run(cid, w8a8), carry, pos, n, temp,
+                                top_p, self._generator(temp, seed))
+            agree(comm, toks)
+            return toks
+        if op == SPEC_CHUNK:
+            from lmrs_tpu_torch.runtime.speculative import spec_chunk
+
+            cid, pos, n_steps, k, temp, top_p, seed, w8a8 = ints[:8]
+            temp, top_p = _float(temp), _float(top_p)
+            h = tensors[0]
+            out, n_out, accs, p = spec_chunk(
+                self._run(cid, w8a8), self.cfg, h, pos, n_steps, k, temp,
+                top_p, self._generator(temp, seed))
+            agree(comm, torch.cat([out, n_out.reshape(1), accs]))
+            return out, n_out, accs, p, h
         if op == FORWARD:
             cid, slot, pos, logit, w8a8 = ints[:5]
             cache = self.caches[cid]
@@ -239,11 +289,37 @@ class Shard:
             from lmrs_tpu_torch.kernels import reset_launches
 
             reset_launches()
-            comm.calls, comm.seconds = 0, 0.0
+            comm.calls, comm.seconds, comm.broadcasts = 0, 0.0, 0
             if comm.device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(comm.device)
             return None
         raise ValueError(f"unknown mesh op {op}")
+
+
+def _bits(x: float) -> int:
+    """A float's IEEE double bits as an int64, for the int64 header."""
+    return struct.unpack("<q", struct.pack("<d", float(x)))[0]
+
+
+def _float(bits: int) -> float:
+    return struct.unpack("<d", struct.pack("<q", int(bits)))[0]
+
+
+def agree(comm: Comm, v: torch.Tensor) -> None:
+    """Raise on every rank unless every rank holds the same integer
+    buffer `v`: one all-reduce (MAX) of (v, -v) over the mesh; the
+    largest and the smallest value of each entry are equal only when every
+    rank's are."""
+    if comm.size == 1:
+        return
+    v = v.long().reshape(-1)
+    m = comm._all_reduce(torch.cat([v, -v]), "world", dist.ReduceOp.MAX)
+    n = v.numel()
+    if not (torch.equal(m[:n], v) and torch.equal(-m[n:], v)):
+        raise RuntimeError(f"mesh rank {comm.rank}: the ranks' chunk "
+                           f"tokens differ (this rank {v.tolist()}, the "
+                           f"largest {m[:n].tolist()}, the smallest "
+                           f"{(-m[n:]).tolist()})")
 
 
 def _planes(cache: KVCache):
@@ -348,11 +424,11 @@ def rank_stats(shard: Shard):
     peak = (torch.cuda.max_memory_allocated(comm.device)
             if comm.device.type == "cuda" else 0)
     calls, seconds = comm.calls, comm.seconds
-    buf = torch.zeros((comm.size, len(counts) + 4), dtype=torch.float64,
+    buf = torch.zeros((comm.size, len(counts) + 5), dtype=torch.float64,
                       device=comm.device)
     buf[comm.rank] = torch.tensor(
-        list(counts.values()) + [peak, calls, seconds, shard.load_s],
-        dtype=torch.float64)
+        list(counts.values()) + [peak, calls, seconds, shard.load_s,
+                                 comm.broadcasts], dtype=torch.float64)
     out = comm._all_reduce(buf, "world", dist.ReduceOp.SUM)
     # the stats' own collective is not the forward's
     comm.calls, comm.seconds = calls, seconds
@@ -374,6 +450,8 @@ def _header(op: int, ints: Sequence[int],
         h[3 + 5 * i] = t.dim()
         for a, n in enumerate(t.shape):
             h[4 + 5 * i + a] = n
+    if len(ints) > MAX_INTS:
+        raise ValueError(f"a mesh call takes at most {MAX_INTS} integers")
     for i, v in enumerate(ints):
         h[2 + 5 * MAX_TENSORS + i] = int(v)
     return torch.tensor(h, dtype=torch.int64)
@@ -488,10 +566,13 @@ class Mesh:
                                    f"{p.exitcode}")
 
     def call(self, op: int, ints: Sequence[int] = (),
-             tensors: Sequence[torch.Tensor] = ()):
+             tensors: Sequence[torch.Tensor] = (),
+             carry: Optional[torch.Tensor] = None):
         """Broadcast one call to the followers, run it here, return rank
-        0's result.  A failure (here, in a collective, or a follower's
-        death) breaks the mesh and raises."""
+        0's result.  `carry`, a one-element integer device tensor, rides
+        in the header's last slot (copied there on the device).  A failure
+        (here, in a collective, or a follower's death) breaks the mesh and
+        raises."""
         with self._lock:
             if self.error is not None:
                 raise RuntimeError("the mesh failed earlier") from self.error
@@ -503,10 +584,13 @@ class Mesh:
                 # is current on the calling thread
                 with (torch.cuda.device(dev) if dev.type == "cuda"
                       else contextlib.nullcontext()):
-                    self.comm.broadcast(_header(op, ints, tensors).to(dev))
+                    head = _header(op, ints, tensors).to(dev)
+                    if carry is not None:
+                        head[-1:] = carry.reshape(1)
+                    self.comm.broadcast(head)
                     for t in tensors:
                         self.comm.broadcast(t)
-                    return self.shard.run(op, list(ints), tensors)
+                    return self.shard.run(op, list(ints), tensors, carry)
             except BaseException as e:
                 self.error = e
                 time.sleep(0.2)      # let a dying follower's exit show
@@ -535,6 +619,27 @@ class Mesh:
         tensors = [x, pos] + ([] if table is None else [table])
         return self.call(FORWARD_B, [cid, t_q, logit, int(want_logits),
                                      int(w8a8)], tensors)
+
+    def decode_chunk(self, cid: int, token: torch.Tensor, pos: int, n: int,
+                     temperature: float, top_p: float, seed: int,
+                     w8a8: bool = True) -> torch.Tensor:
+        """`n` decode steps on every rank from `token` ((1,) on the device)
+        at `pos` (`runtime.engine.decode_chunk`), one call: the (n,)
+        tokens on rank 0's device."""
+        return self.call(DECODE_CHUNK, [cid, pos, n, _bits(temperature),
+                                        _bits(top_p), seed, int(w8a8)],
+                         carry=token)
+
+    def spec_chunk(self, cid: int, h: torch.Tensor, pos: int, n_steps: int,
+                   k: int, temperature: float, top_p: float, seed: int,
+                   w8a8: bool = True):
+        """`n_steps` speculative steps on every rank from `pos`
+        (`runtime.speculative.spec_chunk`), one call that carries the
+        history h: (out_buf, n_out, accs, new_pos, h) of rank 0, h updated
+        in place."""
+        return self.call(SPEC_CHUNK, [cid, pos, n_steps, k,
+                                      _bits(temperature), _bits(top_p), seed,
+                                      int(w8a8)], [h])
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """The (n, D) embedding rows of n token ids (every rank gathers
@@ -570,8 +675,10 @@ class Mesh:
 
     def stats(self) -> Dict[str, list]:
         """Per rank: launch counts (a dict each), peak memory bytes,
-        collectives and their host seconds since the last reset, and the
-        load seconds the rank reported when the mesh started."""
+        collectives and their host seconds since the last reset, the
+        load seconds the rank reported when the mesh started, and the
+        broadcasts since the last reset (headers and call tensors; this
+        call's own header among them)."""
         names, arr = self.call(STATS)
         n = len(names)
         return {"launches": [dict(zip(names, (int(v) for v in row[:n])))
@@ -579,7 +686,8 @@ class Mesh:
                 "peak_bytes": [int(v) for v in arr[:, n]],
                 "collectives": [int(v) for v in arr[:, n + 1]],
                 "collective_s": [float(v) for v in arr[:, n + 2]],
-                "load_s": [float(v) for v in arr[:, n + 3]]}
+                "load_s": [float(v) for v in arr[:, n + 3]],
+                "broadcasts": [int(v) for v in arr[:, n + 4]]}
 
     def alive(self) -> bool:
         return all(p.is_alive() for p in self.procs)
@@ -619,14 +727,16 @@ class Follower:
             shape = h[4 + 5 * i:4 + 5 * i + ndim]
             tensors.append(comm.broadcast(torch.empty(
                 shape, dtype=dtype, device=comm.device)))
-        return h[0], h[2 + 5 * MAX_TENSORS:], tensors
+        carry = torch.full((1,), h[-1], dtype=torch.int64,
+                           device=comm.device)
+        return h[0], h[2 + 5 * MAX_TENSORS:], tensors, carry
 
     def loop(self) -> None:
         while True:
-            op, ints, tensors = self.receive()
+            op, ints, tensors, carry = self.receive()
             if op == STOP:
                 return
-            self.shard.run(op, ints, tensors)
+            self.shard.run(op, ints, tensors, carry)
 
 
 def follower_main(rank: int, tp: int, cp: int, port: int, path: str,

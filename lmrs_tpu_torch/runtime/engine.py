@@ -1,28 +1,42 @@
-"""Inference engine: chunked prefill, the decode loop, speculative
+"""Inference engine: chunked prefill, the chunked decode loop, speculative
 decoding, sampling, sessions, metrics.
 
 PyTorch runs eagerly, so the engine has no compiled programs and no static
-shapes: a prompt prefills in chunks of at most `prefill_chunk` real rows,
-and decoding runs one `forward` per token in a Python loop.  The sampled
-token stays on the device and feeds the next step's embedding gather; the
-host reads tokens only when it must (stop tokens or a streaming callback),
-else once at the end.  With `speculative_k` > 0 a step is one lookup ->
-verify -> accept pass (`runtime.speculative.verify_step`) and the host
-reads the accepted count once per step.  TTFT and tok/s are taken after the
-device finished (`torch.cuda.synchronize()`).
+shapes: a prompt prefills in chunks of at most `prefill_chunk` real rows.
+Decoding runs in chunks of `decode_chunk` steps (`decode_chunk`, the JAX
+`_compiled_fns._decode_chunk` with its scan written as a Python loop):
+embed -> forward -> sample from a device token at a device position, the
+forward taking its position from the device (`models.transformer.forward`
+with `pos_range`), so that a chunk is one function of device tensors with
+no host read inside.  `generate` is the JAX chunk loop: it stops before
+dispatching a chunk that would reach the context end (pos + dispatched + n
+>= seq_len) or that the budget does not need; without stop tokens or a
+streaming callback it reads the device once, at the end; with them it
+dispatches chunk i+1 before it drains chunk i, whose tokens come back
+through a pinned buffer and an event.  Rows that a chunk wrote past a stop
+token stay in the cache, masked until they are overwritten, and the
+history is reset past the stop.  With `speculative_k` > 0 a chunk is
+`runtime.speculative.spec_chunk` (n_steps = decode_chunk lookup -> verify
+-> accept steps) and the host reads it once.  `decode_step` runs one token
+at a host position.  TTFT and tok/s are taken after the device finished
+(`torch.cuda.synchronize()`).
 
 With `mesh` (a `parallel.distributed.Mesh`, as `parallel.tp.
 make_mesh_engine` builds it) the engine drives a (tp, cp) mesh of ranks
-with the same API: each forward is one mesh call (token ids or embedding
-rows, the position), the KV cache is sharded over the ranks (kv heads on
-tp, the sequence on cp), `params` and `cache` are rank 0's shards, and
-sampling, the history and sessions stay here.  Under cp a prefill chunk
-must divide the shard's S/cp rows, as in the JAX engine.
+with the same API: each prefill chunk or decode step is one mesh call, and
+each decode or speculative chunk one mesh call in which every rank runs
+the chunk on its shard and samples (`Mesh.decode_chunk`, `Mesh.
+spec_chunk`); the KV cache is sharded over the ranks (kv heads on tp, the
+sequence on cp), `params` and `cache` are rank 0's shards, and the
+history and sessions stay here.  Under cp a prefill chunk must divide the
+shard's S/cp rows, as in the JAX engine.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import time
 from typing import Callable, Iterable, List, Optional, Sequence
 
@@ -35,7 +49,56 @@ from lmrs_tpu_torch.models.transformer import (CacheDtype, TransformerParams,
                                                cache_dtype_of, forward,
                                                init_kv_cache)
 from lmrs_tpu_torch.ops.sampling import sample
-from lmrs_tpu_torch.runtime.speculative import verify_step
+from lmrs_tpu_torch.runtime.speculative import spec_chunk
+
+
+def decode_chunk(run: Callable, token: torch.Tensor, pos: int, n: int,
+                 temperature: float, top_p: float,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+    """`n` decode steps, embed -> forward -> sample, from `token` (a (1,)
+    integer device tensor: the token AT position `pos`, known, not cached
+    yet): the JAX `_decode_chunk`.  `run(x, p, logit_idx, pos_range)` is
+    the forward on one device or a rank (`models.transformer.forward` with
+    a device position p, (1,) int32, and its host bounds).  Writes cache
+    rows pos..pos+n-1 and returns the (n,) long sampled tokens on the
+    device (token i stands at position pos + 1 + i); reads nothing on the
+    host.  The caller needs pos + n <= seq_len."""
+    dev = token.device
+    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    bounds = (pos, pos + n - 1)
+    tok = token.reshape(1).long()
+    toks = []
+    for _ in range(n):
+        logits = run(tok, p, 0, bounds)
+        tok = sample(logits, temperature, top_p, generator).reshape(1)
+        toks.append(tok)
+        p = p + 1
+    return torch.cat(toks)
+
+
+def chunk_seed(seed: int, i: int) -> int:
+    """The seed of a mesh chunk's samplers: chunk i of a generation seeded
+    `seed` (every rank seeds its generator with it)."""
+    return (seed * 1_000_003 + i + 1) % (1 << 62)
+
+
+@dataclasses.dataclass
+class _Pending:
+    """A dispatched decode chunk whose tokens the host has not read: its
+    (n,) device tokens, the position of its input token and, on the card,
+    a pinned copy and the event after it."""
+
+    toks: torch.Tensor
+    pos: int
+    host: Optional[torch.Tensor] = None
+    done: Optional[torch.cuda.Event] = None
+
+    def read(self) -> List[int]:
+        if self.done is None:
+            return self.toks.tolist()
+        self.done.synchronize()
+        return self.host.tolist()
 
 
 @dataclasses.dataclass
@@ -81,11 +144,16 @@ class Engine:
     prompt-lookup drafts.  `w8a8` picks the numerics of Q8_0 layer
     weights at T <= 8: int8 activations and integer dots (the default, as
     the JAX package's LMRS_W8A8=1), or f32 activations.  `mesh`: the
-    engine drives a mesh of ranks (module note)."""
+    engine drives a mesh of ranks (module note).  `decode_chunk` is the
+    number of decode steps (or of speculative verify steps) a chunk runs,
+    the JAX engine's default 8."""
 
     def __init__(self, cfg: ModelConfig, params: TransformerParams,
                  device=None, cache_dtype: CacheDtype = torch.bfloat16,
-                 prefill_chunk: int = 256, w8a8: bool = True, mesh=None):
+                 prefill_chunk: int = 256, decode_chunk: int = 8,
+                 w8a8: bool = True, mesh=None):
+        if decode_chunk < 1:
+            raise ValueError(f"decode_chunk {decode_chunk} must be >= 1")
         self.mesh = mesh
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
@@ -96,6 +164,7 @@ class Engine:
                              f"the engine runs on {self.device}")
         # a chunk longer than the context would slice past the rope tables
         self.prefill_chunk = min(prefill_chunk, cfg.seq_len)
+        self.decode_chunk = decode_chunk
         cache_dtype = cache_dtype_of(cache_dtype)
         if mesh is None:
             self.cache = init_kv_cache(cfg, self.device, cache_dtype)
@@ -148,6 +217,40 @@ class Engine:
             return self.mesh.forward(self._cid, x, pos, logit_idx, self.w8a8)
         return forward(self.params, self.cfg, self.cache, x, pos, logit_idx,
                        w8a8=self.w8a8)
+
+    def _run(self, x: torch.Tensor, p: torch.Tensor, logit_idx,
+             pos_range) -> torch.Tensor:
+        """The one-device forward at a device position p with its host
+        bounds: the `run` of `decode_chunk` and `spec_chunk`."""
+        return forward(self.params, self.cfg, self.cache, x, p, logit_idx,
+                       w8a8=self.w8a8, pos_range=pos_range)
+
+    def warmup(self) -> None:
+        """Build and load the CUDA kernels before the first conversation
+        (eager PyTorch has no programs to precompile, the JAX warm-up's
+        work), and restore pos = 0.  On the CPU only the reset."""
+        if self.device.type == "cuda":
+            from lmrs_tpu_torch.kernels import cuda
+
+            for name in cuda.SOURCES:
+                cuda.library(name)
+        self.reset()
+
+    @contextlib.contextmanager
+    def profile_trace(self, log_dir: str):
+        """Context manager: profile what runs inside it with
+        torch.profiler (the host, and the card's kernels on CUDA) and write
+        a Chrome trace (`<log_dir>/trace_<pid>_<ns>.json`, for Perfetto or
+        chrome://tracing) when it exits.  Yields the profiler."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        os.makedirs(log_dir, exist_ok=True)
+        with torch.profiler.profile(activities=acts) as prof:
+            yield prof
+            self._sync()
+        prof.export_chrome_trace(os.path.join(
+            log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
     # ------------------------------------------------------------------
     def prefill(self, tokens: Sequence[int],
@@ -220,10 +323,10 @@ class Engine:
                  on_token: Optional[Callable[[int], None]] = None
                  ) -> List[int]:
         """Prefill, then sample up to `gen.max_new_tokens` tokens; a stop
-        token ends generation and is included in the result.  With
-        `gen.speculative_k` > 0 the tokens after the first come from
-        verify steps, and generation ends where a verify window no longer
-        fits the context."""
+        token ends generation and is included in the result.  The tokens
+        after the first come from decode chunks, or with
+        `gen.speculative_k` > 0 from speculative chunks; generation ends
+        where a whole chunk no longer fits the context (module note)."""
         stop = set(int(t) for t in stop_tokens)
         seed = gen.seed if gen.seed is not None else time.time_ns() % (1 << 31)
         rng = torch.Generator(device=self.device)
@@ -231,99 +334,194 @@ class Engine:
 
         t_start = time.perf_counter()
         logits = self.prefill(prompt_tokens)
-        # every sampled token stays on the device: the next step gathers its
-        # embedding there, and the host reads it only when it must
+        # the sampled token stays on the device: the first chunk embeds it
+        # there, and the host reads it only when it must
         streaming = bool(stop) or on_token is not None
         with torch.no_grad():
             tok = sample(logits, gen.temperature, gen.top_p, rng).reshape(1)
-        out: List[int] = []
-        pending: List[torch.Tensor] = []
-
-        def emit(t) -> bool:
-            """Record one token (a device tensor, or an int the host has
-            read already); True when generation must stop.  Without
-            streaming `t` may hold several tokens."""
-            if not streaming:
-                pending.append(t)
-                return False
-            v = t if isinstance(t, int) else int(t.item())
-            out.append(v)
-            if on_token is not None:
-                on_token(v)
-            return v in stop
-
-        stopped = emit(tok)
         self._note(tok)
+        out: List[int] = []
+        stopped = False
+        if streaming or gen.speculative_k > 0:
+            stopped = self._drain([int(tok.item())], self.pos, gen, stop,
+                                  out, on_token, advance=False)
         self._sync()
         self.metrics.ttft_seconds = time.perf_counter() - t_start
         t_decode0 = time.perf_counter()
-        n_emitted = 1
         if gen.speculative_k > 0:
-            n_emitted += self._generate_speculative(
-                gen, rng, stopped, emit, streaming)
-            stopped = True
-        while (not stopped and n_emitted < gen.max_new_tokens
-               and self.pos < self.cfg.seq_len):
-            logits = self.decode_step(tok)
-            with torch.no_grad():
-                tok = sample(logits, gen.temperature, gen.top_p,
-                             rng).reshape(1)
-            stopped = emit(tok)
-            n_emitted += 1
-        if gen.speculative_k <= 0:
-            self._note(tok)     # the last token is known, not cached
-        if pending:
-            out.extend(int(v) for v in torch.cat(pending).tolist())
+            self._generate_speculative(gen, rng, seed, stopped, stop, out,
+                                       on_token)
+        else:
+            self._generate_chunks(gen, rng, seed, tok, stopped, stop, out,
+                                  on_token, streaming)
         self._sync()
-        self.metrics.decode_tokens += n_emitted - 1
+        self.metrics.decode_tokens += len(out) - 1
         self.metrics.decode_seconds += time.perf_counter() - t_decode0
         return out
 
-    def _generate_speculative(self, gen: GenerationConfig,
-                              rng: torch.Generator, stopped: bool, emit,
-                              streaming: bool) -> int:
-        """The prompt-lookup speculative loop (`runtime.speculative`):
-        greedy-exact at temperature 0, rejection sampling otherwise.  The
-        first sampled token is emitted already and stands in the history
-        at index `pos`.  Each step verifies k drafts in one T = k+1
-        forward and yields 1..k+1 tokens; the host reads the accepted
-        count (with the tokens, when streaming) once per step.  Rows
-        written past the accepted prefix are garbage that the causal mask
-        hides until they are overwritten.  The loop ends while the next
-        verify window, history write included, still fits: pos + k + 2 <
-        seq_len.  A stop token inside an accepted run truncates `pos` and
-        the history at that token.  Returns the number of tokens
-        emitted."""
-        k = gen.speculative_k
-        n_new = 0
-        budget = gen.max_new_tokens - 1
-        while (not stopped and n_new < budget
-               and self.pos + k + 2 < self.cfg.seq_len):
-            with torch.no_grad():
-                n_acc_dev, emitted = verify_step(
-                    self._forward, self.cfg, self._hist, self.pos, k,
+    def _decode_chunk(self, tok: torch.Tensor, pos: int, n: int,
+                      gen: GenerationConfig, rng: torch.Generator,
+                      seed: int) -> torch.Tensor:
+        """One decode chunk from the device token `tok` at `pos`, here or
+        as one mesh call (whose ranks sample from generators seeded
+        `seed`); writes the chunk's tokens into the history on the device
+        and returns them, (n,) on the device."""
+        with torch.no_grad():
+            if self.mesh is not None:
+                toks = self.mesh.decode_chunk(
+                    self._cid, tok, pos, n, gen.temperature, gen.top_p, seed,
+                    self.w8a8)
+            else:
+                toks = decode_chunk(self._run, tok, pos, n, gen.temperature,
+                                    gen.top_p, rng)
+            self._hist[pos + 1:pos + 1 + n] = toks
+        return toks
+
+    def _pending(self, toks: torch.Tensor, pos: int,
+                 streaming: bool) -> _Pending:
+        """A dispatched chunk; a streamed one on the card starts its copy
+        to pinned host memory at once and records an event after it, so
+        that draining it waits for this chunk only, not for the chunk
+        dispatched after it."""
+        if not streaming or self.device.type != "cuda":
+            return _Pending(toks, pos)
+        host = torch.empty(toks.shape, dtype=toks.dtype, pin_memory=True)
+        host.copy_(toks, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+        return _Pending(toks, pos, host, done)
+
+    def _drain(self, toks: List[int], pos_before: int,
+               gen: GenerationConfig, stop, out: List[int], on_token,
+               advance: bool = True) -> bool:
+        """Take a chunk's tokens that the host has read (the JAX
+        `_drain_chunk`): append those the budget allows, up to and
+        including a stop token, call `on_token` on each, and move `pos` to
+        pos_before + the tokens taken (`advance`).  True when generation
+        must stop (a stop token, or the budget spent)."""
+        used = min(len(toks), gen.max_new_tokens - len(out))
+        hit_stop = False
+        for i, t in enumerate(toks[:used]):
+            if t in stop:
+                used, hit_stop = i + 1, True
+                break
+        if advance:
+            self.pos = pos_before + used
+        for t in toks[:used]:
+            out.append(t)
+            if on_token is not None:
+                on_token(t)
+        return hit_stop or len(out) >= gen.max_new_tokens
+
+    def _forget_past(self, last_written: int) -> None:
+        """Reset the history rows that chunks wrote past `pos` (the
+        overshoot of a stop, a budget or a rejected draft) to unknown:
+        the history holds the conversation's tokens only, as the JAX
+        engine's host history does."""
+        if last_written > self.pos:
+            self._hist[self.pos + 1:last_written + 1] = -1
+
+    def _generate_chunks(self, gen: GenerationConfig, rng: torch.Generator,
+                         seed: int, tok: torch.Tensor, stopped: bool, stop,
+                         out: List[int], on_token, streaming: bool) -> None:
+        """The decode loop of the JAX engine's `generate`: chunks of
+        `decode_chunk` steps, each from the last token of the one before
+        (a device tensor).  A chunk is dispatched while it fits the context
+        whole (pos + dispatched + n < seq_len) and the budget still needs a
+        token, `dispatched` counting the tokens of chunks not drained yet.
+        Streaming, chunk i is drained after chunk i+1 is dispatched, and a
+        stop in chunk i discards chunk i+1 (its cache rows lie past `pos`,
+        masked); otherwise every chunk is read in one transfer at the
+        end."""
+        n = self.decode_chunk
+        first = tok
+        pending: List[_Pending] = []
+        last_written = self.pos
+        i = 0
+        while not stopped:
+            dispatched = n * len(pending)
+            if self.pos + dispatched + n >= self.cfg.seq_len:
+                break
+            taken = len(out) if streaming else 1
+            if gen.max_new_tokens - taken - dispatched <= 0:
+                break
+            pos_before = self.pos + dispatched
+            toks = self._decode_chunk(tok, pos_before, n, gen, rng,
+                                      chunk_seed(seed, i))
+            i += 1
+            tok = toks[-1:]
+            last_written = pos_before + n
+            pending.append(self._pending(toks, pos_before, streaming))
+            if streaming and len(pending) == 2:
+                c = pending.pop(0)
+                stopped = self._drain(c.read(), c.pos, gen, stop, out,
+                                      on_token)
+        if streaming:
+            if pending and not stopped:
+                c = pending.pop()
+                self._drain(c.read(), c.pos, gen, stop, out, on_token)
+        else:
+            vals = torch.cat([first] + [c.toks for c in pending]).tolist()
+            self._drain(vals[:1], self.pos, gen, stop, out, on_token,
+                        advance=False)
+            for j, c in enumerate(pending):
+                if self._drain(vals[1 + j * n:1 + (j + 1) * n], c.pos, gen,
+                               stop, out, on_token):
+                    break
+        self._forget_past(last_written)
+
+    def _spec_chunk(self, pos: int, n_steps: int, k: int,
+                    gen: GenerationConfig, rng: torch.Generator, seed: int):
+        """One speculative chunk at `pos` (the history holds the token at
+        pos), here or as one mesh call that carries the history; returns
+        (out_buf, n_out, accs) on the device."""
+        with torch.no_grad():
+            if self.mesh is not None:
+                out_buf, n_out, accs, _, h = self.mesh.spec_chunk(
+                    self._cid, self._hist, pos, n_steps, k, gen.temperature,
+                    gen.top_p, seed, self.w8a8)
+                if h is not self._hist:
+                    self._hist.copy_(h)
+            else:
+                out_buf, n_out, accs, _ = spec_chunk(
+                    self._run, self.cfg, self._hist, pos, n_steps, k,
                     gen.temperature, gen.top_p, rng)
-                # all k + 1 may be written: the history past the new `pos`
-                # is never read (the lookup masks idx < pos - 1)
-                self._hist[self.pos + 1:self.pos + k + 2] = emitted
-            if streaming:
-                n_acc, *toks = torch.cat([n_acc_dev.reshape(1),
-                                          emitted]).tolist()
-            else:
-                n_acc = int(n_acc_dev.item())
-            self.metrics.spec_proposed += k
-            self.metrics.spec_accepted += n_acc
-            used = min(n_acc + 1, budget - n_new)
-            if streaming:
-                for i in range(used):
-                    if emit(toks[i]):
-                        used, stopped = i + 1, True
-                        break
-            else:
-                emit(emitted[:used])
-            self.pos += used
-            n_new += used
-        return n_new
+        return out_buf, n_out, accs
+
+    def _generate_speculative(self, gen: GenerationConfig,
+                              rng: torch.Generator, seed: int, stopped: bool,
+                              stop, out: List[int], on_token) -> None:
+        """The prompt-lookup speculative loop of the JAX engine
+        (`runtime.speculative`): greedy-exact at temperature 0, rejection
+        sampling otherwise.  The first sampled token is in `out` and
+        stands in the history at index `pos`.  Each chunk runs n_steps =
+        decode_chunk lookup -> verify (T = k+1) -> accept steps on the
+        device and yields a variable number of tokens, which the host reads
+        once per chunk with the chunk's accepted counts.  A chunk is
+        dispatched only while its worst case, n_steps * (k+1) rows and the
+        history row after them, fits the context: pos + n_steps * (k+1) +
+        1 < seq_len.  A stop token, or the budget, truncates `pos` and the
+        history inside a chunk."""
+        k = gen.speculative_k
+        n_steps = self.decode_chunk
+        last_written = self.pos
+        i = 0
+        while not stopped and len(out) < gen.max_new_tokens:
+            if self.pos + n_steps * (k + 1) + 1 >= self.cfg.seq_len:
+                break
+            pos_before = self.pos
+            out_buf, n_out, accs = self._spec_chunk(
+                pos_before, n_steps, k, gen, rng, chunk_seed(seed, i))
+            i += 1
+            last_written = max(last_written, pos_before + n_steps * (k + 1))
+            # the chunk's one host read
+            n_o, *vals = torch.cat([n_out.reshape(1), accs,
+                                    out_buf]).tolist()
+            self.metrics.spec_proposed += n_steps * k
+            self.metrics.spec_accepted += sum(vals[:n_steps])
+            stopped = self._drain(vals[n_steps:n_steps + n_o], pos_before,
+                                  gen, stop, out, on_token)
+        self._forget_past(last_written)
 
     # ------------------------------------------------------------------
     # Session persistence: a conversation (cache, position, history) can

@@ -21,14 +21,15 @@ probability p_i(d_i) under the sampler's exact distribution
 with d_i zeroed, and a fully accepted draft earns a bonus sample from row
 k.  Every emitted token is distributed as the plain sampler's.
 
-Counterpart of `lmrs_tpu/runtime/speculative.py`, whose verify loop is a
-scan with masked writes into fixed buffers because its shapes must be
-static.  Here a verify step is eager: draft on the device, one T = k+1
-forward, accept; the caller reads the accepted count from the device once
-per step.  `spec_chunk_batched` is the batched scheduler's form (the
-`vmap`ped draft and accept of `lmrs_tpu/serve/scheduler.py:_spec_chunk_b`
-with the batch dimension written out): all slots verify in one forward,
-and the host reads the chunk's tokens once at its end.
+Counterpart of `lmrs_tpu/runtime/speculative.py`.  `spec_chunk` is its
+`make_spec_chunk`: n_steps verify steps of one sequence, the scan written
+as a Python loop over device tensors (the position and the output count
+stay on the device, the forward takes its position from there), so the
+caller reads the chunk's tokens once.  `spec_chunk_batched` is the
+batched scheduler's form (the `vmap`ped draft and accept of
+`lmrs_tpu/serve/scheduler.py:_spec_chunk_b` with the batch dimension
+written out): all slots verify in one forward, and the host reads the
+chunk's tokens once at its end.
 """
 
 from __future__ import annotations
@@ -105,31 +106,6 @@ def rejection_accept(probs: torch.Tensor, draft: torch.Tensor,
     return ok, emitted
 
 
-def verify_step(run: Callable, cfg: ModelConfig, h: torch.Tensor, pos: int,
-                k: int, temperature: float, top_p: float,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One lookup -> verify -> accept step at position `pos` (cache rows
-    < pos are valid, h[pos] is known but not cached).  Runs ONE T = k+1
-    forward over [h[pos], draft], `run(token ids, pos, "all")` (the
-    engine's forward, on one device or a mesh: `make_spec_chunk_mesh`'s
-    counterpart), writing cache rows pos..pos+k, and returns (n_acc 0-d long, emitted (k+1,) long), both on the device:
-    emitted[:n_acc] are the accepted drafts and emitted[n_acc] the
-    correction or bonus token, so the step yields n_acc + 1 tokens.  The
-    caller needs pos + k + 1 <= seq_len."""
-    draft = lookup_draft(h, pos, k, cfg.vocab_size - 1)
-    logits = run(torch.cat([h[pos:pos + 1], draft]), pos, "all")
-    if temperature == 0.0:
-        # greedy: the longest prefix with draft[i] == argmax[i]; the first
-        # mismatching row emits its argmax
-        emitted = torch.argmax(logits, dim=-1)
-        ok = draft == emitted[:-1]
-    else:
-        probs = processed_probs(logits, temperature, top_p)
-        ok, emitted = rejection_accept(probs, draft, generator)
-    return first_miss(ok), emitted
-
-
 def lookup_draft_batched(h: torch.Tensor, p: torch.Tensor, k: int,
                          vmax: int) -> torch.Tensor:
     """`lookup_draft` for every slot at once: h (B, S) histories, p (B,)
@@ -197,3 +173,51 @@ def spec_chunk_batched(run: Callable, cfg: ModelConfig, h: torch.Tensor,
         n_out = n_out + n_acc + 1
         accs.append(n_acc)
     return out, n_out, torch.stack(accs)
+
+
+def spec_chunk(run: Callable, cfg: ModelConfig, h: torch.Tensor, pos: int,
+               n_steps: int, k: int, temperature: float, top_p: float,
+               generator: Optional[torch.Generator] = None):
+    """`n_steps` lookup -> verify -> accept steps of one sequence from
+    position `pos` (cache rows < pos valid, h[pos] the known token not
+    cached yet): the JAX `make_spec_chunk` body with its scan written as a
+    Python loop.  The position p and the output count are carried on the
+    device.  Each step drafts k tokens from the history
+    (`lookup_draft_batched` on the device position), runs ONE T = k+1
+    forward over [h[p], draft], `run(tokens, p, "all", pos_range)` (the
+    engine's or a rank's forward with a device position and its host
+    bounds), and accepts by argmax equality at temperature 0 or by
+    `rejection_accept` otherwise.  As the JAX body writes them, all k+1
+    emitted tokens go to h[p+1 : p+k+2] (in place; the history past the
+    new position is never read as a match, only as a draft) and to the out
+    buffer at n_out.
+
+    Returns device tensors (out_buf (n_steps*(k+1),) long, n_out 0-d,
+    accs (n_steps,) the accepted drafts per step, new_pos (1,) int32);
+    nothing is read on the host.  The caller needs pos + n_steps*(k+1) + 1
+    <= len(h) = seq_len."""
+    dev = h.device
+    vmax = cfg.vocab_size - 1
+    p = torch.full((1,), pos, dtype=torch.int32, device=dev)
+    bounds = (pos, pos + (n_steps - 1) * (k + 1))
+    ar = torch.arange(k + 1, device=dev)
+    out = torch.zeros(n_steps * (k + 1), dtype=torch.long, device=dev)
+    n_out = torch.zeros(1, dtype=torch.long, device=dev)
+    accs = []
+    for _ in range(n_steps):
+        draft = lookup_draft_batched(h[None], p, k, vmax)[0]
+        tin = torch.cat([h[p.long()], draft])
+        logits = run(tin, p, "all", bounds)
+        if temperature == 0.0:
+            emitted = torch.argmax(logits, dim=-1)
+            ok = draft == emitted[:-1]
+        else:
+            probs = processed_probs(logits, temperature, top_p)
+            ok, emitted = rejection_accept(probs, draft, generator)
+        n_acc = first_miss(ok)
+        h[p.long() + 1 + ar] = emitted.to(h.dtype)
+        out[n_out + ar] = emitted
+        p = p + (n_acc + 1).to(p.dtype)
+        n_out = n_out + n_acc + 1
+        accs.append(n_acc)
+    return out, n_out[0], torch.stack(accs), p

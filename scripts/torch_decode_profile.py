@@ -13,15 +13,17 @@ Writes a synthetic .lmrs of the chosen preset (default Gemma-2-9B Q4_0,
 seed 0) under build/ (or uses and keeps `--lmrs PATH`), loads it onto the
 GPU with the chosen KV cache type, prefills `--pos` tokens, then runs
 `--steps` decode steps twice: once timed with the host clock after
-torch.cuda.synchronize(), once under torch.profiler.  With `--spec-k K` a step is a greedy speculative verify
-step of K drafted tokens (random weights give a greedy stream that
-repeats one token, so the tokens per step say nothing of real text: the
-figures show a verify step by kernel).  Prints the card's name and power
-limit, device time per step by kernel (from the profiled steps), the
-device's busy share of a step (device time per step over the UNPROFILED
-host-clock time per step: the profiler's own host overhead would stretch
-the traced window), and one JSON line with the same numbers.  With
-`--batch B` a step is one step of the continuous-batching scheduler
+torch.cuda.synchronize(), once under torch.profiler.  With `--spec-k K`
+a step is a greedy speculative verify step of K drafted tokens (a
+`runtime.speculative.spec_chunk` of one step, read once; random weights
+give a greedy stream that repeats one token, so the tokens per step say
+nothing of real text: the figures show a verify step by kernel).  Prints
+the card's name and power limit, device time per step by kernel (from the
+profiled steps), the device's busy share of a step (device time per
+step over the UNPROFILED host-clock time per step: the profiler's own
+host overhead would stretch the traced window), and one JSON line with
+the same numbers.
+With `--batch B` a step is one step of the continuous-batching scheduler
 (`serve.scheduler.BatchScheduler`, the paged pool unless `--no-paged`,
 `--spec-k` for its speculative chunk): B greedy requests with prompts of
 `--pos` tokens are prefilled, then `--steps` decode chunks of 8 steps run
@@ -168,7 +170,7 @@ def profile_decode(torch, args, card, cfg, params, w8a8) -> dict:
     """Single-stream decode (or verify) steps after a `--pos`-token prompt
     (see the module note)."""
     from lmrs_tpu_torch.runtime.engine import Engine
-    from lmrs_tpu_torch.runtime.speculative import verify_step
+    from lmrs_tpu_torch.runtime.speculative import spec_chunk
 
     engine = Engine(cfg, params, cache_dtype=args.cache_dtype, w8a8=w8a8)
     prompt = torch.randint(0, cfg.vocab_size, (args.pos,),
@@ -184,12 +186,10 @@ def profile_decode(torch, args, card, cfg, params, w8a8) -> dict:
         for _ in range(args.steps):
             if k:
                 with torch.no_grad():
-                    n_acc, emitted = verify_step(
-                        engine._forward, engine.cfg, engine._hist,
-                        engine.pos, k, 0.0, 1.0)
-                    engine._hist[engine.pos + 1:
-                                 engine.pos + k + 2] = emitted
-                n = int(n_acc.item()) + 1     # the step's one host read
+                    _, n_acc, _, _ = spec_chunk(
+                        engine._run, engine.cfg, engine._hist, engine.pos, 1,
+                        k, 0.0, 1.0)
+                n = int(n_acc.item())         # the step's one host read
                 engine.pos += n
                 n_tokens += n
             else:

@@ -35,7 +35,8 @@ moves the outputs by ~2e-4 of their scale at most), and a row of a K call
 bit for bit the row computed alone.  Flash-decoding (the split pass and
 kernel M): C, G, H, I and J at positions on and next to split boundaries
 and the window's edge within their plain versions' bounds, and a row of a
-T = 5 call bit for bit the row alone; M within `flash_merge_tol` of its
+T = 5 call bit for bit the row alone; C, G and H with a device position
+and host bounds bit for bit the host-position call; M within `flash_merge_tol` of its
 plain version (the same f32 weights and sums in another order); the cp
 partials (B1) of each of four sequence shards within the plain raw acc's
 bound (`flash_attention_batched_tol(..., return_lse=True)`), m within
@@ -1021,6 +1022,45 @@ def test_flash_split_boundaries_on_card(cuda_device, cache, hd, kh, g,
                                           v, ks, vs, pos + i, **kw)
                                   for i in range(5)])
                 assert torch.equal(got, rows), pos
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cache,hd,kh,g,window", [
+    ("bf16", 256, 8, 2, 4096), ("f32", 128, 8, 3, None),
+    ("int8", 128, 8, 3, None), ("int4", 128, 8, 3, None),
+    ("int4", 256, 8, 2, 4096)])
+def test_flash_device_position_on_card(cuda_device, cache, hd, kh, g,
+                                       window):
+    """C (bf16 and f32 cache), G and H (both packings) with the position
+    a (1,) int32 device tensor and host bounds up to 4 splits past it (the
+    split axis sized from the bounds, the splits past the live range
+    exiting at once) give the host-position call bit for bit, at T 1 and
+    5, on split boundaries and at the window's edge; no host read of the
+    position."""
+    split = SPLIT
+    s_len = 8192
+    gen = torch.Generator(device=cuda_device).manual_seed(hd + kh)
+    if cache == "f32":
+        k, v, ks, vs = _split_cache("bf16", kh, hd, s_len, gen)
+        k, v = k.float(), v.float()
+    else:
+        k, v, ks, vs = _split_cache(cache, kh, hd, s_len, gen)
+    kw = dict(n_kv=kh, scale=hd ** -0.5,
+              softcap=50.0 if window else None, window=window)
+    plist = [3 * split - 1, 3 * split, 5 * split - 5]
+    if window:
+        plist += [window + 2 * split - 1, window + 2 * split]
+    for pos in plist:
+        for t_q in (1, 5):
+            q = torch.randn(t_q, kh * g, hd, device=cuda_device,
+                            generator=gen)
+            want = _single(cache, q, k, v, ks, vs, pos, **kw)
+            p = torch.tensor([pos], dtype=torch.int32, device=cuda_device)
+            for bounds in ((pos, pos), (pos, pos + 4 * split),
+                           (pos - 2 * split, pos + split)):
+                got = _single(cache, q, k, v, ks, vs, p, pos_range=bounds,
+                              **kw)
+                assert torch.equal(got, want), (pos, t_q, bounds)
 
 
 @pytest.mark.gpu

@@ -4,13 +4,17 @@ distributed`; CPU, gloo): the four collectives of the forward on a tp x cp
 independent of the rows beside it), `initialize_multihost` with two
 processes that serve one mesh Engine (the counterpart of
 tests/test_multihost.py: rank 0's greedy tokens are the one-device
-engine's), and faults: a follower that raises, and one that dies, end rank
-0's call with an error well inside the process group's timeout, and
-the broken mesh refuses every later call.
+engine's), the mesh's decode and speculative chunks (tp = 2 and cp = 2
+against the one-device chunk path; one header broadcast a chunk), and
+faults: a follower that raises, and one that dies, end rank 0's call with
+an error well inside the process group's timeout, and the broken mesh
+refuses every later call; ranks whose chunk tokens differ raise.
 
 Tolerances: the collectives bit for bit; greedy tokens token for token
 (tests/torch_mesh_cases.py: no near-tie at 1e-3 of the logit scale in
-this run).
+this run); the chunk paths' greedy tokens up to the first near-tie of the
+one-device run at the mesh tolerances of tests/torch_mesh_cases.py (tp
+1e-3, cp 5e-3 of the logit scale).
 """
 
 import os
@@ -24,11 +28,14 @@ import pytest
 import torch
 
 from lmrs_tpu_torch.config import ModelType, QuantType
-from lmrs_tpu_torch.parallel.distributed import (FORWARD, NO_LOGITS, Mesh,
-                                                 choose_backend)
+from lmrs_tpu_torch.parallel.distributed import (DECODE_CHUNK, FORWARD,
+                                                 NEW_CACHE, NO_LOGITS, Mesh,
+                                                 Shard, _bits,
+                                                 choose_backend, load_shard)
 from lmrs_tpu_torch.parallel.tp import make_mesh_engine
-from torch_mesh_cases import (LLAMA_SEED, PROMPT, greedy, open_model,
-                              run_ranks, single_engine, write_model)
+from torch_mesh_cases import (CP_TOL, LLAMA_SEED, PROMPT, SELF_TOL,
+                              agree_until_tie, greedy, open_model, run_ranks,
+                              single_engine, teacher_logits, write_model)
 
 torch.set_num_threads(1)
 
@@ -160,3 +167,66 @@ def test_a_follower_that_dies_fails_the_engine(model):
         assert time.perf_counter() - t0 < 30
     finally:
         eng.mesh.shutdown()
+
+
+def test_mesh_chunks_match_one_device_one_header_a_chunk(model):
+    """tp = 2 and cp = 2 engines decode through the mesh's chunks (one
+    call a chunk: every rank runs it and samples, rank 0 returns the
+    tokens): greedy equal to the one-device chunk path up to a near-tie,
+    plain and speculative.  A chunk broadcasts one header (its input token
+    rides in it) and a speculative chunk the history besides: the
+    broadcasts follow the chunks, not the tokens."""
+    f = model["f"]
+    # a prompt whose stream has no near-tie at the cp tolerance
+    prompt = PROMPT[:32]
+    one = single_engine(f, prefill_chunk=8)
+    n_new = 17
+    want = greedy(one, prompt, n_new)
+    want_logits = teacher_logits(one, prompt, want)
+    prefill = 2 * len(prompt) // 8       # a header and the token ids
+    for tp, cp, tol in ((2, 1, SELF_TOL), (1, 2, CP_TOL)):
+        eng = make_mesh_engine(f, tp=tp, cp=cp, device="cpu",
+                               prefill_chunk=8)
+        try:
+            mesh = eng.mesh
+            for n in (1, 8):
+                eng.decode_chunk = n
+                mesh.reset_stats()
+                got = greedy(eng, prompt, n_new)
+                chunks = -(-(n_new - 1) // n)
+                # the stats call's own header is the last
+                assert mesh.stats()["broadcasts"] == \
+                    [prefill + chunks + 1] * (tp * cp), (tp, cp, n)
+                agree_until_tie(got, want, want_logits, tol)
+            eng.decode_chunk = 4
+            mesh.reset_stats()
+            got = greedy(eng, prompt, n_new, speculative_k=3)
+            chunks = eng.metrics.spec_proposed // (4 * 3)
+            assert 1 <= chunks < n_new - 1
+            assert mesh.stats()["broadcasts"] == \
+                [prefill + 2 * chunks + 1] * (tp * cp)
+            agree_until_tie(got, want, want_logits, tol)
+        finally:
+            eng.close()
+            eng.mesh.shutdown()
+
+
+def test_ranks_whose_chunk_tokens_differ_raise(model):
+    """The chunk's agreement check: ranks that sample alike agree and
+    return the same tokens; a planted fault (rank 1 seeds its sampler
+    otherwise) makes every rank raise after the chunk instead of going on
+    with another stream."""
+    f = model["f"]
+
+    def chunk(comm, seed_of):
+        params, cfg_l = load_shard(f, f.cfg, comm, torch.device("cpu"))
+        shard = Shard(comm, f.cfg, cfg_l, params)
+        shard.run(NEW_CACHE, [1, 0, 0, 64, 0], [])
+        return shard.run(DECODE_CHUNK, [1, 3, 6, _bits(1.0), _bits(1.0),
+                                        seed_of(comm.rank), 1], [],
+                         torch.tensor([5])).tolist()
+
+    same = run_ranks(2, 2, 1, lambda comm: chunk(comm, lambda r: 7))
+    assert same[0] == same[1] and len(same[0]) == 6
+    with pytest.raises(RuntimeError, match="chunk tokens differ"):
+        run_ranks(2, 2, 1, lambda comm: chunk(comm, lambda r: 7 + r))

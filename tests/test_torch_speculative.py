@@ -347,10 +347,12 @@ def test_speculative_stop_token_and_second_turn(tmp_path):
 
 
 def test_speculative_stops_before_the_context_end(tmp_path):
-    """The loop ends while pos + k + 2 < seq_len still holds for the next
-    verify window: no row and no history entry is written past seq_len,
-    and the tokens are a prefix of the plain run's."""
+    """The loop dispatches a chunk of n_steps verify steps only while its
+    worst case fits, pos + n_steps * (k+1) + 1 < seq_len (the JAX engine's
+    rule): no row and no history entry is written past seq_len, and the
+    tokens are a prefix of the plain run's."""
     eng = _engine(tmp_path, "llama", "f32", seq_len=48)
+    eng.decode_chunk = n_steps = 2
     prompt = PROMPTS[1]
     want, margins = plain_greedy(eng, prompt, 64)
     assert len(want) == 48 - len(prompt) + 1        # plain fills the context
@@ -358,7 +360,8 @@ def test_speculative_stops_before_the_context_end(tmp_path):
     k = 4
     got = eng.generate(prompt, GenerationConfig(
         temperature=0.0, max_new_tokens=64, speculative_k=k))
-    assert eng.pos + k + 2 >= eng.cfg.seq_len > eng.pos
+    assert eng.pos + n_steps * (k + 1) + 1 >= eng.cfg.seq_len > eng.pos
+    assert eng.metrics.spec_proposed > 0
     assert len(got) == eng.pos - len(prompt) + 1
     assert_same_up_to_near_tie(got, want[:len(got)], margins[:len(got)],
                                least=8)
