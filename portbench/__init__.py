@@ -1,0 +1,13 @@
+"""portbench: the benchmark of lmrs_tpu_torch, the PyTorch and CUDA port.
+
+One command runs one cell of `BENCHMARK.json` once, from the root of a
+checkout:
+
+    python3 -m portbench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
+
+Everything that belongs to one model configuration, one traffic mix or one
+metric is a file of its own, found by the name `BENCHMARK.json` gives it:
+`configs/<config>.json`, `traffic/<traffic>.json` and
+`metrics/<metric>.py`.  The harness imports the port (`lmrs_tpu_torch`)
+and nothing of the JAX package; `reference/` imports nothing of either.
+"""
