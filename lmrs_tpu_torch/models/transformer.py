@@ -3,13 +3,14 @@
 `forward` serves one sequence: decode steps (T = 1) and prefill chunks (T
 rows).  `forward_batched` serves B sequences at their own positions, t_q
 rows each, the continuous-batching step, over a per-slot cache or a shared
-page pool.  The layers run in a Python loop over per-layer weights; every
-matmul goes through `ops.matmul.qmatmul` (kernels A and B for Q4_0
-weights, D, E and F for Q8_0) on all rows at once, and every attention
-through kernel C (bf16 or f32 KV cache), G (int8) or H (int4) for one
-sequence, I (per-slot cache) or J (page pool) for a batch, which read the
-cache in place.  With `cfg.fuse_ffn` a layer's FFN of up to 16 rows is one
-launch of kernel K (T <= 8) or L (9..16) instead.
+page pool (under a recording torch profiler it marks its stages,
+`tracing.stage`).  The layers run in a Python loop over per-layer
+weights; every matmul goes through `ops.matmul.qmatmul` (kernels A and B
+for Q4_0 weights, D, E and F for Q8_0) on all rows at once, and every
+attention through kernel C (bf16 or f32 KV cache), G (int8) or H (int4)
+for one sequence, I (per-slot cache) or J (page pool) for a batch, which
+read the cache in place.  With `cfg.fuse_ffn` a layer's FFN of up to 16
+rows is one launch of kernel K (T <= 8) or L (9..16) instead.
 
 Family deltas come from ModelConfig: Gemma-2's unit-offset rmsnorms, extra
 pre/post-FFN norms, softcaps, sliding window, sqrt(dim) embedding scale and
@@ -73,6 +74,7 @@ from lmrs_tpu_torch.ops.rope import apply_rope
 from lmrs_tpu_torch.quant import (QTensor, quantize_kv_rows,
                                   quantize_kv_rows_q4, unpack_kv_q4,
                                   unpack_q4)
+from lmrs_tpu_torch.tracing import profiling, stage
 
 
 @dataclasses.dataclass
@@ -628,7 +630,8 @@ def _layer_batched(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
                    cache: KVCache, layer: int, cos: torch.Tensor,
                    sin: torch.Tensor, pos: torch.Tensor, t_q: int,
                    dest, table: Optional[torch.Tensor],
-                   w8a8: bool, comm=None) -> torch.Tensor:
+                   w8a8: bool, comm=None, staged: bool = False
+                   ) -> torch.Tensor:
     """One decoder layer over B slots of t_q rows each, x (B*t_q, D) slot
     by slot.  Writes each slot's K/V rows (and scales) with one indexed
     write per plane, at `dest`: (slot, row) index tensors of the per-slot
@@ -636,38 +639,47 @@ def _layer_batched(cfg: ModelConfig, x: torch.Tensor, lw: LayerWeights,
     then attention runs kernel I or J.  The matmuls and the rest of the
     layer run on all rows at once.  Under cp (a per-slot cache only) the
     writes are `_cp_write_batched`'s and attention is `cp_partials`
-    merged over cp."""
+    merged over cp.  `staged`: mark the stages for a recording profiler
+    (`tracing.stage`)."""
     n = x.shape[0]
-    q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
-    rows, scales = _quantize_kv(cfg, cache, k, v)
-    qb = q.reshape(n // t_q, t_q, cfg.n_heads, cfg.cache_head_dim)
-    if cfg.cp_degree > 1:
-        _cp_write_batched(cache, layer, dest, rows, scales)
-        att = cp_merge(*cp_partials(cfg, qb, cache, layer, pos,
-                                    comm.cp_rank * cache.k.shape[2]), comm)
+    with stage("fwd.qkv", staged):
+        q, k, v = _qkv(cfg, x, lw, cos, sin, w8a8)
+    with stage("fwd.kv_write", staged):
+        rows, scales = _quantize_kv(cfg, cache, k, v)
+        if cfg.cp_degree > 1:
+            _cp_write_batched(cache, layer, dest, rows, scales)
+        elif table is None:
+            i0, i1 = dest
+            cache.k[i0, layer, i1] = rows[0]
+            cache.v[i0, layer, i1] = rows[1]
+            if scales is not None:
+                cache.k_scale[i0, layer, :, i1] = scales[0]
+                cache.v_scale[i0, layer, :, i1] = scales[1]
+        else:
+            i0, i1 = dest
+            cache.k[layer, i0, i1] = rows[0]
+            cache.v[layer, i0, i1] = rows[1]
+            if scales is not None:
+                cache.k_scale[layer, i0, :, i1] = scales[0]
+                cache.v_scale[layer, i0, :, i1] = scales[1]
+    with stage("fwd.attn", staged):
+        qb = q.reshape(n // t_q, t_q, cfg.n_heads, cfg.cache_head_dim)
+        if cfg.cp_degree > 1:
+            att = cp_merge(*cp_partials(cfg, qb, cache, layer, pos,
+                                        comm.cp_rank * cache.k.shape[2]),
+                           comm)
+        else:
+            kw = dict(_attn_kw(cfg), k_scale=cache.k_scale,
+                      v_scale=cache.v_scale)
+            if table is None:
+                att = flash_attention_batched(qb, cache.k, cache.v, layer,
+                                              pos, **kw)
+            else:
+                att = flash_attention_paged(qb, cache.k, cache.v, table,
+                                            layer, pos, **kw)
+    with stage("fwd.post", staged):
         return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1),
                            w8a8, comm)
-    i0, i1 = dest
-    if table is None:
-        cache.k[i0, layer, i1] = rows[0]
-        cache.v[i0, layer, i1] = rows[1]
-        if scales is not None:
-            cache.k_scale[i0, layer, :, i1] = scales[0]
-            cache.v_scale[i0, layer, :, i1] = scales[1]
-    else:
-        cache.k[layer, i0, i1] = rows[0]
-        cache.v[layer, i0, i1] = rows[1]
-        if scales is not None:
-            cache.k_scale[layer, i0, :, i1] = scales[0]
-            cache.v_scale[layer, i0, :, i1] = scales[1]
-    kw = dict(_attn_kw(cfg), k_scale=cache.k_scale, v_scale=cache.v_scale)
-    if table is None:
-        att = flash_attention_batched(qb, cache.k, cache.v, layer, pos, **kw)
-    else:
-        att = flash_attention_paged(qb, cache.k, cache.v, table, layer, pos,
-                                    **kw)
-    return _layer_post(cfg, x, lw, att.reshape(n, cfg.n_heads, -1), w8a8,
-                       comm)
 
 
 def _write_index(cache: KVCache, pos: torch.Tensor, t_q: int,
@@ -719,23 +731,26 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
     if table is None and cache.k.dim() == 4 and cache.k.shape[0] != b:
         raise ValueError(f"a per-slot cache of {cache.k.shape[0]} slots for "
                          f"{b} positions")
-    rows = (pos.long()[:, None] + torch.arange(t_q, device=pos.device))
-    # rope rows of dead lanes past the table's end are never read
-    rows = rows.reshape(-1).clamp(max=params.rope_cos.shape[0] - 1)
-    cos, sin = params.rope_cos[rows], params.rope_sin[rows]
-    if cfg.cp_degree > 1:
-        if table is not None:
-            raise ValueError("a page pool does not shard over cp")
-        dest = _cp_write_index(cache, pos, t_q,
-                               comm.cp_rank * cache.k.shape[2])
-    else:
-        dest = _write_index(cache, pos, t_q, table)
-    x = _rows(params, cfg, x, comm)
+    if cfg.cp_degree > 1 and table is not None:
+        raise ValueError("a page pool does not shard over cp")
+    staged = profiling()
+    with stage("fwd.embed", staged):
+        rows = (pos.long()[:, None] + torch.arange(t_q, device=pos.device))
+        # rope rows of dead lanes past the table's end are never read
+        rows = rows.reshape(-1).clamp(max=params.rope_cos.shape[0] - 1)
+        cos, sin = params.rope_cos[rows], params.rope_sin[rows]
+        if cfg.cp_degree > 1:
+            dest = _cp_write_index(cache, pos, t_q,
+                                   comm.cp_rank * cache.k.shape[2])
+        else:
+            dest = _write_index(cache, pos, t_q, table)
+        x = _rows(params, cfg, x, comm)
     for layer, lw in enumerate(params.layers):
         x = _layer_batched(cfg, x, lw, cache, layer, cos, sin, pos, t_q,
-                           dest, table, w8a8, comm)
+                           dest, table, w8a8, comm, staged)
     if not want_logits or (comm is not None and comm.cp_rank):
         return None
-    if logit_idx is not None:
-        x = x[logit_idx:logit_idx + 1]
-    return _classify(params, cfg, x, comm)
+    with stage("fwd.head", staged):
+        if logit_idx is not None:
+            x = x[logit_idx:logit_idx + 1]
+        return _classify(params, cfg, x, comm)

@@ -30,6 +30,11 @@ Counterpart of `lmrs_tpu/serve/scheduler.py`, on one device.
   pool; prompt-lookup speculation verifies k drafts per slot per step
   (`runtime.speculative.spec_chunk_batched`).
 
+The scheduler keeps a bounded ring of host spans (`spans`: admission,
+prefix search, prefill chunks, first tokens, decode chunks with their
+launch and read, emission; `tracing`) and stamps each request's
+admission and first token on the clock of its submit and done times.
+
 With `mesh` (a `parallel.distributed.Mesh`, as `parallel.tp.
 make_mesh_scheduler` builds it) the same scheduler drives a (tp, cp) mesh
 of ranks, the JAX scheduler's mesh mode: every forward is one mesh call
@@ -58,6 +63,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from lmrs_tpu_torch import tracing
 from lmrs_tpu_torch.config import ModelConfig, resolve_device
 from lmrs_tpu_torch.models.transformer import (CacheDtype, KVCache,
                                                TransformerParams,
@@ -114,11 +120,14 @@ class Request:
     # per-request sampling parameters (None: the scheduler's defaults)
     temperature: Optional[float] = None
     top_p: Optional[float] = None
-    # filled by the scheduler
+    # filled by the scheduler; times on `time.perf_counter()`'s clock:
+    # submitted, staged into a slot, first token sampled and read, done
     id: int = -1
     out: List[int] = dataclasses.field(default_factory=list)
     submit_time: float = 0.0
-    ttft: Optional[float] = None
+    admit_time: Optional[float] = None
+    first_time: Optional[float] = None
+    ttft: Optional[float] = None          # first_time - submit_time
     done_time: Optional[float] = None
     lease: Optional["Lease"] = None
     error: Optional[str] = None
@@ -260,8 +269,11 @@ class BatchScheduler:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.tokens_emitted = 0
+        # the decode chunks' `sched.decode` spans, summed
         self.decode_seconds = 0.0
         self.decode_steps = 0
+        # the host spans of the serving loop (`tracing`), newest last
+        self.spans = tracing.ring()
         # admission prefix cache: a fresh request whose prompt shares at
         # least prefix_cache_min tokens with a resident slot's history
         # forks those rows instead of prefilling them; 0 turns it off
@@ -272,6 +284,9 @@ class BatchScheduler:
     def _sync(self):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def _span(self, name: str, rid: int = -1, n: int = 0) -> tracing.Span:
+        return tracing.Span(self.spans, name, rid, n)
 
     # -- the model: here, or one call of the mesh ----------------------
     def _new_cache(self, kind: int, dtype, a: int, b: int) -> KVCache:
@@ -581,88 +596,97 @@ class BatchScheduler:
 
     # ------------------------------------------------------------------
     def _admit(self):
-        with self._lock:
-            pending = list(self.waiting)
-        for req in pending:
-            if req.lease is not None:
-                slot_idx = req.lease.slot_idx
-                slot = self.slots[slot_idx]
-                if slot.req is not None or slot.pending is not None:
-                    continue  # the previous turn still runs
-            else:
-                free = [i for i, s in enumerate(self.slots)
-                        if s.req is None and s.lease is None
-                        and s.pending is None]
-                if not free:
-                    continue
-                slot_idx = free[0]
-                slot = self.slots[slot_idx]
-                slot.pos = 0
-                slot.tokens = []
-            if self.paged:
-                need_rows = slot.pos + len(req.prompt) + 1
-                # with a window, leading pages recycle mid-prefill: the
-                # most pages held at once, not the whole prompt's
-                need = self._max_live_pages(need_rows) * self.psz
-                # free pages minus what staged prefills will still claim
-                avail = (len(self._free_pages)
-                         - self._pending_reserve_pages(exclude=slot_idx))
-                have = len(slot.pages) * self.psz + avail * self.psz
-                if need > have:
-                    # wait while something runs that will free pages;
-                    # otherwise nothing will free by itself: fail
-                    if (self.active > 0
-                            or any(s.pending is not None
-                                   for s in self.slots)):
-                        continue
-                    with self._lock:
-                        if req not in self.waiting:
-                            continue
-                        self.waiting.remove(req)
-                    held = sum(len(s.pages) for j, s in
-                               enumerate(self.slots) if j != slot_idx)
-                    if held:
-                        req.error = (
-                            f"prompt needs {need} kv-pool rows but only "
-                            f"{have} are available ({held} pages held by "
-                            "idle conversations — end_conversation frees "
-                            "them)")
-                    else:
-                        req.error = ("prompt needs more kv-pool rows than "
-                                     f"the whole pool has ({need} > "
-                                     f"{have})")
-                    if req.on_done is not None:
-                        req.on_done(req.out)
-                    continue
+        with self._span("sched.admit") as sp:
             with self._lock:
-                if req not in self.waiting:
-                    continue
-                self.waiting.remove(req)
-            # a leased slot's pos may have grown since submit()
-            if slot.pos + len(req.prompt) + 1 > self.S:
-                req.error = (f"context overflow at admission: pos={slot.pos}"
-                             f" + prompt {len(req.prompt)} exceeds {self.S}")
+                pending = list(self.waiting)
+            for req in pending:
+                if self._admit_one(req):
+                    sp.n += 1
+
+    def _admit_one(self, req: Request) -> bool:
+        """Stage `req` into a slot (its lease's, or a free one), forking a
+        resident prefix where one is shared; False if it waits or fails."""
+        if req.lease is not None:
+            slot_idx = req.lease.slot_idx
+            slot = self.slots[slot_idx]
+            if slot.req is not None or slot.pending is not None:
+                return False  # the previous turn still runs
+        else:
+            free = [i for i, s in enumerate(self.slots)
+                    if s.req is None and s.lease is None
+                    and s.pending is None]
+            if not free:
+                return False
+            slot_idx = free[0]
+            slot = self.slots[slot_idx]
+            slot.pos = 0
+            slot.tokens = []
+        if self.paged:
+            need_rows = slot.pos + len(req.prompt) + 1
+            # with a window, leading pages recycle mid-prefill: the
+            # most pages held at once, not the whole prompt's
+            need = self._max_live_pages(need_rows) * self.psz
+            # free pages minus what staged prefills will still claim
+            avail = (len(self._free_pages)
+                     - self._pending_reserve_pages(exclude=slot_idx))
+            have = len(slot.pages) * self.psz + avail * self.psz
+            if need > have:
+                # wait while something runs that will free pages;
+                # otherwise nothing will free by itself: fail
+                if (self.active > 0
+                        or any(s.pending is not None for s in self.slots)):
+                    return False
+                with self._lock:
+                    if req not in self.waiting:
+                        return False
+                    self.waiting.remove(req)
+                held = sum(len(s.pages) for j, s in enumerate(self.slots)
+                           if j != slot_idx)
+                if held:
+                    req.error = (
+                        f"prompt needs {need} kv-pool rows but only "
+                        f"{have} are available ({held} pages held by "
+                        "idle conversations — end_conversation frees "
+                        "them)")
+                else:
+                    req.error = ("prompt needs more kv-pool rows than "
+                                 f"the whole pool has ({need} > {have})")
                 if req.on_done is not None:
                     req.on_done(req.out)
-                continue
-            slot.pending = req
-            slot.pending_x = torch.as_tensor(req.prompt, dtype=torch.long,
-                                             device=self.device)
-            slot.pending_off = 0
-            if slot.pos == 0 and self.prefix_cache_min:
+                return False
+        with self._lock:
+            if req not in self.waiting:
+                return False
+            self.waiting.remove(req)
+        # a leased slot's pos may have grown since submit()
+        if slot.pos + len(req.prompt) + 1 > self.S:
+            req.error = (f"context overflow at admission: pos={slot.pos}"
+                         f" + prompt {len(req.prompt)} exceeds {self.S}")
+            if req.on_done is not None:
+                req.on_done(req.out)
+            return False
+        slot.pending = req
+        req.admit_time = time.perf_counter()
+        slot.pending_x = torch.as_tensor(req.prompt, dtype=torch.long,
+                                         device=self.device)
+        slot.pending_off = 0
+        if slot.pos == 0 and self.prefix_cache_min:
+            with self._span("sched.prefix", req.id) as sp:
                 n_cp, donor = self._best_prefix(req.prompt, slot_idx)
-                if n_cp >= self.prefix_cache_min:
-                    if self.paged:
-                        if not self._fork_prefix_paged(donor, slot_idx,
-                                                       n_cp):
-                            continue  # no boundary page: full prefill
-                    else:
-                        self._copy_prefix(donor, slot_idx, n_cp)
-                    slot.pos = n_cp
-                    slot.pending_off = n_cp
-                    slot.tokens = list(req.prompt[:n_cp])
-                    self.prefix_hits += 1
-                    self.prefix_tokens_saved += n_cp
+                if n_cp < self.prefix_cache_min:
+                    return True
+                if self.paged:
+                    if not self._fork_prefix_paged(donor, slot_idx, n_cp):
+                        return True  # no boundary page: full prefill
+                else:
+                    self._copy_prefix(donor, slot_idx, n_cp)
+                sp.n = n_cp
+            slot.pos = n_cp
+            slot.pending_off = n_cp
+            slot.tokens = list(req.prompt[:n_cp])
+            self.prefix_hits += 1
+            self.prefix_tokens_saved += n_cp
+        return True
 
     def _best_prefix(self, prompt: Sequence[int], exclude: int):
         """(longest shared token prefix, donor slot) over the resident
@@ -697,8 +721,10 @@ class BatchScheduler:
             n = slot.pending_x.shape[0]
             off = slot.pending_off
             try:
-                logits, chunk = self._prefill_chunk(slot_idx,
-                                                    slot.pending_x, off)
+                with self._span("sched.prefill", req.id,
+                                min(self.prefill_chunk, n - off)):
+                    logits, chunk = self._prefill_chunk(slot_idx,
+                                                        slot.pending_x, off)
             except PoolExhausted:
                 req.error = "kv page pool exhausted mid-prefill"
                 slot.pending = None
@@ -722,7 +748,8 @@ class BatchScheduler:
             self._release_window_pages()
             if not last:
                 continue
-            with torch.no_grad():
+            with self._span("sched.first_token", req.id, 1) as sp, \
+                    torch.no_grad():
                 if req.temperature == 0.0:
                     first = sample_argmax(logits)
                 elif req.top_p <= 0.0 or req.top_p >= 1.0:
@@ -731,8 +758,9 @@ class BatchScheduler:
                 else:
                     first = sample_topp(logits, req.temperature, req.top_p,
                                         self.generator)
-            first = int(first)
-            req.ttft = time.perf_counter() - req.submit_time
+                first = int(first)
+            req.first_time = sp.t1 * 1e-9
+            req.ttft = req.first_time - req.submit_time
             slot.pending = None
             slot.pending_x = None
             slot.req = req
@@ -772,9 +800,16 @@ class BatchScheduler:
     def step(self):
         """One tick: admit waiting requests, advance each staged prefill
         by one chunk, then one decode chunk for all active slots."""
-        self._release_window_pages()
-        self._admit()
-        self._advance_prefills()
+        with self._span("sched.tick") as sp:
+            self._release_window_pages()
+            self._admit()
+            sp.n = sum(1 for s in self.slots
+                       if s.req is not None or s.pending is not None)
+            self._advance_prefills()
+            self._decode()
+
+    def _decode(self):
+        """The tick's decode chunk over the active slots, if any."""
         active = [(i, s) for i, s in enumerate(self.slots)
                   if s.req is not None]
         if not active:
@@ -809,78 +844,96 @@ class BatchScheduler:
             top_ps[i] = s.req.top_p
         if self.paged:
             self._table_sync()
-        t0 = time.perf_counter()
         if self.spec_k:
-            self._step_speculative(active, tokens, pos, temps, top_ps, n, t0)
+            self._step_speculative(active, tokens, pos, temps, top_ps, n)
             return
         dev = self.device
-        toks = torch.from_numpy(tokens).to(dev)
-        p = torch.from_numpy(pos).to(dev)
-        temps_d = torch.from_numpy(temps).to(dev)
-        top_ps_d = torch.from_numpy(top_ps).to(dev)
-        any_sampled = bool((temps > 0.0).any())
         table = self._table_dev if self.paged else None
-        outs = []
-        with torch.no_grad():
-            for _ in range(n):
-                logits = self._fwd_b(toks, p, table=table)
-                toks = sample_batched(logits, temps_d, top_ps_d,
-                                      self.generator, any_sampled)
-                p = p + 1
-                outs.append(toks)
-            arr = torch.stack(outs).cpu().numpy()   # (n, B): one host read
-        self.decode_seconds += time.perf_counter() - t0
+        any_sampled = bool((temps > 0.0).any())
+        with self._span("sched.decode", n=len(active)) as span, \
+                torch.no_grad():
+            with self._span("sched.decode.launch", n=n):
+                toks = torch.from_numpy(tokens).to(dev)
+                p = torch.from_numpy(pos).to(dev)
+                temps_d = torch.from_numpy(temps).to(dev)
+                top_ps_d = torch.from_numpy(top_ps).to(dev)
+                staged = tracing.profiling()
+                outs = []
+                for _ in range(n):
+                    logits = self._fwd_b(toks, p, table=table)
+                    with tracing.stage("sample", staged):
+                        toks = sample_batched(logits, temps_d, top_ps_d,
+                                              self.generator, any_sampled)
+                    p = p + 1
+                    outs.append(toks)
+                out = torch.stack(outs)
+            with self._span("sched.decode.read", n=n):
+                arr = out.cpu().numpy()        # (n, B): one host read
+        self.decode_seconds += span.seconds
         self.decode_steps += n
-        for i, s in active:
-            pos_before = s.pos
-            used = self._emit(i, s, [int(t) for t in arr[:, i]])
-            # advance only past the tokens taken: after a stop mid-chunk
-            # the overshoot rows sit beyond pos and stay masked
-            if s.req is not None or s.lease is not None:
+        with self._span("sched.emit") as sp:
+            for i, s in active:
+                sp.n += self._emit_chunk(i, s, [int(t) for t in arr[:, i]])
+
+    def _emit_chunk(self, i: int, s: _Slot, toks: List[int]) -> int:
+        """Hand a decode chunk's tokens to slot i's request and advance the
+        slot's pos past those it took (after a stop mid-chunk the
+        overshoot rows sit beyond pos and stay masked); returns how many.
+        A callback may free the slot and lease it to a new conversation:
+        pos then stays that conversation's."""
+        req, lease, pos_before = s.req, s.lease, s.pos
+        used = self._emit(i, s, toks)
+        with self._lock:
+            if s.req is req or (lease is not None and s.lease is lease):
                 s.pos = pos_before + used
+        return used
 
     def _step_speculative(self, active, tokens, pos, temps, top_ps,
-                          n: int, t0: float):
+                          n: int):
         """One speculative decode chunk: each step a greedy slot emits
         1..k+1 tokens, a sampled one 1..k+1 by rejection sampling."""
         k = self.spec_k
         sh = self.S + self._slack
         dev = self.device
-        if self._h_dev is None:
-            self._h_dev = torch.full((self.B, sh), -1, dtype=torch.long,
-                                     device=dev)
-            self._h_dirty = set(range(self.B))
-        for i in sorted(self._h_dirty):
-            row = np.full((sh,), -1, np.int64)
-            t = self.slots[i].tokens[:sh]
-            row[:len(t)] = t
-            self._h_dev[i].copy_(torch.from_numpy(row))
-        self._h_dirty.clear()
         table = self._table_dev if self.paged else None
-        with torch.no_grad():
-            out, n_out, accs = spec_chunk_batched(
-                lambda x, p, t_q: self._fwd_b(x, p, t_q, table), self.cfg,
-                self._h_dev, torch.from_numpy(tokens).to(dev),
-                torch.from_numpy(pos).to(dev), n, k, temps.tolist(),
-                top_ps.tolist(), self.generator)
-            # one host read of the chunk: tokens, counts, accepted drafts
-            flat = torch.cat([out.reshape(-1), n_out,
-                              accs.reshape(-1)]).cpu().numpy()
+        with self._span("sched.decode", n=len(active)) as span, \
+                torch.no_grad():
+            with self._span("sched.decode.launch", n=n):
+                if self._h_dev is None:
+                    self._h_dev = torch.full((self.B, sh), -1,
+                                             dtype=torch.long, device=dev)
+                    self._h_dirty = set(range(self.B))
+                for i in sorted(self._h_dirty):
+                    row = np.full((sh,), -1, np.int64)
+                    t = self.slots[i].tokens[:sh]
+                    row[:len(t)] = t
+                    self._h_dev[i].copy_(torch.from_numpy(row))
+                self._h_dirty.clear()
+                out, n_out, accs = spec_chunk_batched(
+                    lambda x, p, t_q: self._fwd_b(x, p, t_q, table),
+                    self.cfg, self._h_dev, torch.from_numpy(tokens).to(dev),
+                    torch.from_numpy(pos).to(dev), n, k, temps.tolist(),
+                    top_ps.tolist(), self.generator)
+                # one host read of the chunk: tokens, counts, accepted
+                # drafts
+                out = torch.cat([out.reshape(-1), n_out, accs.reshape(-1)])
+            with self._span("sched.decode.read", n=n):
+                flat = out.cpu().numpy()
         nb = self.B * n * (k + 1)
         arr = flat[:nb].reshape(self.B, n * (k + 1))
         counts = flat[nb:nb + self.B]
         accs_np = flat[nb + self.B:].reshape(n, self.B)
-        self.decode_seconds += time.perf_counter() - t0
+        self.decode_seconds += span.seconds
         self.decode_steps += n
-        for i, s in active:
-            self.spec_proposed += n * k
-            self.spec_accepted += int(accs_np[:, i].sum())
-            pos_before = s.pos
-            used = self._emit(i, s, [int(t) for t in arr[i, :counts[i]]])
-            if used != int(counts[i]):
-                self._h_dirty.add(i)
-            if s.req is not None or s.lease is not None:
-                s.pos = pos_before + used
+        with self._span("sched.emit") as sp:
+            for i, s in active:
+                self.spec_proposed += n * k
+                self.spec_accepted += int(accs_np[:, i].sum())
+                used = self._emit_chunk(
+                    i, s, [int(t) for t in arr[i, :counts[i]]])
+                if used != int(counts[i]):
+                    self._h_dirty.add(i)
+                sp.n += used
 
     def abort(self, error: str):
         """End every waiting, staged and active request with `error` (the
