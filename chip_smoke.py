@@ -103,7 +103,14 @@ Phases (any failure ends the run with a non-zero exit):
    step).  Each batched path prints aggregate and per-request tok/s,
    TTFT, pool pages used and their peak, peak memory, prefix-cache hits
    and the speculative acceptance; its launch counts are set to 0 just
-   before and read just after.
+   before and read just after.  Every batched path without speculation
+   (3b, 4b, the fused waves) decodes through the scheduler's CUDA graph,
+   whose replays add the launches read from the graph's own kernel nodes:
+   after its counts are read, the same decode step is captured anew into
+   a graph that never runs, and the two graphs' kernel nodes must be the
+   same functions the same number of times, and the launches the serving
+   graph's nodes count the wrappers' counts of the step's calls; a
+   speculative path must never replay it.
 5. The multimodal path at full width and depth: a synthetic
    Phi-3.5-vision Q8_0 .lmrs (seed 0; CLIP ViT-L/14-336 encoder, 24
    layers, and the 4,096 -> 3,072 projector) written with the port's own
@@ -172,7 +179,9 @@ Phases (any failure ends the run with a non-zero exit):
    tokens a verify step and decode tok/s.
 9. One JSON line of per-kernel results (launches over every path above,
    summed over a mesh's ranks), the card's name and power limit, and the
-   last line {"ok": true, "device": {...}}.
+   last line {"ok": true, "decode_graph_replays": <decode steps that
+   replayed the graph over the batched serving paths of 3b, 4b and the
+   fused waves>, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -2005,6 +2014,23 @@ def drive_batched(torch, label, server, waves, refs, engine, expect,
         raise RuntimeError(f"{label}: kernels launched {sorted(launched)}, "
                            f"expected {sorted(need)} (and perhaps "
                            f"{sorted(may)})")
+    # the decode steps replayed the scheduler's CUDA graph (a speculative
+    # scheduler never captures one); its nodes are the step's kernels,
+    # one by one
+    replays = sched.decode_graph_replays
+    if (replays > 0) == bool(sched.spec_k):
+        raise RuntimeError(f"{label}: {replays} decode graph replays with "
+                           f"speculative_k {sched.spec_k}")
+    if replays:
+        k = thread.call(lambda: graph_step_kernels(torch, sched))
+        check_graph_step(label, k)
+        out["graph_step_launches"] = k["graph_launches"]
+        log(f"  {label}: {replays} decode steps replayed the graph "
+            f"({sched.decode_graph_captures} capture); its "
+            f"{sum(k['graph'].values())} kernel nodes are the step's "
+            f"captured now, its launches {k['graph_launches']}")
+    out.update(decode_graph_replays=sched.decode_graph_replays,
+               decode_graph_captures=sched.decode_graph_captures)
     # after the counts: a near-tie check runs the reference Engine
     n_cmp = sum(check_greedy(torch, label, engine, p, got, refs[tuple(p)],
                              near_tie) for p, got in greedy)
@@ -2033,6 +2059,58 @@ def drive_batched(torch, label, server, waves, refs, engine, expect,
            f"({out['spec_accepted']}/{out['spec_proposed']})"
            if sched.spec_k else ""))
     return out
+
+
+def graph_step_kernels(torch, sched):
+    """What the scheduler's CUDA graph launches a replay against what the
+    same decode step launches now, on the scheduler's thread between
+    ticks: {"graph": the graph's kernel nodes by function, "step": those
+    of the step's `forward_batched` on the same inputs captured now into
+    a graph of its own (never run), both read through libcuda;
+    "graph_launches": the wrappers' launches a replay adds (read from the
+    graph's nodes), "step_launches": the wrappers' counts of the step's
+    calls}.  The profiler's device trace is no exact count here: on the
+    card, on this thread, it lost a step's first three or four kernels in
+    four of five readings, eager or replayed (the card tests hold it
+    against the graph on the main thread)."""
+    from lmrs_tpu_torch.kernels import launches, reset_launches
+    from lmrs_tpu_torch.kernels.cuda import graph_kernels
+    from lmrs_tpu_torch.models.transformer import forward_batched
+
+    dg = sched._graph
+    toks = torch.arange(sched.B, device=sched.device, dtype=dg._x.dtype)
+    pos = torch.tensor([s.pos for s in sched.slots], dtype=dg._pos.dtype,
+                       device=sched.device)
+    table = sched._table_dev if sched.paged else None
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    reset_launches()
+    with torch.no_grad(), torch.cuda.graph(
+            graph, stream=torch.cuda.Stream(sched.device),
+            capture_error_mode="thread_local"):
+        forward_batched(sched.params, sched.cfg, sched.cache, toks, pos,
+                        table=table, w8a8=sched.w8a8)
+    out = {"graph": dict(dg.kernels), "step": graph_kernels(graph),
+           "graph_launches": {k: n for k, n in dg.launches.items() if n},
+           "step_launches": {k: n for k, n in launches().items() if n}}
+    reset_launches()
+    return out
+
+
+def check_graph_step(label, k):
+    """Raise unless `graph_step_kernels`' readings agree: the graph's
+    kernel nodes and the step's the same functions the same number of
+    times, and the launches read from the graph's nodes the wrappers'
+    counts of the step's calls."""
+    if k["graph"] != k["step"]:
+        diff = {n: [k["graph"].get(n, 0), k["step"].get(n, 0)]
+                for n in sorted(set(k["graph"]) | set(k["step"]))
+                if k["graph"].get(n) != k["step"].get(n)}
+        raise RuntimeError(f"{label}: kernels (the graph's nodes, the step "
+                           f"captured now) {diff}")
+    if k["graph_launches"] != k["step_launches"]:
+        raise RuntimeError(f"{label}: the graph's nodes count "
+                           f"{k['graph_launches']}, the step's calls "
+                           f"{k['step_launches']}")
 
 
 def batched_phase_gemma(torch, model_path, tok_path, cfg):
@@ -3932,9 +4010,10 @@ def main() -> int:
     log(f"chip_smoke ran {time.perf_counter() - t_run:.1f} s")
     print(json.dumps({"kernels": per_kernel}), flush=True)
     print(card_line, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(json.dumps({"ok": True, "decode_graph_replays": sum(
+        p.get("decode_graph_replays", 0) for p in paths.values()),
+        "device": {"platform": "gpu", "kind": kind,
+                   "count": torch.cuda.device_count()}}), flush=True)
     return 0
 
 

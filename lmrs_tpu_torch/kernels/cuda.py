@@ -110,3 +110,74 @@ def check(err: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h."""
+    _fields_ = [("func", ctypes.c_void_p),
+                *((f, ctypes.c_uint) for f in (
+                    "grid_x", "grid_y", "grid_z", "block_x", "block_y",
+                    "block_z", "shared_bytes")),
+                ("kernel_params", ctypes.c_void_p),
+                ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p),
+                ("ctx", ctypes.c_void_p)]
+
+
+def demangle(name: bytes) -> str:
+    """A C++ symbol as the C++ runtime's demangler (and so the profiler's
+    device trace) writes it; the symbol itself if it is not mangled."""
+    fn = ctypes.CDLL("libstdc++.so.6").__cxa_demangle
+    fn.restype = ctypes.c_void_p
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    status = ctypes.c_int()
+    p = fn(name, None, None, ctypes.byref(status))
+    if status.value != 0 or not p:
+        return name.decode()
+    try:
+        return ctypes.string_at(p).decode()
+    finally:
+        ctypes.CDLL(None).free(ctypes.c_void_p(p))
+
+
+def graph_kernels(graph) -> Dict[str, int]:
+    """The kernel nodes of a captured `torch.cuda.CUDAGraph(keep_graph=
+    True)`, counted by their function's demangled name: what every replay
+    launches, read from the graph itself through libcuda."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    ptr, size_p = ctypes.c_void_p, ctypes.POINTER(ctypes.c_size_t)
+    name_p = ctypes.POINTER(ctypes.c_char_p)
+    for fn, args in ((cu.cuGraphGetNodes, [ptr, ptr, size_p]),
+                     (cu.cuGraphNodeGetType,
+                      [ptr, ctypes.POINTER(ctypes.c_int)]),
+                     (cu.cuGraphKernelNodeGetParams_v2,
+                      [ptr, ctypes.POINTER(_KernelNodeParams)]),
+                     (cu.cuFuncGetName, [name_p, ptr]),
+                     (cu.cuKernelGetName, [name_p, ptr])):
+        fn.argtypes, fn.restype = args, ctypes.c_int
+
+    def call(fn, *args):
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{fn.__name__}: CUDA error {err}")
+
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    call(cu.cuGraphGetNodes, raw, None, ctypes.byref(n))
+    nodes = (ctypes.c_void_p * n.value)()
+    call(cu.cuGraphGetNodes, raw, nodes, ctypes.byref(n))
+    out: Dict[str, int] = {}
+    for node in nodes[:n.value]:
+        kind, node = ctypes.c_int(), ctypes.c_void_p(node)
+        call(cu.cuGraphNodeGetType, node, ctypes.byref(kind))
+        if kind.value != 0:                  # CU_GRAPH_NODE_TYPE_KERNEL
+            continue
+        params, name = _KernelNodeParams(), ctypes.c_char_p()
+        call(cu.cuGraphKernelNodeGetParams_v2, node, ctypes.byref(params))
+        if params.func:
+            call(cu.cuFuncGetName, ctypes.byref(name), params.func)
+        else:
+            call(cu.cuKernelGetName, ctypes.byref(name), params.kern)
+        key = demangle(name.value)
+        out[key] = out.get(key, 0) + 1
+    return out

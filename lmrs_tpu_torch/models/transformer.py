@@ -50,11 +50,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import List, Optional, Tuple, Union
 
 import torch
 
 from lmrs_tpu_torch.config import ModelConfig, ModelType, QuantType
+from lmrs_tpu_torch.kernels import add_launches, graph_launches
+from lmrs_tpu_torch.kernels.cuda import graph_kernels
 from lmrs_tpu_torch.kernels.ffn_fused import MAX_T as FUSED_MAX_T
 from lmrs_tpu_torch.kernels.ffn_fused import MAX_T_XE as FUSED_XE_MAX_T
 from lmrs_tpu_torch.kernels.ffn_fused import ffn_fused, ffn_fused_xe
@@ -754,3 +757,81 @@ def forward_batched(params: TransformerParams, cfg: ModelConfig,
         if logit_idx is not None:
             x = x[logit_idx:logit_idx + 1]
         return _classify(params, cfg, x, comm)
+
+
+class DecodeGraph:
+    """`forward_batched`'s decode step on one CUDA device (t_q = 1, the
+    (B,) token ids, every lane's logits), captured once as a CUDA graph
+    and replayed: one graph launch a step in place of the layers' eager
+    dispatch, whose host time the device otherwise waits on.
+
+    The first call runs the step eagerly (the kernels' one-time host
+    set-up happens there) and returns its logits, then captures the same
+    step on a side stream.  Every later call copies the tokens and
+    positions into static (B,) buffers and replays, so the graph runs the
+    very kernels of the eager step on the same inputs, with the same split
+    counts (J's grid is sized from the table's static range): its logits
+    equal the eager step's bit for bit.  The weights, the cache, the page
+    table and the RoPE tables are read in place, so the host-encoded TMA
+    descriptors stay valid: a call on another cache, table or batch
+    raises.
+
+    A replay returns the graph's static (B, V) logits buffer, which the
+    next replay overwrites: read it, in stream order, before the next
+    call.  Captures are taken one at a time in the process (schedulers on
+    other threads, dp replicas, may capture too), each on a side stream
+    of the step's device.  `kernels` is the graph's kernel nodes by
+    function (`kernels.cuda.graph_kernels`), and `launches` the wrappers'
+    launches among them (`kernels.graph_launches`), which each replay
+    adds to the kernels' counts (`kernels.launches()`); the capture's
+    wrapper calls, which launch nothing, are taken back.  `captures` and
+    `replays` count what the graph did."""
+
+    _capturing = threading.Lock()
+
+    def __init__(self, params: TransformerParams, cfg: ModelConfig,
+                 w8a8: bool = True):
+        self.params, self.cfg, self.w8a8 = params, cfg, w8a8
+        self.captures = 0
+        self.replays = 0
+        self._key = None
+        self._graph = None
+
+    def __call__(self, cache: KVCache, x: torch.Tensor, pos: torch.Tensor,
+                 table: Optional[torch.Tensor] = None) -> torch.Tensor:
+        key = (cache.k.data_ptr(), cache.v.data_ptr(),
+               None if table is None else table.data_ptr(), x.shape[0])
+        if self._graph is None:
+            logits = forward_batched(self.params, self.cfg, cache, x, pos,
+                                     table=table, w8a8=self.w8a8)
+            self._capture(cache, x, pos, table)
+            self._key = key
+            return logits
+        if key != self._key:
+            raise RuntimeError("DecodeGraph: a step on another cache, page "
+                               "table or batch than the captured one")
+        self._x.copy_(x)
+        self._pos.copy_(pos)
+        self._graph.replay()
+        add_launches(self.launches)
+        self.replays += 1
+        return self._logits
+
+    def _capture(self, cache: KVCache, x: torch.Tensor, pos: torch.Tensor,
+                 table: Optional[torch.Tensor]) -> None:
+        self._x, self._pos = x.clone(), pos.clone()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with DecodeGraph._capturing:
+            with torch.cuda.graph(graph, stream=torch.cuda.Stream(x.device),
+                                  capture_error_mode="thread_local"):
+                self._logits = forward_batched(self.params, self.cfg, cache,
+                                               self._x, self._pos,
+                                               table=table, w8a8=self.w8a8)
+        graph.instantiate()
+        self.kernels = graph_kernels(graph)
+        self.launches = graph_launches(
+            self.kernels, "flash_attention_batched" if table is None
+            else "flash_attention_paged")
+        add_launches(self.launches, -1)
+        self._graph = graph
+        self.captures += 1

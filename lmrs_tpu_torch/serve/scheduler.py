@@ -18,8 +18,11 @@ Counterpart of `lmrs_tpu/serve/scheduler.py`, on one device.
   stream `forward` on the slot's own (L, S, row) block (kernels C, G, H); a
   paged one runs `forward_batched` with one lane through the slot's table
   row (kernel J).
-- A decode chunk is `decode_chunk` eager steps whose sampled tokens stay on
-  the device; the host reads the chunk's (n, B) tokens once at its end.
+- A decode chunk is `decode_chunk` steps whose sampled tokens stay on the
+  device; the host reads the chunk's (n, B) tokens once at its end.  On
+  one CUDA device a step's forward is a CUDA graph replayed
+  (`models.transformer.DecodeGraph`, captured at the first decode step);
+  the sampling after it stays eager.
   Temperature and top-p are per request (`ops.sampling.sample_batched`);
   whether any slot samples is known on the host, so an all-greedy batch
   never sorts its logits.
@@ -47,12 +50,17 @@ does not shard over cp.
 
 PyTorch runs eagerly, so the JAX scheduler's compile-avoidance (attention
 buckets, one program per padded chunk, warm-up sweeps) has no counterpart
-here; prefill chunks are padded to a power of two only because the padding
-decides which rows are written (and, paged, that the window fits a page).
+here beyond the decode step's one graph: every step runs all B lanes with
+the positions and the page table on the device, so it has one shape per
+scheduler.  Prefill chunks, image rows, speculative verify windows and
+mesh forwards run eagerly; prefill chunks are padded to a power of two
+only because the padding decides which rows are written (and, paged, that
+the window fits a page).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import threading
@@ -65,8 +73,8 @@ import torch
 
 from lmrs_tpu_torch import tracing
 from lmrs_tpu_torch.config import ModelConfig, resolve_device
-from lmrs_tpu_torch.models.transformer import (CacheDtype, KVCache,
-                                               TransformerParams,
+from lmrs_tpu_torch.models.transformer import (CacheDtype, DecodeGraph,
+                                               KVCache, TransformerParams,
                                                cache_dtype_of, copy_rows,
                                                forward, forward_batched,
                                                new_cache, slot_view)
@@ -280,6 +288,21 @@ class BatchScheduler:
         self.prefix_cache_min = prefix_cache_min
         self.prefix_hits = 0
         self.prefix_tokens_saved = 0
+        # the decode step as a CUDA graph: one device, no mesh
+        self._graph = (DecodeGraph(params, cfg, w8a8)
+                       if self.device.type == "cuda" and mesh is None
+                       else None)
+
+    @property
+    def decode_graph_captures(self) -> int:
+        """Captures of the decode step's CUDA graph: 1 once the first
+        decode step has run on one CUDA device without a mesh, else 0."""
+        return 0 if self._graph is None else self._graph.captures
+
+    @property
+    def decode_graph_replays(self) -> int:
+        """Decode steps that replayed the graph."""
+        return 0 if self._graph is None else self._graph.replays
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -318,11 +341,20 @@ class BatchScheduler:
                table: Optional[torch.Tensor] = None,
                logit_idx: Optional[int] = None,
                want_logits: bool = True) -> Optional[torch.Tensor]:
-        """The batched forward over the scheduler's cache."""
+        """The batched forward over the scheduler's cache.  A decode step of
+        every lane (t_q 1, the (B,) token ids, all logits) on one CUDA
+        device replays the decode graph: its logits are the graph's static
+        buffer, which the next such call overwrites, so the caller reads
+        them (in stream order) before it calls again, as `_decode`'s
+        sampling does."""
         if self.mesh is not None:
             return self.mesh.forward_batched(self._cid, x, p, t_q, table,
                                              logit_idx, self.w8a8,
                                              want_logits)
+        if (self._graph is not None and t_q == 1 and logit_idx is None
+                and want_logits and not x.dtype.is_floating_point
+                and x.shape[0] == self.B):
+            return self._graph(self.cache, x, p, table)
         return forward_batched(self.params, self.cfg, self.cache, x, p,
                                t_q=t_q, table=table, logit_idx=logit_idx,
                                w8a8=self.w8a8, want_logits=want_logits)
@@ -858,14 +890,20 @@ class BatchScheduler:
                 temps_d = torch.from_numpy(temps).to(dev)
                 top_ps_d = torch.from_numpy(top_ps).to(dev)
                 staged = tracing.profiling()
+                replays = self.decode_graph_replays
+                graph_span = (contextlib.nullcontext() if self._graph is None
+                              else self._span("sched.decode.graph"))
                 outs = []
-                for _ in range(n):
-                    logits = self._fwd_b(toks, p, table=table)
-                    with tracing.stage("sample", staged):
-                        toks = sample_batched(logits, temps_d, top_ps_d,
-                                              self.generator, any_sampled)
-                    p = p + 1
-                    outs.append(toks)
+                with graph_span:
+                    for _ in range(n):
+                        logits = self._fwd_b(toks, p, table=table)
+                        with tracing.stage("sample", staged):
+                            toks = sample_batched(logits, temps_d, top_ps_d,
+                                                  self.generator, any_sampled)
+                        p = p + 1
+                        outs.append(toks)
+                    if self._graph is not None:
+                        graph_span.n = self.decode_graph_replays - replays
                 out = torch.stack(outs)
             with self._span("sched.decode.read", n=n):
                 arr = out.cpu().numpy()        # (n, B): one host read

@@ -27,6 +27,9 @@ records drop.  The names (rid / n):
                         speculative                    request
     sched.decode.launch its uploads, forwards and      -1 / steps
                         samplings, up to the read
+    sched.decode.graph  inside the launch, its steps   -1 / steps that
+                        where the forward is a CUDA    replayed the graph
+                        graph (one CUDA device)
     sched.decode.read   the chunk's one host read      -1 / steps
     sched.emit          the chunk's tokens handed to   -1 / tokens emitted
                         the callbacks

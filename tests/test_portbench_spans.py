@@ -1,10 +1,10 @@
 """The benchmark's readers of the port's own spans and request times
 (`portbench/spans.py`, `decode_launch_ms`, `decode_lane_share`,
-`queue_wait_p90_ms`, `prefill_p90_ms`): their arithmetic on a synthetic
-ring and requests, the cut at the first profiled span, no reading without
-a recorder, from a program that keeps no ring or from a ring that
-overflowed; and a tiny traced CPU run of each text cell, which reads the
-three that its cell lists."""
+`queue_wait_p90_ms`, `prefill_p90_ms`, `decode_graph_share`): their
+arithmetic on a synthetic ring and requests, the cut at the first
+profiled span, no reading without a recorder, from a program that keeps
+no ring or from a ring that overflowed; and a tiny traced CPU run of each
+text cell, which reads the three that its cell lists."""
 
 import types
 from collections import deque
@@ -33,12 +33,16 @@ def span(name, t0, t1, n=0, rid=-1, profiled=False):
     return (name, ns(t0), ns(t1), rid, n, profiled)
 
 
-def chunk(t0, launch, read, lanes, steps=8, profiled=False):
-    """One decode chunk's three records, in the order the port appends
-    them (children first)."""
+def chunk(t0, launch, read, lanes, steps=8, profiled=False, graph=None):
+    """One decode chunk's records, in the order the port appends them
+    (children first); with `graph`, a `sched.decode.graph` span of that
+    many replays inside the launch."""
     t1 = t0 + launch + read
-    return [span("sched.decode.launch", t0, t0 + launch, steps,
-                 profiled=profiled),
+    inner = [] if graph is None else [
+        span("sched.decode.graph", t0 + 0.001, t0 + launch - 0.001, graph,
+             profiled=profiled)]
+    return inner + [span("sched.decode.launch", t0, t0 + launch, steps,
+                         profiled=profiled),
             span("sched.decode.read", t0 + launch, t1, steps,
                  profiled=profiled),
             span("sched.decode", t0, t1, lanes, profiled=profiled)]
@@ -148,3 +152,28 @@ def test_traced_cpu_run_reads_the_spans(runs, name, want):
     assert 0 < m["decode_lane_share"] <= 100.0
     assert m.get("queue_wait_p90_ms", 1.0) > 0
     assert m.get("prefill_p90_ms", 1.0) > 0
+
+
+def test_decode_graph_share_on_a_planted_ring():
+    ring = [span("sched.tick", 1.0, 1.5)]
+    ring += chunk(9.97, 0.04, 0.02, lanes=4, graph=7)   # the capture's
+    ring += chunk(11.0, 0.03, 0.01, lanes=2, graph=8)
+    ring += chunk(12.0, 0.05, 0.01, lanes=3, steps=4)   # a speculative one
+    ring += [span("sched.tick", 14.0, 14.5, profiled=True)]
+    ring += chunk(15.0, 0.5, 0.5, lanes=4, profiled=True, graph=8)
+    # replays 7 + 8 of the 20 steps before t_p
+    assert reader("decode_graph_share")(ctx(ring)) == pytest.approx(
+        100.0 * 15 / 20)
+
+
+def test_decode_graph_share_reads_nothing_without_graph_spans():
+    ring, recs = synthetic()              # the parent's ring: no graph span
+    assert reader("decode_graph_share")(ctx(ring, recs)) is None
+    graph_after_tp = [span("sched.tick", 1.0, 1.5)] + chunk(
+        11.0, 0.03, 0.01, lanes=2) + [
+        span("sched.tick", 14.0, 14.5, profiled=True)] + chunk(
+        15.0, 0.5, 0.5, lanes=4, profiled=True, graph=8)
+    assert reader("decode_graph_share")(ctx(graph_after_tp)) is None
+    c = ctx(ring, recs)
+    c.recorder = None
+    assert reader("decode_graph_share")(c) is None
