@@ -3,7 +3,9 @@ they share (percentiles, the traced window's forwards and kernels).
 
 The context (`Context`) holds the measured window, each turn's record, the
 port's counters at the window's two ends, and, in a traced run, the
-device trace and the forwards recorded while it ran (`Recorder`)."""
+device trace and the forwards recorded while it ran (`Recorder`).  What a
+forward costs is counted by the module of the configuration's
+architecture (`arch/<model_type>.py`)."""
 
 from __future__ import annotations
 
@@ -11,6 +13,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional
 
+from portbench import arch as A
 from portbench import roofline as R
 
 
@@ -42,6 +45,16 @@ class Context:
 
     def peak(self):
         return R.peaks(self.card)
+
+    @property
+    def arch(self):
+        """The module of the configuration's architecture."""
+        return A.load(self.conf["model_type"])
+
+    def arch_counts(self) -> Dict[str, float]:
+        """The window's change of each counter the architecture's costs
+        name (its `COUNTERS`)."""
+        return {k: self.delta(k) for k in A.counters(self.arch)}
 
 
 def p90(values: List[float]) -> Optional[float]:
@@ -87,20 +100,15 @@ def decode_step_ms(ctx: Context) -> Optional[float]:
 
 
 def least_time_s(ctx: Context, kinds) -> float:
-    """The summed least time of the traced stretch's forwards of `kinds`."""
-    s = ctx.conf["serve"]
-    peak = ctx.peak()
+    """The summed least time of the traced stretch's forwards of `kinds`
+    (each costed by the architecture's `forward_cost`), and of its other
+    device work of `kinds`."""
+    arch, peak, counts = ctx.arch, ctx.peak(), ctx.arch_counts()
     total = 0.0
     for f in ctx.recorder.forwards:
         if f["kind"] not in kinds:
             continue
-        cost = R.forward_cost(
-            ctx.cfg, s["quant"], s["group_size"], s["cache_dtype"],
-            rows=f["rows"], logit_rows=f["logit_rows"],
-            kv_read_rows=f["kv_read"], kv_write_rows=f["rows"],
-            attn_keys=f["keys"], embed_rows=f["embed_rows"],
-            int8_rows=(s["quant"] == "Q8_0" and s["w8a8"]
-                       and f["t_q"] <= 8))
+        cost = arch.forward_cost(ctx.cfg, ctx.conf, f, counts)
         total += R.bound_s(cost["bytes"], cost["ops_bf16"],
                            cost["ops_int8"], peak)
     for sp in ctx.recorder.extra_costs:

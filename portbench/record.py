@@ -2,7 +2,10 @@
 the calls into the port: each scheduler call wrapped in a
 `record_function` span (read by the trace's idle-gap breakdown), the
 prompt tokens each admission takes, and, while the device trace runs, each
-forward with the sizes its cost is counted from.
+forward with its raw sizes: a decode step's lanes as (physical pages,
+rows read) with the pool's page size, a chunk's start position and rows.
+What a forward of those sizes reads and computes is its architecture's
+(`arch/<model_type>.py`), counted after the window.
 
 Wrappers are instance attributes of one `BatchScheduler`; untraced runs
 install none."""
@@ -11,8 +14,6 @@ from __future__ import annotations
 
 import functools
 from typing import List
-
-from portbench import roofline as R
 
 
 class Recorder:
@@ -89,23 +90,19 @@ class Recorder:
         self._j = 0
 
     def _prefill(self, xt, pos: int, logit_idx, real_rows: int) -> None:
-        rows = real_rows
         self.forwards.append(dict(
             kind="embeds" if xt.dtype.is_floating_point else "prefill",
-            rows=rows, t_q=xt.shape[0],
-            logit_rows=0 if logit_idx is None else 1,
-            kv_read=pos + rows, keys=rows * pos + rows * (rows + 1) // 2,
-            embed_rows=0 if xt.dtype.is_floating_point else rows))
+            start=pos, rows=real_rows, t_q=xt.shape[0],
+            logit_rows=0 if logit_idx is None else 1))
 
     def _decode(self) -> None:
         s = self.sched
         # a lane whose reply ends inside the chunk still runs to its end;
         # only the steps whose tokens are delivered count
-        lanes = [(sl.pages, sl.pos + self._j + 1) for sl in s.slots
+        lanes = [(tuple(sl.pages), sl.pos + self._j + 1) for sl in s.slots
                  if sl.req is not None
                  and len(sl.req.out) + self._j < sl.req.max_new_tokens]
         n = len(lanes)
         self.forwards.append(dict(
-            kind="decode", rows=n, t_q=s.B, logit_rows=n,
-            kv_read=R.unique_rows(lanes, s.psz),
-            keys=sum(r for _, r in lanes), embed_rows=n))
+            kind="decode", rows=n, t_q=s.B, logit_rows=n, lanes=lanes,
+            page_size=s.psz))

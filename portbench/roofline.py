@@ -1,17 +1,21 @@
-"""The yardstick: the card's peaks and the operations and bytes that a
-forward's inputs need, whatever kernel computes them (the bound arithmetic
-of `chip_smoke.py`, `bound_ms`: least time = max(bytes / bandwidth,
+"""The yardstick: the card's peaks and the arithmetic of bytes and
+operations that every architecture shares (the bound arithmetic of
+`chip_smoke.py`, `bound_ms`: least time = max(bytes / bandwidth,
 operations / peak)).
 
-Counting rules:
-- weights count once per forward (every layer matrix, the classifier
-  where logits are made, the embedding rows gathered);
-- KV rows count at the published head_dim (96 for Phi-3.5), not the
-  cache's padded lanes, at the cache type's bytes; a row that several
-  slots read in one step (a shared prefix page) counts once;
+Shared counting rules:
+- a quantized matrix's bytes are its values and f32 group scales
+  (`matrix_bytes`), read once per forward that uses it;
+- KV rows count at the cache type's bytes (`CACHE_BYTES`); a page that
+  several lanes read in one step (a shared prefix page) counts once, at
+  the most rows any of them reads in it (`unique_rows`);
 - products whose operands are both 8-bit-or-narrower integers in the
   reference arithmetic count against the int8 peak, all others against
-  bf16.
+  bf16;
+- an image's tower and projector (`image_cost`).
+What a forward of one architecture reads and computes (which matrices,
+which layers read which KV rows, at which head width) is its module's
+(`arch/<model_type>.py`: `forward_cost`, `attention_cost`).
 """
 
 from __future__ import annotations
@@ -43,67 +47,6 @@ def matrix_bytes(out_f: int, in_f: int, quant: str, gs: int) -> float:
     """A quantized (out, in) matrix's values and f32 group scales."""
     scales = 0.0 if quant == "NONE" else 4.0 * out_f * in_f / gs
     return WEIGHT_BYTES[quant] * out_f * in_f + scales
-
-
-def layer_matrices(cfg) -> Dict[str, tuple]:
-    att, kv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    return {"wqkv": (att + 2 * kv, cfg.dim), "wo": (cfg.dim, att),
-            "w13": (2 * cfg.hidden_dim, cfg.dim),
-            "w2": (cfg.dim, cfg.hidden_dim)}
-
-
-def layer_macs(cfg) -> int:
-    """Multiply-accumulates of one row through one layer's matrices."""
-    return sum(o * i for o, i in layer_matrices(cfg).values())
-
-
-def weight_bytes(cfg, quant: str, gs: int, logits: bool,
-                 embed_rows: int) -> float:
-    per_layer = sum(matrix_bytes(o, i, quant, gs)
-                    for o, i in layer_matrices(cfg).values())
-    b = cfg.n_layers * per_layer
-    if logits:
-        b += matrix_bytes(cfg.vocab_size, cfg.dim, quant, gs)
-    b += embed_rows * matrix_bytes(1, cfg.dim, quant, gs)
-    return b
-
-
-def kv_row_bytes(cfg, cache_dtype: str) -> float:
-    """One token's K and V over all layers, at the published head_dim."""
-    return (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
-            * CACHE_BYTES[cache_dtype])
-
-
-def forward_cost(cfg, quant: str, gs: int, cache_dtype: str, *, rows: int,
-                 logit_rows: int, kv_read_rows: int, kv_write_rows: int,
-                 attn_keys: int, int8_rows: bool = False,
-                 embed_rows: Optional[int] = None) -> Dict[str, float]:
-    """Bytes and operations of one forward of `rows` query rows: its
-    inputs and outputs (weights, the KV rows read and written, the
-    logits), not what passes between its kernels.
-    `attn_keys`: keys summed over the query rows (each row attends to its
-    position + 1 keys); `int8_rows`: the layer products take integer
-    activations (W8A8)."""
-    mm = 2.0 * rows * cfg.n_layers * layer_macs(cfg)
-    cls = 2.0 * logit_rows * cfg.vocab_size * cfg.dim
-    att = 4.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * attn_keys
-    nbytes = (weight_bytes(cfg, quant, gs, logit_rows > 0,
-                           rows if embed_rows is None else embed_rows)
-              + (kv_read_rows + kv_write_rows) * kv_row_bytes(cfg,
-                                                              cache_dtype)
-              + 4.0 * logit_rows * cfg.vocab_size)
-    return dict(bytes=nbytes, ops_bf16=(0.0 if int8_rows else mm) + cls + att,
-                ops_int8=mm if int8_rows else 0.0)
-
-
-def attention_cost(cfg, cache_dtype: str, kv_read_rows: int,
-                   attn_keys: int, rows: int) -> Dict[str, float]:
-    """A decode step's attention over all layers: the KV rows it needs
-    (each once), q in and the output out, and QK^T and PV."""
-    nbytes = (kv_read_rows * kv_row_bytes(cfg, cache_dtype)
-              + 2 * 4.0 * rows * cfg.n_layers * cfg.n_heads * cfg.head_dim)
-    ops = 4.0 * cfg.n_layers * cfg.n_heads * cfg.head_dim * attn_keys
-    return dict(bytes=nbytes, ops_bf16=ops, ops_int8=0.0)
 
 
 def unique_rows(lanes, psz: int) -> int:

@@ -45,10 +45,11 @@ def forbidden_modules():
                   & set(FORBIDDEN))
 
 
-def counters(sched, rec=None) -> dict:
-    """The port's counters, and in a traced run the prompt tokens admitted
-    so far (`record.Recorder`)."""
-    out = {k: float(getattr(sched, k, 0)) for k in COUNTERS}
+def counters(sched, rec=None, names=()) -> dict:
+    """The port's counters (`COUNTERS` and `names`, those an architecture's
+    costs need), and in a traced run the prompt tokens admitted so far
+    (`record.Recorder`)."""
+    out = {k: float(getattr(sched, k, 0)) for k in COUNTERS + tuple(names)}
     out["admitted_prompt_tokens"] = float(rec.admitted_tokens
                                           if rec is not None else 0)
     return out
@@ -111,6 +112,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     import torch
 
     from lmrs_tpu_torch.serve.scheduler import SchedulerThread
+    from portbench import arch as A
     from portbench import check as C
     from portbench import images, serving, spec
     from portbench.drive import Load
@@ -124,10 +126,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     conf, mix = cell.config, cell.traffic
     dev = torch.device(device)
     cfg, weights, params = serving.build_text(conf, seed, dev)
-    vision = None
-    if "vision" in conf:
-        vw, vision = serving.build_vision(conf, seed, dev)
-        weights = serving.MultiWeights(weights, vw)
+    vision = serving.port_vision(conf, weights)
+    arch_counters = A.counters(A.load(conf["model_type"]))
     sched = serving.build_scheduler(cfg, params, conf, mix["batch"], seed,
                                     dev)
     sched.warmup()                       # builds or loads the kernels
@@ -175,7 +175,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.reset_peak_memory_stats(dev)
     w0 = time.perf_counter()
     setup_s = w0 - t_start
-    c0 = counters(sched, rec)
+    c0 = counters(sched, rec, arch_counters)
     stretch = min(float(mix.get("trace_seconds", 4.0)), seconds)
     if trace:
         # the traced stretch: whole ticks from (close - stretch), at least
@@ -191,7 +191,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         thread.call(begin)
     time.sleep(max(0.0, w0 + seconds - time.perf_counter()))
     w1 = time.perf_counter()
-    c1 = counters(sched, rec)
+    c1 = counters(sched, rec, arch_counters)
     load.stopping = True
     load.stop_at = w1
     if trace:

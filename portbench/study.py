@@ -32,12 +32,12 @@ def program_teacher_forced(cell, weights, picked):
     import torch
 
     from lmrs_tpu_torch.models.transformer import forward, init_kv_cache
+    from portbench import arch as A
     from portbench import check as C
-    from portbench.serving import port_config
-    from portbench.weights import port_params
 
-    cfg = port_config(cell.config)
-    params = port_params(cfg, weights)
+    mod = A.load(cell.config["model_type"])
+    cfg = mod.port_config(cell.config)
+    params = mod.port_params(cfg, weights)
     model, _ = C.reference(cell.config, weights)
     gaps, err = [], 0.0
     for r in picked:

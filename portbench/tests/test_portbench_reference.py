@@ -120,7 +120,7 @@ def test_image_reference_against_the_port():
     conf = tiny.tiny_vision_conf()
     dev = torch.device("cpu")
     cfg, w, params = serving.build_text(conf, 3, dev)
-    vw, vision = serving.build_vision(conf, 3, dev)
+    vision = serving.port_vision(conf, w)
     spec = (500, 666, 7)
     img = images.pixels(spec)
     pre = conf["preprocessor"]
@@ -134,7 +134,7 @@ def test_image_reference_against_the_port():
         ours = torch.from_numpy(p).reshape(n, 24, 24, 3, 14, 14)
         ours = ours.permute(0, 3, 1, 4, 2, 5).reshape(n, 3, 336, 336)
         assert torch.equal(ours, torch.from_numpy(x))
-    m = Phi3V(conf, serving.MultiWeights(w, vw))
+    m = Phi3V(conf, w)
     got = encode_image_to_embeds(vision, params, cfg, img, 4)
     want = m.item_rows(("image", spec), "cpu")
     assert got.shape == want.shape == (m.item_length(("image", spec)),
@@ -148,7 +148,7 @@ def test_kv_outlier_lanes():
     """The K and V rows of each head's lowest-frequency rotary pair (lanes
     47 and 95 of 96) take the configuration's larger scale; no other row
     changes."""
-    from portbench.weights import kv_outlier_rows
+    from portbench.arch.phi3 import kv_outlier_rows
 
     conf = tiny.tiny_conf()
     cfg, w, _ = serving.build_text(conf, 5, torch.device("cpu"))

@@ -50,6 +50,19 @@ def test_traced_run_reads_the_counters():
     assert "step_mfu.decode" not in r["metrics"]
 
 
+def test_chat_reads_its_ttft_in_the_traced_run():
+    """The chat cell's TTFT tail is a per-layer reading: the untraced run
+    leaves it out, the traced run gives the end-to-end arithmetic's value
+    under `ttft_p90_ms.chat`."""
+    r = run(CHAT, tiny.tiny_chat())
+    assert "ttft_p90_ms" not in r["metrics"]
+    assert "ttft_p90_ms.chat" not in r["metrics"]
+    r = run(CHAT, tiny.tiny_chat(), trace=True)
+    assert r["correct"], r["check"]
+    v = r["metrics"]["ttft_p90_ms.chat"]
+    assert v["unit"] == "ms" and 0 < v["value"] < float("inf")
+
+
 def fault_stale_state(sched):
     """A decode step that leaves the cache as it was: its K/V rows go to
     the trash page."""
